@@ -1,0 +1,216 @@
+"""Constitutive models on SoA planes: plastic return maps + Kirchhoff stress.
+
+Port of the planes half of gsmpm_tpu/ops/constitutive.py
+(``compute_stress_soa`` and the functions it calls).  Every law is a
+branch-free elementwise function over nine (N,) planes; the material switch
+is a ``torch.where`` over the materials present (``active_materials``), as
+in the JAX package.
+
+Material ids: 0 jelly (fixed corotated), 1 metal (von Mises + StVK),
+2 sand (Drucker-Prager), 3 foam (viscoplastic StVK), 4 fluid (cohesive
+fluid + StVK), 5 plasticine (von Mises with softening + StVK).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from gsmpm_tpu_torch.ops import m33
+
+MATERIAL_JELLY = 0
+MATERIAL_METAL = 1
+MATERIAL_SAND = 2
+MATERIAL_FOAM = 3
+MATERIAL_FLUID = 4
+MATERIAL_PLASTICINE = 5
+
+
+def _vm_return_soa(F_trial, mu, lam, yield_stress, hardening, xi, softening=None):
+    """Planes von Mises return map (metal; plasticine with softening)."""
+    U, sig_raw, V = m33.svd3(F_trial)
+    sig = tuple(torch.clamp_min(s, 0.01) for s in sig_raw)
+    eps = tuple(torch.log(s) for s in sig)
+    sum_eps = eps[0] + eps[1] + eps[2]
+    mean_eps = sum_eps / 3.0
+    tau = tuple(2.0 * mu * e + lam * sum_eps for e in eps)
+    tau_mean = (tau[0] + tau[1] + tau[2]) / 3.0
+    cond = tuple(t - tau_mean for t in tau)
+    cond_norm = torch.sqrt(cond[0] ** 2 + cond[1] ** 2 + cond[2] ** 2)
+    yielding = cond_norm > yield_stress
+
+    eps_hat = tuple(e - mean_eps for e in eps)
+    ehn = torch.sqrt(eps_hat[0] ** 2 + eps_hat[1] ** 2 + eps_hat[2] ** 2) + 1e-6
+    delta_gamma = ehn - yield_stress / (2.0 * mu)
+    ratio = delta_gamma / ehn
+    eps_proj = tuple(e - ratio * eh for e, eh in zip(eps, eps_hat))
+    F_proj = m33.matmul_t(
+        m33.mul_diag_right(U, tuple(torch.exp(e) for e in eps_proj)), V
+    )
+    F_new = m33.mwhere(yielding, F_proj, F_trial)
+    d_yield = 2.0 * mu * xi * delta_gamma
+    if softening is not None:
+        d_yield = -softening * torch.abs(d_yield)
+    if hardening == 1:
+        new_yield = torch.where(yielding, yield_stress + d_yield, yield_stress)
+    else:
+        new_yield = yield_stress
+    return F_new, new_yield
+
+
+def _sand_return_soa(F_trial, mu, lam, alpha):
+    """Planes Drucker-Prager sand projection."""
+    U, sig, V = m33.svd3(F_trial)
+    eps = tuple(torch.log(torch.clamp_min(torch.abs(s), 1e-14)) for s in sig)
+    tr = eps[0] + eps[1] + eps[2]
+    eps_hat = tuple(e - tr / 3.0 for e in eps)
+    ehn = torch.sqrt(eps_hat[0] ** 2 + eps_hat[1] ** 2 + eps_hat[2] ** 2)
+    delta_gamma = ehn + (3.0 * lam + 2.0 * mu) / (2.0 * mu) * tr * alpha
+    safe_norm = torch.clamp_min(ehn, 1e-12)
+    ratio = delta_gamma / safe_norm
+    H = tuple(e - eh * ratio for e, eh in zip(eps, eps_hat))
+    F_proj = m33.matmul_t(
+        m33.mul_diag_right(U, tuple(torch.exp(h) for h in H)), V
+    )
+    F_fail = m33.matmul_t(U, V)
+    return m33.mwhere(
+        delta_gamma > 0, m33.mwhere(tr > 0, F_fail, F_proj), F_trial
+    )
+
+
+def _viscoplastic_return_soa(
+    F_trial, mu, yield_scale, yield_stress, plastic_viscosity, dt, visc_mult,
+    sig_clamp,
+):
+    """Planes deviatoric viscoplastic projection (foam and fluid)."""
+    U, sig_raw, V = m33.svd3(F_trial)
+    sig = tuple(torch.clamp_min(s, sig_clamp) for s in sig_raw)
+    b_sum = sig[0] ** 2 + sig[1] ** 2 + sig[2] ** 2
+    eps = tuple(torch.log(s) for s in sig)
+    tr = eps[0] + eps[1] + eps[2]
+    eps_hat = tuple(e - tr / 3.0 for e in eps)
+    s_trial = tuple(2.0 * mu * eh for eh in eps_hat)
+    s_norm = torch.sqrt(s_trial[0] ** 2 + s_trial[1] ** 2 + s_trial[2] ** 2)
+    y = s_norm - yield_scale * math.sqrt(2.0 / 3.0) * yield_stress
+
+    mu_hat = mu * b_sum / 3.0
+    denom = 1.0 + plastic_viscosity * visc_mult / (
+        2.0 * torch.clamp_min(mu_hat, 1e-12) * dt
+    )
+    s_new_norm = s_norm - y / denom
+    sc = s_new_norm / torch.clamp_min(s_norm, 1e-12)
+    eps_new = tuple(sc * s / (2.0 * mu) + tr / 3.0 for s in s_trial)
+    F_proj = m33.matmul_t(
+        m33.mul_diag_right(U, tuple(torch.exp(e) for e in eps_new)), V
+    )
+    return m33.mwhere(y > 0, F_proj, F_trial)
+
+
+def _stress_fcr_soa(F, U, V, J, mu, lam):
+    R = m33.matmul_t(U, V)
+    term = m33.scale(m33.matmul_t(m33.sub(F, R), F), 2.0 * mu)
+    return m33.add_scaled_identity(term, lam * J * (J - 1.0))
+
+
+def _stress_stvk_soa(F, U, V, sig, mu, lam):
+    sig = tuple(torch.clamp_min(s, 0.01) for s in sig)
+    eps = tuple(torch.log(s) for s in sig)
+    sum_eps = eps[0] + eps[1] + eps[2]
+    tau = tuple(2.0 * mu * e + lam * sum_eps for e in eps)
+    return m33.matmul_t(m33.matmul_t(m33.mul_diag_right(U, tau), V), F)
+
+
+def _stress_dp_soa(F, U, V, sig, mu, lam):
+    sig_safe = tuple(torch.clamp_min(s, 1e-6) for s in sig)
+    log_sig = tuple(torch.log(s) for s in sig_safe)
+    log_sum = log_sig[0] + log_sig[1] + log_sig[2]
+    center = tuple(
+        (2.0 * mu * ls + lam * log_sum) / ss for ls, ss in zip(log_sig, sig_safe)
+    )
+    return m33.matmul_t(m33.matmul_t(m33.mul_diag_right(U, center), V), F)
+
+
+def compute_stress_soa(
+    F_trial,
+    material: torch.Tensor,
+    mu: torch.Tensor,
+    lam: torch.Tensor,
+    yield_stress: torch.Tensor,
+    alpha,
+    hardening: int,
+    xi,
+    plastic_viscosity,
+    softening,
+    dt,
+    active_materials: Tuple[int, ...] = (0,),
+):
+    """Planes material dispatch; returns (F planes, stress planes, yield).
+
+    Return-map F_trial per material, then the symmetrized Kirchhoff stress
+    of the resulting F (jelly gets fixed corotated, the reference's intended
+    branch).  Scalars (alpha, xi, plastic_viscosity, softening, dt) are
+    Python floats.
+    """
+    m = material
+    F = F_trial
+    new_yield = yield_stress
+
+    if MATERIAL_METAL in active_materials:
+        F_vm, y_vm = _vm_return_soa(F_trial, mu, lam, yield_stress, hardening, xi)
+        F = m33.mwhere(m == MATERIAL_METAL, F_vm, F)
+        new_yield = torch.where(m == MATERIAL_METAL, y_vm, new_yield)
+    if MATERIAL_PLASTICINE in active_materials:
+        F_pl, y_pl = _vm_return_soa(
+            F_trial, mu, lam, yield_stress, hardening, xi, softening=softening
+        )
+        F = m33.mwhere(m == MATERIAL_PLASTICINE, F_pl, F)
+        new_yield = torch.where(m == MATERIAL_PLASTICINE, y_pl, new_yield)
+    if MATERIAL_SAND in active_materials:
+        F = m33.mwhere(
+            m == MATERIAL_SAND, _sand_return_soa(F_trial, mu, lam, alpha), F
+        )
+    if MATERIAL_FOAM in active_materials:
+        F = m33.mwhere(
+            m == MATERIAL_FOAM,
+            _viscoplastic_return_soa(
+                F_trial, mu, 0.8, yield_stress, plastic_viscosity, dt, 2.0, 0.01
+            ),
+            F,
+        )
+    if MATERIAL_FLUID in active_materials:
+        F = m33.mwhere(
+            m == MATERIAL_FLUID,
+            _viscoplastic_return_soa(
+                F_trial, mu, 1.0, yield_stress, plastic_viscosity, dt, 1.0, 0.01
+            ),
+            F,
+        )
+
+    J = m33.det(F)
+    U, sig, V = m33.svd3(F)
+
+    stress = tuple(torch.zeros_like(F[0]) for _ in range(9))
+    if MATERIAL_JELLY in active_materials:
+        stress = m33.mwhere(
+            m == MATERIAL_JELLY, _stress_fcr_soa(F, U, V, J, mu, lam), stress
+        )
+    stvk_mats = [
+        mm
+        for mm in (MATERIAL_METAL, MATERIAL_FOAM, MATERIAL_FLUID, MATERIAL_PLASTICINE)
+        if mm in active_materials
+    ]
+    if stvk_mats:
+        stvk = _stress_stvk_soa(F, U, V, sig, mu, lam)
+        is_stvk = torch.zeros_like(m, dtype=torch.bool)
+        for mm in stvk_mats:
+            is_stvk = is_stvk | (m == mm)
+        stress = m33.mwhere(is_stvk, stvk, stress)
+    if MATERIAL_SAND in active_materials:
+        stress = m33.mwhere(
+            m == MATERIAL_SAND, _stress_dp_soa(F, U, V, sig, mu, lam), stress
+        )
+
+    stress = m33.symmetrize(stress)
+    return F, stress, new_yield

@@ -1,0 +1,109 @@
+"""Wrappers of the tiled MPM transfer kernels (csrc/mpm_transfer.cu).
+
+Counterpart of gsmpm_tpu/sim/pallas_mpm.py: ``p2g_tiled`` replaces
+``p2g_tiled_pallas`` (kernel K1, ``_p2g_kernel``) and ``g2p_tiled`` replaces
+``g2p_tiled_pallas`` (kernel K2, ``_g2p_kernel``).  A wrapper given CPU
+tensors returns its plain twin (``p2g_tiled_ref`` / ``g2p_tiled_ref``, from
+sim/tiles.py); given CUDA tensors it launches the kernel on the current
+stream or raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gsmpm_tpu_torch.sim.state import GridConfig
+from gsmpm_tpu_torch.sim.tiles import (
+    QROWS,
+    T_TILE,
+    TileConfig,
+    TiledState,
+    g2p_tiled_ref,
+    p2g_tiled_ref,
+)
+from gsmpm_tpu_torch.utils import build
+
+__all__ = ["p2g_tiled", "g2p_tiled", "p2g_tiled_ref", "g2p_tiled_ref"]
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _lib():
+    lib = build.load("mpm_transfer")
+    lib.gsmpm_p2g_tiled.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _F, _F, _VP]
+    lib.gsmpm_p2g_tiled.restype = ctypes.c_int
+    lib.gsmpm_g2p_tiled.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _F, _VP]
+    lib.gsmpm_g2p_tiled.restype = ctypes.c_int
+    return lib
+
+
+def _need(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_tables(ts: TiledState, tc: TileConfig) -> None:
+    dev = ts.q.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
+    _need(ts.q, "q", (QROWS, tc.np_rows), torch.float32, dev)
+    for name in ("chunk_tile", "chunk_live"):
+        _need(getattr(ts, name), name, (tc.nchunk,), torch.int32, dev)
+
+
+def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
+              tc: TileConfig, dt: float) -> torch.Tensor:
+    """q (QROWS,NP) + stress (16,NP) -> octant windows (ntiles, 256, 64)."""
+    if ts.q.device.type == "cpu":
+        return p2g_tiled_ref(ts, sig, grid, tc, dt)
+    _check_tables(ts, tc)
+    _need(sig, "sig", (16, tc.np_rows), torch.float32, ts.q.device)
+    out = torch.empty((tc.ntiles, 8 * 4 * T_TILE, T_TILE * T_TILE),
+                      dtype=torch.float32, device=ts.q.device)
+    lib = _lib()
+    err = lib.gsmpm_p2g_tiled(
+        ts.q.data_ptr(), sig.data_ptr(), ts.chunk_tile.data_ptr(),
+        ts.chunk_live.data_ptr(), out.data_ptr(), tc.np_rows, tc.nchunk,
+        tc.ntiles, tc.nt, tc.S, tc.n_grid, grid.dx, grid.inv_dx, dt,
+        torch.cuda.current_stream(ts.q.device).cuda_stream,
+    )
+    build.check(lib, err, "p2g_tiled")
+    p2g_tiled.launches += 1
+    return out
+
+
+def g2p_tiled(ts: TiledState, ext: torch.Tensor, grid: GridConfig,
+              tc: TileConfig, dt: float) -> torch.Tensor:
+    """q (QROWS,NP) + octant grid (ntiles, 192, 64) -> new q (QROWS,NP)."""
+    if ts.q.device.type == "cpu":
+        return g2p_tiled_ref(ts, ext, grid, tc, dt)
+    _check_tables(ts, tc)
+    _need(ext, "ext", (tc.ntiles, 8 * 3 * T_TILE, T_TILE * T_TILE),
+          torch.float32, ts.q.device)
+    out = torch.empty_like(ts.q)
+    lib = _lib()
+    err = lib.gsmpm_g2p_tiled(
+        ts.q.data_ptr(), ext.data_ptr(), ts.chunk_tile.data_ptr(),
+        ts.chunk_live.data_ptr(), out.data_ptr(), tc.np_rows, tc.nchunk,
+        tc.nt, tc.S, tc.n_grid, grid.inv_dx, dt,
+        torch.cuda.current_stream(ts.q.device).cuda_stream,
+    )
+    build.check(lib, err, "g2p_tiled")
+    g2p_tiled.launches += 1
+    return out
+
+
+p2g_tiled.launches = 0
+g2p_tiled.launches = 0

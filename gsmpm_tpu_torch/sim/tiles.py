@@ -1,0 +1,667 @@
+"""Tile-bucketed MPM transfer: the forward engine of the port.
+
+Port of the forward half of gsmpm_tpu/sim/tiles.py.  Particles are bucketed
+into 8-cell grid tiles; each tile owns a 16^3-cell window, emitted
+octant-decomposed so that the fold onto the blocked grid is eight in-order
+slice adds.  This module holds everything around the two transfer kernels:
+tile geometry, the packed particle layout ``q`` (QROWS rows), rebucketing,
+window fold/extract, the blocked grid BCs, the substep driver, and the plain
+twins of the kernels (``p2g_tiled_ref`` / ``g2p_tiled_ref``, batched over
+chunks).  The kernels themselves are in sim/cuda_mpm.py; ``substep_tiled``
+calls their wrappers, which take the twins for CPU tensors.
+
+Differences from the JAX engine, none of which changes a result:
+- the drift check that triggers a rebucket is a host-side ``if`` (one
+  device->host read per substep) in place of ``lax.cond``;
+- dropped scatter writes (``mode="drop"``) go to one extra slot that is cut
+  off afterwards;
+- the blocked-grid coordinates for the grid BCs are built once per
+  geometry and cached.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gsmpm_tpu_torch.ops.constitutive import compute_stress_soa
+from gsmpm_tpu_torch.sim.kernels import SoAState, grid_update_soa
+from gsmpm_tpu_torch.sim.state import GridConfig, MPMModel
+
+# packed q row indices
+RX = 0       # 0..2   position (grid coords)
+RV = 3       # 3..5   velocity
+RC = 6       # 6..14  APIC C (row-major)
+RF = 15      # 15..23 F (post return-map)
+RFT = 24     # 24..32 F_trial
+RMASS = 33
+RVOL = 34
+RYIELD = 35
+RDRIFT = 36  # scratch: G2P writes per-particle drift flag here
+QROWS = 40
+
+# aux row indices (per-particle material params, permuted with q)
+AMU, ALAM, AVISC = 0, 1, 2
+AUXROWS = 8
+
+T_TILE = 8     # cells per tile per axis
+W_WIN = 16     # window cells per axis (= 2 padded-grid tiles)
+PAD_LO = 4     # padded coord = cell + PAD_LO; window origin of tile t = 8t
+LOCAL_MIN, LOCAL_MAX = 0, 13       # valid base slots inside a window
+SAFE_MIN, SAFE_MAX = 1, 12         # drift trigger outside this range
+
+
+class TileConfig(NamedTuple):
+    """Static tiling geometry for a given (n_grid, n_particles)."""
+
+    n_grid: int
+    n_particles: int
+    S: int = 256            # chunk rows (particles per chunk)
+    n_occ_cap: int = 0      # max occupied tiles (0 = ntiles)
+
+    @property
+    def nt(self) -> int:    # tiles per axis
+        return -(-self.n_grid // T_TILE)
+
+    @property
+    def ntiles(self) -> int:
+        return self.nt ** 3
+
+    @property
+    def occ_cap(self) -> int:
+        return self.n_occ_cap or self.ntiles
+
+    @property
+    def nchunk(self) -> int:
+        return -(-self.n_particles // self.S) + self.occ_cap
+
+    @property
+    def np_rows(self) -> int:  # padded particle slots
+        return self.nchunk * self.S
+
+
+def default_tile_config(n_grid: int, n_particles: int) -> TileConfig:
+    nt = -(-n_grid // T_TILE)
+    # cap occupied tiles so NP stays bounded for big grids; rebucket reports
+    # overflow through TiledState.ok
+    cap = min(nt ** 3, max(512, 4 * max(1, n_particles // 256)))
+    return TileConfig(n_grid, n_particles, S=256, n_occ_cap=cap)
+
+
+@dataclass
+class TiledState:
+    """Particle state in tile-sorted packed layout."""
+
+    q: torch.Tensor            # (QROWS, NP) f32
+    aux: torch.Tensor          # (AUXROWS, NP) f32: mu, lam, viscosity
+    material: torch.Tensor     # (NP,) int32
+    orig: torch.Tensor         # (NP,) int64 original index, -1 = padding
+    chunk_tile: torch.Tensor   # (NCHUNK,) int32, non-decreasing
+    chunk_first: torch.Tensor  # (NCHUNK,) int32 (1 = first chunk of its tile)
+    chunk_live: torch.Tensor   # (NCHUNK,) int32 (1 = holds real slots)
+    need_rebucket: torch.Tensor  # () bool
+    ok: torch.Tensor           # () bool: tiled layout valid (occ <= cap)
+
+
+# ---------------------------------------------------------------------------
+# pack / unpack
+# ---------------------------------------------------------------------------
+
+def pack_q(soa: SoAState) -> torch.Tensor:
+    """SoA planes -> (QROWS, N) packed matrix."""
+    rows = (
+        list(soa.x) + list(soa.v) + list(soa.C) + list(soa.F)
+        + list(soa.F_trial)
+        + [soa.mass, soa.vol, soa.yield_stress]
+    )
+    zero = torch.zeros_like(soa.mass)
+    return torch.stack(rows + [zero] * (QROWS - len(rows)))
+
+
+def unpack_q(q: torch.Tensor, soa_template: SoAState) -> SoAState:
+    """(QROWS, N) in ORIGINAL order -> SoAState (cov/init_cov from template)."""
+    return soa_template._replace(
+        x=tuple(q[RX + i] for i in range(3)),
+        v=tuple(q[RV + i] for i in range(3)),
+        C=tuple(q[RC + i] for i in range(9)),
+        F=tuple(q[RF + i] for i in range(9)),
+        F_trial=tuple(q[RFT + i] for i in range(9)),
+        mass=q[RMASS],
+        vol=q[RVOL],
+        yield_stress=q[RYIELD],
+    )
+
+
+def to_original_order(ts: TiledState, n: int) -> torch.Tensor:
+    """Scatters ts.q back to original particle order -> (QROWS, n).
+
+    Padding slots write to one extra column that is cut off.
+    """
+    idx = torch.where(ts.orig >= 0, ts.orig, n)
+    out = torch.zeros((QROWS, n + 1), dtype=ts.q.dtype, device=ts.q.device)
+    out[:, idx] = ts.q
+    return out[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# rebucketing
+# ---------------------------------------------------------------------------
+
+def _pad_pattern(tc: TileConfig, grid: GridConfig, slot_tile: torch.Tensor):
+    """Default q columns for padding slots: tile-center x, F=I, mass=0."""
+    nt = tc.nt
+    t3 = torch.stack([
+        slot_tile // (nt * nt), (slot_tile // nt) % nt, slot_tile % nt
+    ])  # (3, NP)
+    x = (t3.to(torch.float32) * T_TILE + T_TILE / 2 + 0.5) * grid.dx
+    pat = torch.zeros((QROWS, slot_tile.shape[0]), dtype=torch.float32,
+                      device=slot_tile.device)
+    pat[RX:RX + 3] = x
+    for d in (0, 4, 8):
+        pat[RF + d] = 1.0
+        pat[RFT + d] = 1.0
+    return pat
+
+
+def rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig) -> TiledState:
+    """Sort particles into tile buckets with S-aligned per-tile ranges.
+
+    The result's chunk_tile is non-decreasing: live chunks follow the tile
+    order and the dead (slack) chunks at the end carry the last used tile.
+    """
+    g, nt, S, NP = tc.n_grid, tc.nt, tc.S, tc.np_rows
+    ntiles = tc.ntiles
+    dev = ts.q.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    x = ts.q[RX:RX + 3]
+    valid = ts.orig >= 0
+
+    cell = torch.clamp(torch.floor(x * grid.inv_dx), 0, g - 1).to(torch.int64)
+    t3 = cell // T_TILE
+    tid = (t3[0] * nt + t3[1]) * nt + t3[2]
+    tid = torch.where(valid, tid, ntiles)
+
+    counts = torch.bincount(tid, minlength=ntiles + 1)
+    n_occ = torch.sum(counts[:ntiles] > 0)
+    ok = n_occ <= tc.occ_cap
+
+    padded = -(-counts[:ntiles] // S) * S
+    dst_start = torch.cat([torch.zeros(1, **i64), torch.cumsum(padded, 0)])
+    total_used = dst_start[-1]
+
+    tid_sorted, order = torch.sort(tid, stable=True)
+    first_pos = torch.searchsorted(tid_sorted, torch.arange(ntiles + 1, **i64))
+    rank = torch.arange(NP, **i64) - first_pos[torch.clamp(tid_sorted, 0, ntiles)]
+    valid_sorted = tid_sorted < ntiles
+    dest = torch.where(
+        valid_sorted,
+        dst_start[torch.clamp(tid_sorted, 0, ntiles - 1)] + rank, NP,
+    )
+    # slots beyond NP (occupied-tile cap overflow) are dropped into slot NP
+    dest = torch.clamp(dest, max=NP)
+    src = torch.full((NP + 1,), -1, **i64)
+    src[dest] = order
+    src = src[:NP]
+    has_src = src >= 0
+    src_c = torch.clamp(src, 0, NP - 1)
+
+    # chunk -> tile first (searchsorted over nchunk positions, not NP slots),
+    # then slot_tile by repeat: slot s lives in chunk s // S
+    cpos = torch.arange(tc.nchunk, **i64) * S
+    chunk_tile0 = torch.clamp(
+        torch.searchsorted(dst_start, cpos, right=True) - 1, 0, ntiles - 1
+    )
+    slot_tile = torch.repeat_interleave(chunk_tile0, S)
+
+    pat = _pad_pattern(tc, grid, slot_tile)
+    new_q = torch.where(has_src[None, :], ts.q[:, src_c], pat)
+    new_aux = torch.where(has_src[None, :], ts.aux[:, src_c], 0.0)
+    new_mat = torch.where(has_src, ts.material[src_c], 0)
+    new_orig = torch.where(has_src, ts.orig[src_c], -1)
+
+    # chunk tables
+    active = cpos < total_used
+    last_tile = slot_tile[torch.clamp(total_used - 1, 0, NP - 1)]
+    chunk_tile = torch.where(active, chunk_tile0, last_tile)
+    chunk_first = active & (
+        cpos == dst_start[torch.clamp(chunk_tile, 0, ntiles - 1)]
+    )
+
+    i32 = torch.int32
+    return TiledState(
+        q=new_q, aux=new_aux, material=new_mat.to(i32), orig=new_orig,
+        chunk_tile=chunk_tile.to(i32), chunk_first=chunk_first.to(i32),
+        chunk_live=active.to(i32),
+        need_rebucket=torch.zeros((), dtype=torch.bool, device=dev),
+        ok=ok,
+    )
+
+
+def bootstrap(
+    soa: SoAState, model: MPMModel, grid: GridConfig, tc: TileConfig
+) -> TiledState:
+    """Initial TiledState from SoA state + per-particle model params."""
+    n, NP = tc.n_particles, tc.np_rows
+    dev = soa.mass.device
+    q = torch.nn.functional.pad(pack_q(soa), (0, NP - n))
+    aux = torch.zeros((AUXROWS, NP), dtype=torch.float32, device=dev)
+    aux[AMU, :n] = model.mu
+    aux[ALAM, :n] = model.lam
+    aux[AVISC, :n] = model.viscosity
+    material = torch.nn.functional.pad(model.material.to(torch.int32),
+                                       (0, NP - n))
+    orig = torch.cat([
+        torch.arange(n, dtype=torch.int64, device=dev),
+        torch.full((NP - n,), -1, dtype=torch.int64, device=dev),
+    ])
+    zeros = torch.zeros((tc.nchunk,), dtype=torch.int32, device=dev)
+    ts = TiledState(
+        q=q, aux=aux, material=material, orig=orig,
+        chunk_tile=zeros, chunk_first=zeros, chunk_live=zeros,
+        need_rebucket=torch.zeros((), dtype=torch.bool, device=dev),
+        ok=torch.ones((), dtype=torch.bool, device=dev),
+    )
+    return rebucket(ts, grid, tc)
+
+
+# ---------------------------------------------------------------------------
+# window fold / extract (static shapes)
+# ---------------------------------------------------------------------------
+
+def fold_windows(windows: torch.Tensor, tc: TileConfig) -> torch.Tensor:
+    """Octant P2G windows (ntiles, 256, 64) -> blocked grid (T,T,T,32,64).
+
+    Octant o = a*4+b*2+c of tile t (rows [o*32, o*32+32), row comp*8+xl,
+    col yl*8+zl) belongs entirely to padded-grid tile t+(a,b,c), so the fold
+    is 8 in-order slice adds.  Domain-boundary clamping already happened in
+    the transfer, so there is no pad folding here.
+    """
+    nt, T = tc.nt, tc.nt + 1
+    acc = torch.zeros((T, T, T, 4 * T_TILE, T_TILE * T_TILE),
+                      dtype=windows.dtype, device=windows.device)
+    o = 0
+    for a in (0, 1):
+        for b in (0, 1):
+            for c in (0, 1):
+                oc = windows[:, o * 32:(o + 1) * 32, :].reshape(
+                    nt, nt, nt, 4 * T_TILE, T_TILE * T_TILE
+                )
+                acc[a:a + nt, b:b + nt, c:c + nt] += oc
+                o += 1
+    return acc
+
+
+def extract_windows(gvb: torch.Tensor, tc: TileConfig) -> torch.Tensor:
+    """Blocked grid velocities (T,T,T,24,64) -> octant blocks (ntiles,192,64).
+
+    Inverse addressing of fold_windows: tile t's G2P input stacks the 8
+    padded-grid tiles t+(a,b,c) (rows oct*24 + comp*8 + xl, col yl*8+zl).
+    """
+    nt = tc.nt
+    parts = []
+    for a in (0, 1):
+        for b in (0, 1):
+            for c in (0, 1):
+                parts.append(
+                    gvb[a:a + nt, b:b + nt, c:c + nt].reshape(
+                        tc.ntiles, 3 * T_TILE, T_TILE * T_TILE
+                    )
+                )
+    return torch.cat(parts, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# per-chunk separable transfer math: the plain twins of the kernels
+# ---------------------------------------------------------------------------
+
+def _tile_origins(tid: torch.Tensor, tc: TileConfig):
+    """(nchunk,) tile ids -> three (nchunk,) window origins (padded coords)."""
+    nt = tc.nt
+    t3 = (tid // (nt * nt), (tid // nt) % nt, tid % nt)
+    return tuple(t.to(torch.int64) * T_TILE for t in t3)
+
+
+def _axis_bases(xrow, torg, grid: GridConfig, tc: TileConfig):
+    """Per-axis 16-slot spline bases for every chunk.
+
+    xrow: (nchunk, S) positions along the axis; torg: (nchunk,) window
+    origins.  Returns (w, dw, u) each (nchunk, 16, S); dw is inv_dx-scaled,
+    u is the unscaled APIC moment basis w*(k - fx).  Out-of-domain stencil
+    weight is folded onto the boundary cell (slot torg+k clips to the core
+    [PAD_LO, PAD_LO+g-1]), the reference's implicit out-of-bounds clamp.
+    """
+    g = tc.n_grid
+    dev = xrow.device
+    gp = xrow * grid.inv_dx
+    basef = torch.floor(gp - 0.5)
+    fx = gp - basef
+    basep = torch.clamp(basef, -1, g - 1).to(torch.int64) + PAD_LO
+    local = torch.clamp(basep - torg[:, None], LOCAL_MIN, LOCAL_MAX)
+    slots = torch.arange(W_WIN, dtype=torch.int64, device=dev)[None, :, None]
+    k = slots - local[:, None, :]                       # (c, 16, S)
+    kf = k.to(xrow.dtype)
+    fxb = fx[:, None, :]
+    w0 = 0.5 * (1.5 - fxb) ** 2
+    w1 = 0.75 - (fxb - 1.0) ** 2
+    w2 = 0.5 * (fxb - 0.5) ** 2
+    w = torch.where(k == 0, w0, torch.where(k == 1, w1,
+                                            torch.where(k == 2, w2, 0.0)))
+    d0 = (fxb - 1.5) * grid.inv_dx
+    d1 = -2.0 * (fxb - 1.0) * grid.inv_dx
+    d2 = (fxb - 0.5) * grid.inv_dx
+    dw = torch.where(k == 0, d0, torch.where(k == 1, d1,
+                                             torch.where(k == 2, d2, 0.0)))
+    u = w * (kf - fxb)
+    # M[c, j, k] = 1 where slot k folds onto slot j
+    kk = torch.arange(W_WIN, dtype=torch.int64, device=dev)[None, None, :]
+    tk = torch.clamp(kk + torg[:, None, None], PAD_LO, PAD_LO + g - 1) \
+        - torg[:, None, None]
+    M = (tk == slots).to(w.dtype)                       # (c, 16, 16)
+    return M @ w, M @ dw, M @ u
+
+
+def _chunk_bases(q, chunk_tile, grid, tc):
+    nchunk = chunk_tile.shape[0]
+    qc = q.reshape(QROWS, nchunk, tc.S).permute(1, 0, 2)   # (c, QROWS, S)
+    torg = _tile_origins(chunk_tile, tc)
+    bases = [_axis_bases(qc[:, RX + a], torg[a], grid, tc) for a in range(3)]
+    return qc, torg, bases
+
+
+def _pair(a, b):
+    """(c,16,S) x (c,16,S) -> (c, 256_jk, S) y/z pair table."""
+    c, _, S = a.shape
+    return (a[:, :, None, :] * b[:, None, :, :]).reshape(c, 256, S)
+
+
+def p2g_tiled_ref(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
+                  tc: TileConfig, dt) -> torch.Tensor:
+    """Plain twin of the P2G kernel: octant windows (ntiles, 256, 64).
+
+    Per chunk, the window is the sum of the separable terms (mass, momentum
+    m v, APIC m dx C u, stress -dt V sigma dw) contracted as
+    wx @ (pair table)^T, the order of gsmpm_tpu's p2g_chunk_mm; chunks of
+    one tile accumulate with ``index_add_``.  Float32 matmuls throughout
+    (TF32 stays off).
+    """
+    qc, _, ((wx, dwx, ux), (wy, dwy, uy), (wz, dwz, uz)) = _chunk_bases(
+        ts.q, ts.chunk_tile, grid, tc
+    )
+    nchunk = qc.shape[0]
+    sc = sig.reshape(16, nchunk, tc.S).permute(1, 0, 2)
+    m = qc[:, RMASS][:, None, :]
+    vol = qc[:, RVOL][:, None, :]
+    dx = grid.dx
+
+    ww = _pair(wy, wz)
+    uw = _pair(uy, wz)
+    wu = _pair(wy, uz)
+    dw = _pair(dwy, wz)
+    wd = _pair(wy, dwz)
+
+    def mm(x16, w256):  # (c,16,S) @ (c,256,S)^T -> (c,16,256)
+        return torch.bmm(x16, w256.transpose(1, 2))
+
+    win = [mm(wx, ww * m)]
+    for r in range(3):
+        c0 = m * dx * qc[:, RC + 3 * r + 0][:, None, :]
+        c1 = m * dx * qc[:, RC + 3 * r + 1][:, None, :]
+        c2 = m * dx * qc[:, RC + 3 * r + 2][:, None, :]
+        s0 = -dt * vol * sc[:, 3 * r + 0][:, None, :]
+        s1 = -dt * vol * sc[:, 3 * r + 1][:, None, :]
+        s2 = -dt * vol * sc[:, 3 * r + 2][:, None, :]
+        w1 = (ww * (m * qc[:, RV + r][:, None, :]) + uw * c1 + wu * c2
+              + dw * s1 + wd * s2)
+        x2 = ux * c0 + dwx * s0
+        win.append(mm(wx, w1) + mm(x2, ww))
+    # (c,4,16,16,16) -> octant rows (a,b,c,comp,xl) x cols (yl,zl)
+    w4 = torch.stack(win, dim=1).reshape(
+        nchunk, 4, 2, T_TILE, 2, T_TILE, 2, T_TILE
+    )
+    cw = w4.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(
+        nchunk, 8 * 4 * T_TILE, T_TILE * T_TILE
+    )
+    out = torch.zeros((tc.ntiles, 8 * 4 * T_TILE, T_TILE * T_TILE),
+                      dtype=cw.dtype, device=cw.device)
+    return out.index_add_(0, ts.chunk_tile.to(torch.int64), cw)
+
+
+def g2p_tiled_ref(ts: TiledState, windows: torch.Tensor, grid: GridConfig,
+                  tc: TileConfig, dt) -> torch.Tensor:
+    """Plain twin of the G2P kernel: new q (QROWS, NP).
+
+    Gathers v, grad v and APIC C from each chunk's (192, 64) octant block,
+    advects x, forms F_trial = (I + dt grad v) F, zeroes v/C of massless
+    slots and writes the drift flag (gsmpm_tpu's g2p_chunk_ref semantics,
+    contracted in g2p_chunk_mm's order).
+    """
+    qc, torg, ((wx, dwx, ux), (wy, dwy, uy), (wz, dwz, uz)) = _chunk_bases(
+        ts.q, ts.chunk_tile, grid, tc
+    )
+    nchunk = qc.shape[0]
+    ext = windows[ts.chunk_tile.to(torch.int64)]       # (c, 192, 64)
+    gv = ext.reshape(nchunk, 2, 2, 2, 3, T_TILE, T_TILE, T_TILE).permute(
+        0, 4, 1, 5, 2, 6, 3, 7
+    ).reshape(nchunk, 3, W_WIN, W_WIN * W_WIN)          # (c, 3, 16_i, 256_jk)
+
+    ww = _pair(wy, wz)
+    uw = _pair(uy, wz)
+    wu = _pair(wy, uz)
+    dw = _pair(dwy, wz)
+    wd = _pair(wy, dwz)
+
+    def red(A, P):  # (c,S,256) x (c,256,S) -> (c,S)
+        return torch.sum(A * P.transpose(1, 2), dim=2)
+
+    new_v, grad, new_C = [], [], []
+    coef = 4.0 * grid.inv_dx
+    for r in range(3):
+        G = gv[:, r]                                    # (c, 16, 256)
+        A = torch.bmm(wx.transpose(1, 2), G)            # (c, S, 256)
+        B = torch.bmm(dwx.transpose(1, 2), G)
+        U = torch.bmm(ux.transpose(1, 2), G)
+        new_v.append(red(A, ww))
+        grad.append([red(B, ww), red(A, dw), red(A, wd)])
+        new_C.append([coef * red(U, ww), coef * red(A, uw),
+                      coef * red(A, wu)])
+
+    valid = qc[:, RMASS] > 0
+    new_x = [qc[:, RX + a] + dt * new_v[a] for a in range(3)]
+    Ft = []
+    for r in range(3):
+        for c in range(3):
+            acc = 0.0
+            for k in range(3):
+                gk = grad[r][k] * dt + (1.0 if k == r else 0.0)
+                acc = acc + gk * qc[:, RF + 3 * k + c]
+            Ft.append(acc)
+
+    out = qc.clone()
+    for a in range(3):
+        out[:, RX + a] = torch.where(valid, new_x[a], qc[:, RX + a])
+        out[:, RV + a] = torch.where(valid, new_v[a], 0.0)
+    for r in range(3):
+        for c in range(3):
+            out[:, RC + 3 * r + c] = torch.where(valid, new_C[r][c], 0.0)
+            out[:, RFT + 3 * r + c] = torch.where(
+                valid, Ft[3 * r + c], qc[:, RF + 3 * r + c]
+            )
+    # drift flag on the advected position
+    g = tc.n_grid
+    drift = torch.zeros_like(valid)
+    for a in range(3):
+        gp = out[:, RX + a] * grid.inv_dx
+        basep = torch.clamp(torch.floor(gp - 0.5), -1, g - 1).to(torch.int64) \
+            + PAD_LO
+        local = basep - torg[a][:, None]
+        drift = drift | (local < SAFE_MIN) | (local > SAFE_MAX)
+    out[:, RDRIFT] = (valid & drift).to(qc.dtype)
+    return out.permute(1, 0, 2).reshape(QROWS, ts.q.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# substep driver
+# ---------------------------------------------------------------------------
+
+def particle_phase(ts: TiledState, model: MPMModel, bcs, time: float,
+                   dt: float):
+    """Particle BCs and the stress return map on the packed rows.
+
+    Returns (ts with q updated, stress rows sig (16, NP)): the inputs of
+    the P2G kernel.
+    """
+    q = ts.q.clone()
+    # particle-phase BCs (impulse) on the packed rows
+    if bcs.particle_ops:
+        x_aos = q[RX:RX + 3].T
+        v_aos = q[RV:RV + 3].T
+        for op in bcs.particle_ops:
+            v_aos = op.apply_particles(x_aos, v_aos, q[RMASS], time, dt)
+        q[RV:RV + 3] = v_aos.T
+
+    F_trial = tuple(q[RFT + i] for i in range(9))
+    new_F, stress, new_yield = compute_stress_soa(
+        F_trial, ts.material, ts.aux[AMU], ts.aux[ALAM], q[RYIELD],
+        model.alpha, model.hardening, model.xi, model.plastic_viscosity,
+        model.softening, dt, active_materials=model.active_materials,
+    )
+    q[RF:RF + 9] = torch.stack(new_F)
+    q[RYIELD] = new_yield
+    sig = torch.cat([
+        torch.stack(stress),
+        torch.zeros((16 - 9, q.shape[1]), dtype=q.dtype, device=q.device),
+    ])
+    return dataclasses.replace(ts, q=q), sig
+
+
+def grid_phase(windows: torch.Tensor, model: MPMModel, bcs, time: float,
+               grid: GridConfig, tc: TileConfig, dt: float) -> torch.Tensor:
+    """P2G windows -> fold -> grid update + grid BCs -> extract: the octant
+    velocity blocks (ntiles, 192, 64) the G2P kernel reads."""
+    acc = fold_windows(windows, tc)
+    grid_v = grid_update_soa(
+        acc[:, :, :, 0:T_TILE],
+        (acc[:, :, :, T_TILE:2 * T_TILE],
+         acc[:, :, :, 2 * T_TILE:3 * T_TILE],
+         acc[:, :, :, 3 * T_TILE:4 * T_TILE]),
+        model.gravity, dt,
+    )  # 3 planes of (T,T,T,8,64)
+    if bcs.grid_ops:
+        grid_v = _apply_grid_bcs_blocked(grid_v, bcs, time, dt, grid, tc)
+    return extract_windows(torch.cat(grid_v, dim=3), tc)
+
+
+def substep_tiled(
+    ts: TiledState,
+    model: MPMModel,
+    bcs,
+    time: float,
+    grid: GridConfig,
+    tc: TileConfig,
+    dt: float,
+) -> TiledState:
+    """One MLS-MPM substep in the tiled layout.
+
+    The reference's order: particle BCs -> stress -> P2G (kernel K1) -> fold
+    -> grid update + grid BCs -> extract -> G2P (kernel K2).  ``time`` is a
+    host float (float32 value).
+    """
+    from gsmpm_tpu_torch.sim.cuda_mpm import g2p_tiled, p2g_tiled
+
+    if bool(ts.need_rebucket):  # one device->host read per substep
+        ts = rebucket(ts, grid, tc)
+    ts, sig = particle_phase(ts, model, bcs, time, dt)
+    windows = p2g_tiled(ts, sig, grid, tc, dt)
+    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt)
+    new_q = g2p_tiled(ts, win_in, grid, tc, dt)
+    need = torch.max(new_q[RDRIFT]) > 0
+    return dataclasses.replace(ts, q=new_q, need_rebucket=need)
+
+
+@functools.lru_cache(maxsize=4)
+def _blocked_coords(nt: int, device: str) -> torch.Tensor:
+    """Core-cell coordinates (M, 3) of every blocked (T,T,T,8,64) cell:
+    x = 8*tx + row, y = 8*ty + lane//8, z = 8*tz + lane%8, each minus
+    PAD_LO (pad cells get out-of-range coords; they carry zero velocity and
+    the transfer clamp never reads them back)."""
+    T = nt + 1
+    sh = (T, T, T, T_TILE, T_TILE * T_TILE)
+    it = dict(dtype=torch.int64, device=device)
+    lane = torch.arange(T_TILE * T_TILE, **it).expand(sh)
+    li = [torch.arange(T_TILE, **it)[:, None].expand(sh),
+          lane // T_TILE, lane % T_TILE]
+    tcoord = [torch.arange(T, **it).reshape(
+        [T if d == e else 1 for e in range(3)] + [1, 1]).expand(sh)
+        for d in range(3)]
+    return torch.stack([
+        (tcoord[d] * T_TILE + li[d] - PAD_LO).to(torch.float32)
+        for d in range(3)], dim=-1).reshape(-1, 3)
+
+
+def _apply_grid_bcs_blocked(grid_v, bcs, time, dt, grid: GridConfig,
+                            tc: TileConfig):
+    """Grid-phase BCs/colliders on the blocked (T,T,T,8,64) velocity planes."""
+    sh = grid_v[0].shape
+    coords = _blocked_coords(tc.nt, str(grid_v[0].device))
+    gv_aos = torch.stack(grid_v, dim=-1).reshape(-1, 3)
+    for op in bcs.grid_ops:
+        gv_aos = op.apply_grid(gv_aos, coords, time, dt, grid.dx)
+    return tuple(gv_aos[:, r].reshape(sh) for r in range(3))
+
+
+def _advance(time: float, dt: float) -> float:
+    """time + dt rounded as the JAX engine's float32 clock."""
+    return float(np.float32(np.float32(time) + np.float32(dt)))
+
+
+def frame_tiled(
+    ts: TiledState,
+    soa_template: SoAState,
+    model: MPMModel,
+    bcs,
+    time: float,
+    n_substeps: int,
+    grid: GridConfig,
+    tc: TileConfig,
+    dt: float,
+):
+    """One frame of substeps with a PERSISTENT tiled state.
+
+    Returns (ts, soa, time); ts.ok False means the occupied-tile cap
+    overflowed during the frame.
+    """
+    for _ in range(n_substeps):
+        ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
+        time = _advance(time, dt)
+    q = to_original_order(ts, tc.n_particles)
+    return ts, unpack_q(q, soa_template), time
+
+
+def run_substeps_tiled(
+    soa: SoAState,
+    model: MPMModel,
+    bcs,
+    time: float,
+    n_substeps: int,
+    grid: GridConfig,
+    dt: float,
+    tc: Optional[TileConfig] = None,
+):
+    """n_substeps in tiled layout; converts SoA <-> tiled at the ends.
+
+    Returns (soa, time, ok).
+    """
+    n = soa.mass.shape[0]
+    if tc is None:
+        tc = default_tile_config(grid.n_grid, n)
+    ts = bootstrap(soa, model, grid, tc)
+    for _ in range(n_substeps):
+        ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
+        time = _advance(time, dt)
+    q = to_original_order(ts, n)
+    return unpack_q(q, soa), time, ts.ok
