@@ -4,23 +4,27 @@
     python3 chip_smoke.py
 
 1. Requires CUDA; prints ``nvidia-smi`` name and power limit.
-2. Builds every kernel of the main path from gsmpm_tpu_torch/csrc/ (one
-   nvcc per source, started together) and times the build.
-3. Holds each kernel against its plain PyTorch twin at the main path's
-   shapes (245,760-gaussian box scene, n_grid 50, 800x800, the bench
-   configuration; the transfers on a state given seeded motion, the blend
-   on frame 0): max abs / relative error, kernel and twin time (CUDA
-   events after warm-up) and the kernel's lower bound on this card.
-4. Runs the whole port on the GPU and on the CPU at a small size and
-   compares the frames.
-5. Drives the main path, ``apps.simulate.simulate`` for 4 frames x 100
-   substeps, with every launch counter set to 0 just before; checks
-   n_dropped == 0, finite frames, motion, and that every kernel launched.
-6. Profiles 2 more frames of ``simulate`` with torch.profiler: device time
-   by kernel and the device's busy share of the frame loop.
-7. Prints the main path's numbers as JSON, the ``nvidia-smi`` name and
-   power limit line, one JSON line with every kernel's numbers, and a last
-   line ``{"ok": true, "device": {...}}``.
+2. Builds every kernel from gsmpm_tpu_torch/csrc/ (one nvcc per source,
+   started together) and times the build.
+3. Simulation path (slice 1): holds K1, K2 and K3 against their plain
+   PyTorch twins at the simulate path's shapes (245,760-gaussian box scene,
+   n_grid 50, 800x800; the transfers on a state given seeded motion, the
+   blend on frame 0), runs the port on the GPU and on the CPU at a small
+   size, drives ``apps.simulate.simulate`` for 4 frames x 100 substeps and
+   profiles 2 more frames.
+4. Identification path (slice 2): ``apps.identify.identify`` at the bench
+   configuration (245,760-gaussian blob, 512x512, 30 substeps per frame,
+   E 1e4 -> 3e3; frame-0 appearance step, ground truth, 2 fit frames),
+   then a timed steady-state loop of fit frames whose launches per frame
+   are asserted exactly, a profile of one fit frame, K4 / K5 against their
+   twins on the fit frame's real candidates (tier 1 and tier 2), K6 on the
+   fit state, and one small fit frame on the GPU and on the CPU.
+5. Every path is driven with every launch counter set to 0 just before it
+   and read just after; each kernel of a path must have launched there.
+6. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+   limit line, one JSON line with every kernel's numbers (error, kernel /
+   twin / bound time and launches on its path), and a last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
 """
@@ -46,6 +50,16 @@ MAIN_RES = 800
 MAIN_FRAMES = 4
 PROFILE_FRAMES = 2
 PROFILE_TOP = 12
+# the identification path: bench.py's fit configuration
+FIT_RES = 512
+FIT_FRAMES = 3          # frame 0 (appearance) + 2 fit frames
+FIT_E_INIT, FIT_E_TRUE = 1e4, 3e3
+STEADY_FRAMES = 2
+FIT_SUBSTEPS = 30
+# launches per fit frame: per substep K1 3 (forward, checkpoint recompute,
+# the fake P2G of G2P's backward), K2 5 (forward, recompute, three fake
+# G2Ps) and K6 2 (one per transfer backward); K4 / K5 once per tier
+PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 
 
@@ -234,7 +248,7 @@ def kernel_phases(dev):
     ))
 
     # ---- K3 stream forward (input: frame 0 of the main path)
-    rcfg = RasterConfig()
+    rcfg = RasterConfig(stream=True)
     w_xyz, w_cov = su.world_geometry(su.state)
     pre = preprocess(w_xyz, w_cov, su.opacity, su.features, su.camera,
                      su.scene.sh_degree, rcfg)
@@ -390,6 +404,379 @@ def profile_phase(dev, main):
     return dict(busy_ms=busy_ms, launches=launches, loop_ms=loop_ms,
                 profiled_wall_ms=wall * 1e3)
 
+# ---------------------------------------------------------------------------
+# the identification path (slice 2)
+# ---------------------------------------------------------------------------
+
+def identify_args(dev, output_path: str, **over):
+    """apps.identify's arguments for the bench fit configuration."""
+    from gsmpm_tpu_torch.apps.identify import build_parser
+
+    a = dict(synthetic=MAIN_N, resolution=FIT_RES, iters=1,
+             frames=FIT_FRAMES, E_init=FIT_E_INIT, E_true=FIT_E_TRUE,
+             output_path=output_path, device=str(dev))
+    a.update(over)
+    return build_parser().parse_args([f"--{k}={v}" for k, v in a.items()])
+
+
+def identify_path(dev, wrappers):
+    """apps.identify end to end at the bench configuration, every launch
+    counter set to 0 just before and read just after."""
+    from gsmpm_tpu_torch.apps.identify import identify
+
+    args = identify_args(dev, str(OUT_DIR / "identify"))
+    stats = {}
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    ident = identify(args, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in wrappers}
+    fits = [r for r in stats["frames"] if r["frame"] > 0]
+    check(len(fits) == FIT_FRAMES - 1, f"fit frames {fits}")
+    check(all(np.isfinite(r["loss"]) for r in stats["frames"]),
+          f"losses {stats['frames']}")
+    check(ident.n_dropped_last == 0 and all(r["n_dropped"] == 0
+                                            for r in fits),
+          f"n_dropped {[r['n_dropped'] for r in fits]}")
+    check(ident.sim_engine == "tiled_vjp", f"engine {ident.sim_engine}")
+    E = ident.optimized_E
+    check(np.isfinite(E) and abs(E / FIT_E_INIT - 1.0) > 1e-6,
+          f"E did not move from {FIT_E_INIT} ({E})")
+    for name in ("p2g_tiled", "g2p_tiled", "sored_tiled", "blend_fwd",
+                 "blend_bwd"):
+        check(counts[name] > 0, f"identify path: {name} never launched")
+    check(counts["stream_blend"] == 0, "identify path ran the stream blend")
+    # at least the launches of the fit frames themselves (re-runs after a
+    # cap resize add forward launches)
+    for name, k in PER_SUBSTEP.items():
+        need = (FIT_FRAMES - 1) * FIT_SUBSTEPS * k
+        check(counts[name] >= need, f"{name}: {counts[name]} < {need}")
+    rc = ident.raster_cfg
+    print(f"identify path: {MAIN_N} gaussians, n_grid 50, {FIT_RES}^2, "
+          f"{FIT_FRAMES} frames x {FIT_SUBSTEPS} substeps: frame seconds "
+          f"{[round(r['s'], 3) for r in stats['frames']]}, losses "
+          f"{[round(r['loss'], 6) for r in stats['frames']]}, E "
+          f"{FIT_E_INIT:g} -> {E:.6g}, nu {ident.optimized_nu:.5f}, caps "
+          f"k_tile {rc.k_tile} k_dense {rc.k_dense} n_dense {rc.n_dense}, "
+          f"cap rebuilds {ident._total_rebuilds}, wall {wall:.1f} s, "
+          f"launches {counts}", flush=True)
+    return ident, counts, dict(
+        frame_s=[r["s"] for r in stats["frames"]],
+        losses=[r["loss"] for r in stats["frames"]], E=E,
+        nu=ident.optimized_nu, k_dense=rc.k_dense, n_dense=rc.n_dense,
+        cap_rebuilds=ident._total_rebuilds, wall_s=wall)
+
+
+def steady_fit(dev, ident, wrappers):
+    """Fit frames after the caps settled: ground truth regenerated for the
+    refined scene, then STEADY_FRAMES fit frames from the reset state, each
+    timed (host clock, ended by a synchronize) with its launches asserted
+    exactly.  Returns the numbers, the state the first frame rendered, its
+    camera and target."""
+    from gsmpm_tpu_torch.apps.identify import make_ring_cameras
+
+    cams = make_ring_cameras(ident.scene, FIT_RES)
+    gt = ident.generate_ground_truth(FIT_E_TRUE, 0.3, cams, FIT_FRAMES)
+    rebuilds = ident._total_rebuilds
+    state, t = ident.reset_state(), 0.0
+    times, per_frame, first = [], [], None
+    for k in range(STEADY_FRAMES):
+        fid = 1 + k % (FIT_FRAMES - 1)
+        if fid == 1:
+            state, t = ident.reset_state(), 0.0
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, state2, t2, _ = ident.fit_frame(state, t, cams[fid], gt[fid])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_frame.append({w.__name__: w.launches for w in wrappers})
+        check(np.isfinite(float(loss)), f"steady loss {float(loss)}")
+        if first is None:
+            first = (state2, cams[fid], gt[fid], float(loss))
+        state, t = state2, t2
+    check(ident._total_rebuilds == rebuilds, "caps resized in steady state")
+    check(ident.sim_engine == "tiled_vjp", f"engine {ident.sim_engine}")
+    tiers = 2 if ident.raster_cfg.k_dense > 0 else 1
+    want = {k: v * FIT_SUBSTEPS for k, v in PER_SUBSTEP.items()}
+    want.update(blend_fwd=tiers, blend_bwd=tiers, stream_blend=0)
+    for got in per_frame:
+        check(got == want, f"launches per fit frame {got}, expected {want}")
+    print(f"steady fit: {STEADY_FRAMES} frames {[round(x, 4) for x in times]}"
+          f" s (mean {np.mean(times):.4f} s), launches per frame {want}",
+          flush=True)
+    return dict(frame_s=times, launches_per_frame=want), first, gt, cams
+
+
+def fit_profile(dev, ident, first, steady):
+    """One fit frame under torch.profiler: device time by kernel and the
+    device's busy share of the unprofiled steady frame time."""
+    state, cam, gt, _ = first
+    ident_state = ident.reset_state()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ident.fit_frame(ident_state, 0.0, cam, gt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type != torch.autograd.DeviceType.CPU]
+    kernels.sort(key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    check(busy_ms > 0, "fit profile: no device time recorded")
+    frame_ms = 1e3 * float(np.mean(steady["frame_s"]))
+    print(f"fit profile: one fit frame under torch.profiler: wall "
+          f"{wall * 1e3:.1f} ms; device busy {busy_ms:.1f} ms in {launches} "
+          f"kernel launches ({launches / FIT_SUBSTEPS:.0f} per substep); "
+          f"unprofiled fit frame {frame_ms:.1f} ms -> device busy "
+          f"{100 * busy_ms / frame_ms:.1f}%", flush=True)
+    top = []
+    # the largest entries, then the port's own kernels further down
+    ours = ("p2g_kernel", "g2p_kernel", "sored_kernel", "blend_fwd_kernel",
+            "blend_bwd_kernel")
+    for i, e in enumerate(kernels):
+        if i >= PROFILE_TOP and not any(k in e.key for k in ours):
+            continue
+        us = _device_us(e)
+        top.append((e.key[:80], us / 1e3, e.count))
+        print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
+              f"x{e.count:<6d} {e.key[:80]}", flush=True)
+    return dict(busy_ms=busy_ms, launches=launches, frame_ms=frame_ms,
+                profiled_wall_ms=wall * 1e3, top=top)
+
+
+def _fit_candidates(ident, state, cam):
+    """The fit frame's windowed render inputs: (pre, tier-1 window
+    (cand, counts, origins), tier-2 window (cand, counts, origins))."""
+    from gsmpm_tpu_torch.render import renderer as rr
+
+    cfg = ident.raster_cfg
+    xyz, cov = ident._world_geometry(state)
+    opacity, features = ident._appearance()
+    pre = rr.preprocess(xyz, cov, opacity, features, cam,
+                        ident.scene.sh_degree, cfg)
+    gidx, counts, origins, _, itl = rr._select_candidates_dupsort_v2(
+        pre, cam, cfg, return_internals=True)
+    tier1 = (rr._gather_candidates(pre, gidx, counts), counts, origins)
+    dtiles, gidx_d, counts_d, dropped = rr._dense_selection(
+        itl, pre.pix_x.shape[0], cfg)
+    check(int(dropped) == 0, f"fit render dropped {int(dropped)}")
+    tier2 = (rr._gather_candidates(pre, gidx_d, counts_d), counts_d,
+             origins[dtiles])
+    return tier1, tier2
+
+
+def blend_phases(dev, ident, first):
+    """K4 and K5 against their twins on the fit frame's real candidates,
+    tier 1 (K = k_tile + k_coarse + k_global) and tier 2 (K = k_dense +
+    k_coarse + k_global), with a seeded image cotangent for K5."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+
+    state, cam, _, _ = first
+    cfg = ident.raster_cfg
+    rng = np.random.default_rng(1)
+    tiers = {}
+    for tier, (cand, counts, origins) in zip(
+            ("tier1", "tier2"), _fit_candidates(ident, state, cam)):
+        F, counts, meta = cb.blend_inputs(cand, counts, origins, cfg)
+        nb, K, P = F.shape[0], F.shape[2], meta.P
+        out_k = cb.blend_fwd(counts, F, meta)
+        out_r = cb.blend_core_ref(counts, F, meta)
+        torch.cuda.synchronize()
+        err4 = float((out_k[:, 0:4] - out_r[:, 0:4]).abs().max())
+        done_diff = float((out_k[:, 4] != out_r[:, 4]).float().mean())
+        last_diff = float((out_k[:, 5] != out_r[:, 5]).float().mean())
+        g = torch.zeros_like(out_k)
+        g[:, 0:4] = torch.from_numpy(rng.normal(size=(nb, 4, P)).astype(
+            np.float32)).to(dev)
+        dF_k = cb.blend_bwd(F, out_k, g, meta)
+        dF_r = cb.blend_core_bwd_ref(F, out_k, g, meta)
+        torch.cuda.synchronize()
+        rel5 = {}
+        for gname, rows in (("quad", slice(0, 6)), ("logo", slice(6, 7)),
+                            ("rgb", slice(8, 11))):
+            scale = float(dF_r[:, rows].abs().max())
+            rel5[gname] = float((dF_k[:, rows] - dF_r[:, rows]).abs().max()
+                                ) / max(scale, 1e-30)
+        pad_rows = float(dF_k[:, 11:].abs().max()) + float(
+            dF_k[:, 7].abs().max())
+        # sequential vs chunked transmittance products round differently
+        # and may flip a pixel's stop decision at t_min (2e-3 abs is the
+        # JAX package's own pallas-vs-XLA tolerance); K5 recovers T by
+        # division in another order: 1e-4 of each row group's largest entry
+        check(err4 <= 2e-3, f"K4 {tier}: max err {err4}")
+        check(done_diff <= 1e-4, f"K4 {tier}: done flags differ {done_diff}")
+        check(last_diff <= 1e-4, f"K4 {tier}: last index differs {last_diff}")
+        check(max(rel5.values()) <= 1e-4, f"K5 {tier}: rel err {rel5}")
+        check(pad_rows == 0.0, f"K5 {tier}: unused dF rows {pad_rows}")
+        ms4 = cuda_ms(lambda: cb.blend_fwd(counts, F, meta), 20)
+        pms4 = cuda_ms(lambda: cb.blend_core_ref(counts, F, meta), 1, 1)
+        ms5 = cuda_ms(lambda: cb.blend_bwd(F, out_k, g, meta), 20)
+        pms5 = cuda_ms(lambda: cb.blend_core_bwd_ref(F, out_k, g, meta), 1,
+                       1)
+        # (candidate, pixel) pairs this data needs: forward, each pixel up
+        # to its stop (its last contributor when done, else its block's
+        # count); backward, each pixel back from its last contributor
+        cnt = counts.to(torch.float64)[:, None]
+        last = out_k[:, 5].to(torch.float64)
+        pairs4 = float(torch.where(out_k[:, 4] > 0, last, cnt).sum())
+        pairs5 = float(last.sum())
+        live_cols = float(counts.sum())
+        # bytes: the 10 used F rows of the live candidates, the outputs
+        # (K4) / inputs and dF (K5); >= 20 / 40 fp32 operations per pair
+        b4 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs4 * 20.0)
+        b5 = bound_ms(live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4,
+                      pairs5 * 40.0)
+        tiers[tier] = dict(nblocks=nb, K=K, live=live_cols, err4=err4,
+                           done_diff=done_diff, last_diff=last_diff,
+                           rel5=rel5, ms4=ms4, pms4=pms4, ms5=ms5, pms5=pms5,
+                           b4=b4, b5=b5, pairs4=pairs4, pairs5=pairs5)
+        print(f"K4/K5 {tier}: {nb} blocks x K {K} ({live_cols:.0f} live "
+              f"candidates): K4 max err {err4:.3g}, done differ "
+              f"{done_diff:.3g}, last differ {last_diff:.3g}, "
+              f"{ms4:.4f} ms (plain {pms4:.2f}, bound {b4[0]:.4f} {b4[1]}, "
+              f"{pairs4:.4g} pairs); K5 rel err "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel5.items())
+              + f", {ms5:.4f} ms (plain {pms5:.2f}, bound {b5[0]:.4f} "
+              f"{b5[1]}, {pairs5:.4g} pairs)", flush=True)
+
+    def row(name, wrapper, err, ms, pms, b, replaces, tol):
+        bound = sum(tiers[t][b][0] for t in tiers)
+        by = max(tiers.values(), key=lambda v: v[b][0])[b][1]
+        return dict(
+            name=name, route="cuda",
+            source="gsmpm_tpu_torch/csrc/tile_blend.cu", replaces=replaces,
+            max_abs_err=err, tol=tol, wrapper=wrapper, library_ms=None,
+            # one fit frame's pair of launches: tier 1 + tier 2
+            ms=sum(tiers[t][ms] for t in tiers),
+            plain_ms=sum(tiers[t][pms] for t in tiers),
+            bound_ms=bound, bound_by=by,
+            per_tier={t: dict(K=v["K"], nblocks=v["nblocks"], ms=v[ms],
+                              plain_ms=v[pms], bound_ms=v[b][0],
+                              bound_by=v[b][1]) for t, v in tiers.items()})
+
+    r4 = row("blend_fwd", cb.blend_fwd,
+             max(v["err4"] for v in tiers.values()), "ms4", "pms4", "b4",
+             "gsmpm_tpu/render/pallas_blend.py:136", "2e-3 abs on rgb/T")
+    r5 = row("blend_bwd", cb.blend_bwd,
+             max(max(v["rel5"].values()) for v in tiers.values()), "ms5",
+             "pms5", "b5", "gsmpm_tpu/render/pallas_blend.py:212",
+             "1e-4 x max per dF row group")
+    return [r4, r5], tiers
+
+
+def sored_phase(dev, ident, first):
+    """K6 against its twin (the chunk form of transfer_vjp._sored_all) on
+    the fit state, with seeded window cotangents."""
+    from gsmpm_tpu_torch.sim import cuda_mpm, tiles
+    from gsmpm_tpu_torch.sim import transfer_vjp as tv
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state
+
+    state = first[0]
+    n = state.x.shape[0]
+    grid = ident.grid
+    tc = tiles.default_tile_config(grid.n_grid, n)
+    ts = tiles.bootstrap(soa_from_state(state), ident.model, grid, tc)
+    rng = np.random.default_rng(2)
+    planes = torch.from_numpy(rng.normal(size=(tc.ntiles, 48, 256)).astype(
+        np.float32)).to(dev)
+    args = (ts.q, planes, ts.chunk_tile, ts.chunk_live, grid, tc)
+    got = cuda_mpm.sored_tiled(*args)
+    want = tv.sored_tiled_ref(*args)
+    torch.cuda.synchronize()
+    rel = {}
+    for c in range(3):
+        for gname, lo, hi in (("dW", 0, 3), ("dU", 3, 12), ("dD", 12, 21)):
+            rows = slice(21 * c + lo, 21 * c + hi)
+            scale = float(want[rows].abs().max())
+            rel[f"{gname}{c}"] = float((got[rows] - want[rows]).abs().max()
+                                       ) / max(scale, 1e-30)
+    err6 = float((got - want).abs().max())
+    # fp32 sums over the 27 stencil nodes in another order than the twin's
+    # bmm contractions: 1e-4 of each row group's largest entry
+    check(max(rel.values()) <= 1e-4, f"K6 sored: rel err {rel}")
+    check(float(got[63].abs().max()) == 0.0, "K6 sored: padding row")
+    ms6 = cuda_ms(lambda: cuda_mpm.sored_tiled(*args), 20)
+    pms6 = cuda_ms(lambda: tv.sored_tiled_ref(*args), 1, 1)
+    n_live = int(ts.chunk_live.sum()) * tc.S
+    n_real = int((ts.q[tiles.RMASS] > 0).sum())
+    occupied = int(torch.unique(ts.chunk_tile[ts.chunk_live == 1]).numel())
+    # bytes: 3 position rows of the live slots, the occupied tiles' planes,
+    # the 64 output rows of every slot; operations: per real particle and
+    # component 27 nodes x (2 + 12 pair updates, 28 flops) plus 3 x 21
+    # multiply-adds, ~2,800 flops
+    b6 = bound_ms(n_live * 3 * 4 + occupied * 48 * 256 * 4
+                  + 64 * tc.np_rows * 4, n_real * 2808.0)
+    print(f"K6 sored: NP {tc.np_rows}, live slots {n_live}, occupied tiles "
+          f"{occupied}: rel err " + ", ".join(f"{k} {v:.3g}"
+                                              for k, v in rel.items())
+          + f"; {ms6:.4f} ms (plain {pms6:.2f} ms, bound {b6[0]:.4f} "
+          f"{b6[1]})", flush=True)
+    return dict(
+        name="sored_tiled", route="cuda",
+        source="gsmpm_tpu_torch/csrc/mpm_sored.cu",
+        replaces="gsmpm_tpu/sim/pallas_mpm.py:443", max_abs_err=err6,
+        tol="1e-4 x max per row group", ms=ms6, plain_ms=pms6,
+        bound_ms=b6[0], bound_by=b6[1], library_ms=None,
+        wrapper=cuda_mpm.sored_tiled)
+
+
+def small_fit_parity(dev):
+    """One fit frame (3 tiled-VJP substeps, the windowed render, backward,
+    SGD) on the GPU kernels and on the CPU twins: 512 gaussians, n_grid
+    24, 64x64."""
+    from gsmpm_tpu_torch.config import MPMConfig
+    from gsmpm_tpu_torch.models.synthetic import synthetic_blob_scene
+    from gsmpm_tpu_torch.render.camera import make_camera
+    from gsmpm_tpu_torch.render.renderer import RasterConfig
+    from gsmpm_tpu_torch.sim.fitting import FitConfig, SystemIdentifier
+
+    res, gt = {}, None
+    for d in ("cpu", str(dev)):
+        d = torch.device(d)
+        n = 512
+        ident = SystemIdentifier(
+            synthetic_blob_scene(n=n, seed=5, radius=0.4,
+                                 center=(0.0, 0.8, 0.0), device=d),
+            MPMConfig(material="jelly", E=1e4, nu=0.3, n_grid=24,
+                      grid_extent=2.0, gravity=[0.0, -9.81, 0.0],
+                      fitting=True),
+            init_velocity=torch.tensor([[0.0, -2.0, 0.0]],
+                                       device=d).repeat(n, 1),
+            fit_cfg=FitConfig(substeps_per_frame=3),
+            raster_cfg=RasterConfig(block=32, chunk=32),
+            bg=torch.ones(3, device=d))
+        ident._sim_engine = "tiled_vjp"
+        cam = make_camera(64, 64, 0.7, 0.7, np.eye(3),
+                          np.array([0.0, 0.8, -3.0]))
+        if gt is None:
+            gt = ident.generate_ground_truth(3e3, 0.3, [cam], 2)[1].cpu()
+        loss, st, _, img = ident.fit_frame(ident.reset_state(), 0.0, cam,
+                                           gt.to(d))
+        res[d.type] = (float(loss), img.cpu(), [g.cpu() for g in
+                                               ident.last_grads], st.x.cpu())
+    (lc, ic, gc, xc), (lg, ig, gg, xg) = res["cpu"], res["cuda"]
+    err = dict(loss=abs(lc - lg), image=float((ic - ig).abs().max()),
+               x=float((xc - xg).abs().max()),
+               g_logE=float((gc[0] - gg[0]).abs().max()
+                            / gc[0].abs().max()),
+               g_y=float((gc[1] - gg[1]).abs().max() / gc[1].abs().max()))
+    # float atomics over 3 substeps, then the render and its reverse walk
+    check(err["loss"] <= 1e-6 and err["image"] <= 1e-3 and err["x"] <= 1e-4
+          and err["g_logE"] <= 1e-3 and err["g_y"] <= 1e-3,
+          f"small fit GPU-vs-CPU {err}")
+    print("small fit GPU-vs-CPU parity: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in err.items())
+          + " (tol loss 1e-6, image 1e-3, x 1e-4, gradients 1e-3 of max)",
+          flush=True)
+    return err
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -410,7 +797,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    logs = build.build_all(["mpm_transfer", "stream_raster"])
+    logs = build.build_all(build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)} "
           f"(already built: {not logs})", flush=True)
     for name, log in logs.items():
@@ -418,21 +805,43 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    from gsmpm_tpu_torch.render import cuda_blend
+    from gsmpm_tpu_torch.sim import cuda_mpm
+
+    # slice 1: the simulation path
     rows = kernel_phases(dev)
     small_parity(dev)
-    counts, main = main_path(dev, [r["wrapper"] for r in rows])
+    wrappers = [r["wrapper"] for r in rows] + [
+        cuda_mpm.sored_tiled, cuda_blend.blend_fwd, cuda_blend.blend_bwd]
+    sim_counts, main = main_path(dev, wrappers)
     main["profile"] = profile_phase(dev, main)
+
+    # slice 2: the identification path
+    ident, fit_counts, fit = identify_path(dev, wrappers)
+    fit["steady"], first, _, _ = steady_fit(dev, ident, wrappers)
+    fit["profile"] = fit_profile(dev, ident, first, fit["steady"])
+    blend_rows, fit["blend_tiers"] = blend_phases(dev, ident, first)
+    rows += blend_rows + [sored_phase(dev, ident, first)]
+    fit["small_parity"] = small_fit_parity(dev)
 
     kernels = []
     for r in rows:
+        name = r["name"]
+        by_path = {"simulate": sim_counts[name], "identify": fit_counts[name]}
+        check(max(by_path.values()) > 0, f"{name} launched on no path")
         kernels.append({
-            "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": counts[r["name"]],
+            "name": name, "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"],
+            # its slice's path: identify for all but the stream blend
+            "launches": by_path["simulate" if name == "stream_blend"
+                                else "identify"],
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"per_tier": r["per_tier"]} if "per_tier" in r else {}),
         })
-    print(json.dumps({"main_path": main}))
+    print(json.dumps({"main_path": main, "identify_path": fit}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -201,8 +201,8 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
     mpm = cfg.mpm
     if mpm.incremental_cov:
         raise NotImplementedError(
-            "incremental_cov runs on the golden engine, which is not ported "
-            "yet (ROADMAP queue A item 3)"
+            "incremental_cov (the golden engine's incremental covariance "
+            "update) is not ported yet (ROADMAP queue A item 3)"
         )
     t_start = time.time()
     su = prepare(cfg, synthetic, synthetic_res, device, quiet)
@@ -210,7 +210,8 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
     scene, model, bcs, grid, tc = su.scene, su.model, su.bcs, su.grid, su.tc
     state = su.state
     n_steps = mpm.steps_per_frame
-    rcfg = RasterConfig()
+    # the drop-free sorted-segment stream rasterizer, as the JAX app
+    rcfg = RasterConfig(stream=True)
 
     def do_render(st, R):
         """Render; if any candidate was over the tier budgets, measure the
@@ -267,8 +268,8 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
         if not bool(ts.ok):
             raise RuntimeError(
                 f"frame {fid}: more occupied tiles than the tile cap "
-                f"({tc.occ_cap}); the golden-engine fallback is not ported "
-                "yet (ROADMAP queue A item 3)"
+                f"({tc.occ_cap}); simulate's fallback to the golden engine is "
+                "not ported yet (ROADMAP queue A item 3)"
             )
         st = state_from_soa(soa)
         cov6, R = postprocess(st, rotate_sh=mpm.rotate_sh)

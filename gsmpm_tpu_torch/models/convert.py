@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from gsmpm_tpu_torch.models.gaussians import SCENE_FIELDS, GaussianScene
+from gsmpm_tpu_torch.sim.state import MPMState
 from gsmpm_tpu_torch.sim.tiles import TiledState
 
 TILED_FIELDS = ("q", "aux", "material", "orig", "chunk_tile", "chunk_first",
@@ -44,3 +45,11 @@ def tiled_state_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> TiledState
         need_rebucket=t("need_rebucket", torch.bool),
         ok=t("ok", torch.bool),
     )
+
+
+def state_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> MPMState:
+    """MPMState arrays -> port MPMState (all float32)."""
+    return MPMState(**{
+        f: torch.from_numpy(np.array(d[f], np.float32)).to(device)
+        for f in MPMState.__dataclass_fields__
+    })

@@ -6,6 +6,9 @@ branch-free elementwise function over nine (N,) planes; the material switch
 is a ``torch.where`` over the materials present (``active_materials``), as
 in the JAX package.
 
+``cauchy_stress_stvk_green_soa`` is the fitting path's stress (no return
+map).
+
 Material ids: 0 jelly (fixed corotated), 1 metal (von Mises + StVK),
 2 sand (Drucker-Prager), 3 foam (viscoplastic StVK), 4 fluid (cohesive
 fluid + StVK), 5 plasticine (von Mises with softening + StVK).
@@ -130,6 +133,19 @@ def _stress_dp_soa(F, U, V, sig, mu, lam):
         (2.0 * mu * ls + lam * log_sum) / ss for ls, ss in zip(log_sig, sig_safe)
     )
     return m33.matmul_t(m33.matmul_t(m33.mul_diag_right(U, center), V), F)
+
+
+def cauchy_stress_stvk_green_soa(F, mu, lam, j_clamp: float = 1e-2):
+    """Green-Lagrange StVK Cauchy stress, the fitting path's law:
+    sigma = F (2 mu E + lam tr(E) I) F^T / J with E = (F^T F - I) / 2 and
+    |J| clamped to at least j_clamp."""
+    J = m33.det(F)
+    J = torch.where(torch.abs(J) < j_clamp,
+                    j_clamp * torch.sign(J) + (J == 0) * j_clamp, J)
+    E = m33.add_scaled_identity(m33.scale(m33.t_matmul(F, F), 0.5), -0.5)
+    trE = E[0] + E[4] + E[8]
+    S = m33.add_scaled_identity(m33.scale(E, 2.0 * mu), lam * trE)
+    return m33.scale(m33.matmul_t(m33.matmul(F, S), F), 1.0 / J)
 
 
 def compute_stress_soa(

@@ -1,12 +1,21 @@
-"""Tile-based 3D Gaussian splatting renderer: the stream path's front end.
+"""Tile-based 3D Gaussian splatting renderer.
 
-Port of the parts of gsmpm_tpu/render/renderer.py that the drop-free stream
-render uses: ``RasterConfig``, ``Preprocessed``, ``preprocess`` (EWA
-projection + SH colors, planes layout), ``block_origins``,
-``_tile_interval``, ``_raw_planes_nosentinel``, ``assemble_blocks``,
-``render_with_aux`` and the stream branch of ``bump_caps_for_dropfree``.
-The stream rasterizer is the only path: the windowed (dup-sort / two-tier)
-paths and the XLA golden blend are not ported yet.
+Port of gsmpm_tpu/render/renderer.py on its TPU routes (``impl="pallas"``):
+``preprocess`` (EWA projection + SH colors, planes layout), then either
+
+- ``stream=True``: the drop-free sorted-segment stream rasterizer
+  (render/stream_raster.py, kernel K3; forward only), or
+- ``stream=False`` (the default): the windowed path.  The dup-sort v2
+  selection bins each gaussian into fine / coarse / global tile streams
+  with (tile | quantized depth) keys and one stable sort, each pixel block
+  merges its depth-first windows, and the candidates blend with kernels K4
+  / K5 (render/cuda_blend.py), differentiable end to end.  With
+  ``k_dense > 0`` the ``n_dense`` densest fine tiles get a second, wider
+  window (the two-tier path that keeps a fitting render drop-free).
+
+``required_raster_caps`` / ``bump_caps_for_dropfree`` size the caps from a
+measured frame.  The XLA golden blend (``_render_xla``) is not ported; the
+port's CPU path runs the kernels' plain twins.
 """
 
 from __future__ import annotations
@@ -21,10 +30,24 @@ from gsmpm_tpu_torch.render.sh import C0, band_basis
 
 class RasterConfig(NamedTuple):
     block: int = 64  # pixel block edge for binning/blending
+    k_block: int = 1024  # per-block cap of the XLA path (cap sizing only)
+    k_row: int = 8192  # per-block-row cap of the XLA path (cap sizing only)
+    chunk: int = 64  # candidates per chunk of the blend twins' walk
     t_min: float = 1e-4  # transmittance early-stop (parity with CUDA)
     alpha_min: float = 1.0 / 255.0
     z_near: float = 0.2  # frustum near cull
-    # per-tier gaussian budgets of the sorted-segment stream rasterizer
+    # depth-first caps of the windowed path's fine / coarse / global tile
+    # streams; their sum is the per-block window K
+    k_tile: int = 512
+    k_coarse: int = 128
+    k_global: int = 128
+    # two-tier windowed render (k_dense = 0 disables): the n_dense fine
+    # tiles with the longest segments get a second window of k_dense
+    k_dense: int = 0
+    n_dense: int = 16
+    # the drop-free sorted-segment stream rasterizer (forward only)
+    stream: bool = False
+    # per-tier gaussian budgets of the stream rasterizer
     # (render/stream_raster.py) for splats whose screen rect spans
     # >4 / >16 / >64 fine tiles
     stream_g2: int = 2048
@@ -213,6 +236,270 @@ def assemble_blocks(blocks: torch.Tensor, camera: Camera,
     return img[: camera.height, : camera.width]
 
 
+# ---------------------------------------------------------------------------
+# windowed path: dup-sort v2 selection
+# ---------------------------------------------------------------------------
+
+_COARSE = 4  # fine tiles per coarse tile edge
+_SENT = 2 ** 31 - 1  # sort key of an unused duplication slot
+
+
+def _depth_bits(ntt: int) -> int:
+    """Depth-quantization bits so (ntt+1) * 2^bits stays inside int32."""
+    return 31 - int(ntt + 1).bit_length()
+
+
+def _dup_levels(pre: Preprocessed, camera: Camera, cfg: RasterConfig):
+    """Level and tile assignment shared by the selection and cap sizing.
+
+    Each valid gaussian lands in exactly one stream: fine B-px tiles when
+    its screen rect spans <= 2x2 of them, coarse 4B-px tiles when <= 2x2 of
+    those, else the single global bucket; it emits up to 4 tiles of that
+    stream (the corners of its rect)."""
+    B = cfg.block
+    dev = pre.pix_x.device
+    origins, nbx, nby = block_origins(camera, cfg, dev)
+    ncx, ncy = -(-nbx // _COARSE), -(-nby // _COARSE)
+    nf = nbx * nby
+    nc = ncx * ncy
+    fx0, fx1, offx = _tile_interval(pre.pix_x, pre.radius, B, nbx)
+    fy0, fy1, offy = _tile_interval(pre.pix_y, pre.radius, B, nby)
+    valid = pre.valid & ~(offx | offy)
+    spx, spy = fx1 - fx0, fy1 - fy0
+    lvl0 = valid & (spx <= 1) & (spy <= 1)
+    cx0, cx1 = fx0 // _COARSE, fx1 // _COARSE
+    cy0, cy1 = fy0 // _COARSE, fy1 // _COARSE
+    cspx, cspy = cx1 - cx0, cy1 - cy0
+    lvl1 = valid & ~lvl0 & (cspx <= 1) & (cspy <= 1)
+    lvl2 = valid & ~lvl0 & ~lvl1
+    return dict(
+        fx0=fx0, fy0=fy0, spx=spx, spy=spy, cx0=cx0, cy0=cy0,
+        cspx=cspx, cspy=cspy, lvl0=lvl0, lvl1=lvl1, lvl2=lvl2,
+        nf=nf, nc=nc, ncx=ncx, gid=nf + nc,
+        origins=origins, nbx=nbx, nby=nby,
+    )
+
+
+def _dup_tile(lv: dict, dx: int, dy: int):
+    """(tile id, ok) for duplication corner (dy, dx) of every gaussian."""
+    ft = (lv["fy0"] + dy) * lv["nbx"] + (lv["fx0"] + dx)
+    fok = lv["lvl0"] & (dx <= lv["spx"]) & (dy <= lv["spy"])
+    ct = lv["nf"] + (lv["cy0"] + dy) * lv["ncx"] + (lv["cx0"] + dx)
+    cok = lv["lvl1"] & (dx <= lv["cspx"]) & (dy <= lv["cspy"])
+    gok = lv["lvl2"] & (dx == 0) & (dy == 0)
+    tile = torch.where(fok, ft, torch.where(cok, ct, lv["gid"]))
+    return tile, fok | cok | gok
+
+
+def _sort_rows(dq: torch.Tensor, g: torch.Tensor):
+    """Stable sort of each row by dq, g carried along (lax.sort's order)."""
+    mdq, perm = torch.sort(dq, dim=1, stable=True)
+    return mdq, torch.gather(g, 1, perm)
+
+
+def _select_candidates_dupsort_v2(pre: Preprocessed, camera: Camera,
+                                  cfg: RasterConfig,
+                                  return_internals: bool = False):
+    """Depth-in-key duplication-sort binning.
+
+    Every gaussian emits at most 4 (key, index) pairs, key = tile *
+    2^depth_bits + quantized depth (the top bits of the f32 depth, an
+    order-preserving bitcast), into one level: fine, coarse or global.  One
+    stable sort of the 4N pairs makes each tile's candidates a contiguous
+    depth-ordered segment; each pixel block merges its fine, parent-coarse
+    and global windows (depth-first, capped at k_tile / k_coarse /
+    k_global) with one stable row sort on the depth.
+
+    Returns (gidx (nblocks, K) int32, counts (nblocks,), origins
+    (nblocks, 2) int32, n_dropped), K = k_tile + k_coarse + k_global (each
+    at most N); gidx rows hold real candidates first (padding points at
+    gaussian 0, masked by counts).  n_dropped counts candidates beyond a
+    stream's cap.
+    """
+    n = pre.pix_x.shape[0]
+    n4 = 4 * n
+    dev = pre.pix_x.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    lv = _dup_levels(pre, camera, cfg)
+    origins, nbx, nby = lv["origins"], lv["nbx"], lv["nby"]
+    nf, nc, ncx, gid = lv["nf"], lv["nc"], lv["ncx"], lv["gid"]
+    ntt = nf + nc + 1
+    db = _depth_bits(ntt)
+    M = 1 << db
+
+    # order-preserving depth quantization (depth > 0 wherever valid)
+    dq = torch.clamp_min(pre.depth, cfg.z_near).view(torch.int32) >> (31 - db)
+    keys = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            tile, ok = _dup_tile(lv, dx, dy)
+            keys.append(torch.where(ok, tile * M + dq, _SENT))
+    keys = torch.cat(keys).to(torch.int32)
+    pays = torch.arange(n, **i32).repeat(4)
+    skeys, perm = torch.sort(keys, stable=True)
+    spay = pays[perm]
+    bounds = torch.searchsorted(
+        skeys, torch.arange(ntt + 1, **i32) * M).to(torch.int32)
+    st = torch.stack([skeys, spay])  # (2, 4N)
+    itl = dict(st=st, bounds=bounds, M=M, n4=n4)
+
+    bx = torch.arange(nbx, **i32)
+    by = torch.arange(nby, **i32)
+    t_f = (by[:, None] * nbx + bx[None, :]).reshape(-1)
+    k0 = min(cfg.k_tile, n)
+    k1 = min(cfg.k_coarse, n)
+    k2 = min(cfg.k_global, n)
+    dq_f, g_f = _stream_windows(itl, t_f, k0)
+    dq_c_all, g_c_all = _stream_windows(itl, nf + torch.arange(nc, **i32), k1)
+    parent = ((by[:, None] // _COARSE) * ncx
+              + (bx[None, :] // _COARSE)).reshape(-1).to(torch.int64)
+    dq_c, g_c = dq_c_all[parent], g_c_all[parent]
+    dq_g1, g_g1 = _stream_windows(itl, torch.full((1,), gid, **i32), k2)
+    dq_g = dq_g1.expand(nf, k2)
+    g_g = g_g1.expand(nf, k2)
+
+    mdq, gidx = _sort_rows(torch.cat([dq_f, dq_c, dq_g], dim=1),
+                           torch.cat([g_f, g_c, g_g], dim=1))
+    counts = torch.sum(mdq < _SENT, dim=1).to(torch.int32)
+
+    # cap-overflow accounting: candidates beyond a stream's depth-first cap
+    seg = bounds[1:] - bounds[:-1]
+    caps = torch.cat([torch.full((nf,), k0, **i32),
+                      torch.full((nc,), k1, **i32),
+                      torch.full((1,), k2, **i32)])
+    n_dropped = torch.sum(torch.clamp_min(seg - caps, 0))
+    origins = origins.to(torch.int32)
+    if return_internals:
+        itl.update(nf=nf, nc=nc, parent=parent, seg=seg, k0=k0, k1=k1, k2=k2,
+                   dq_c_all=dq_c_all, g_c_all=g_c_all, dq_g1=dq_g1,
+                   g_g1=g_g1)
+        return gidx, counts, origins, n_dropped, itl
+    return gidx, counts, origins, n_dropped
+
+
+def _stream_windows(itl: dict, tile_ids: torch.Tensor, k: int):
+    """Depth-first (dq, gaussian index) windows of width k over the given
+    tiles' sorted segments, _SENT / 0 past a segment's end."""
+    st, bounds, M, n4 = itl["st"], itl["bounds"], itl["M"], itl["n4"]
+    tid = tile_ids.to(torch.int64)
+    s = bounds[tid]
+    e = bounds[tid + 1]
+    w = s[:, None] + torch.arange(k, dtype=torch.int32, device=s.device)
+    wf = torch.clamp_max(w, n4 - 1).reshape(-1).to(torch.int64)
+    kk = st[:, wf].reshape(2, *w.shape)
+    live = w < e[:, None]
+    dqw = torch.where(live, kk[0] & (M - 1), _SENT)
+    gw = torch.where(live, kk[1], 0)
+    return dqw, gw
+
+
+def _gather_candidates(pre: Preprocessed, gidx: torch.Tensor,
+                       counts: torch.Tensor) -> torch.Tensor:
+    """(10, nblocks, K) candidate planes for the blend: one gather of
+    nblocks*K indices from the (10, N) planes; slots past a block's count
+    get log opacity -1e30 and blend to nothing."""
+    planes = _raw_planes_nosentinel(pre)
+    nb, K = gidx.shape
+    # index_select: its backward is an index_add_, where advanced
+    # indexing's backward sorts the nblocks*K indices first
+    cand = planes.index_select(1, gidx.reshape(-1).to(torch.int64)).reshape(
+        10, nb, K)
+    live = torch.arange(K, device=gidx.device)[None, :] < counts[:, None]
+    logo = torch.where(live, cand[5], -1e30)
+    return torch.cat([cand[:5], logo[None], cand[6:]], dim=0)
+
+
+def _dense_tiles(seg_f: torch.Tensor, nd: int):
+    """(counts, ids) of the nd longest fine segments; ties go to the lower
+    tile id (lax.top_k's order)."""
+    cnt, ids = torch.sort(seg_f, descending=True, stable=True)
+    return cnt[:nd], ids[:nd]
+
+
+def _render_two_tier(pre: Preprocessed, camera, bg, cfg: RasterConfig):
+    """Two-tier windowed render (cfg.k_dense > 0), gsmpm_tpu's
+    _render_pallas_two_tier.
+
+    Tier 1 is the windowed blend at k_tile for every block; the n_dense
+    fine tiles with the longest segments get a tier-2 window at k_dense and
+    their blocks are re-blended over tier 1's.  Returns (image, n_dropped):
+    overflow beyond k_dense on the dense tiles, beyond k_tile on the rest,
+    and beyond the coarse / global caps."""
+    from gsmpm_tpu_torch.render.cuda_blend import blend_blocks
+
+    gidx, counts, origins, _, itl = _select_candidates_dupsort_v2(
+        pre, camera, cfg, return_internals=True)
+    cand = _gather_candidates(pre, gidx, counts)
+    blocks = blend_blocks(cand, counts, origins, bg, cfg)
+
+    dtiles, gidx_d, counts_d, dropped = _dense_selection(
+        itl, pre.pix_x.shape[0], cfg)
+    cand_d = _gather_candidates(pre, gidx_d, counts_d)
+    blocks_d = blend_blocks(cand_d, counts_d, origins[dtiles], bg, cfg)
+    blocks = blocks.index_copy(0, dtiles, blocks_d)
+    return assemble_blocks(blocks, camera, cfg), dropped
+
+
+def _dense_selection(itl: dict, n: int, cfg: RasterConfig):
+    """Tier 2 of the two-tier render: (dense tile ids (nd,), gidx (nd, K2),
+    counts (nd,), n_dropped of the whole two-tier render)."""
+    nf = itl["nf"]
+    seg_f = itl["seg"][:nf]
+    nd = min(cfg.n_dense, nf)
+    kd = min(cfg.k_dense, n)
+    dcnt, dtiles = _dense_tiles(seg_f, nd)
+
+    dq_d, g_d = _stream_windows(itl, dtiles, kd)
+    par = itl["parent"][dtiles]
+    k2 = itl["k2"]
+    mdq, gidx_d = _sort_rows(
+        torch.cat([dq_d, itl["dq_c_all"][par],
+                   itl["dq_g1"].expand(nd, k2)], dim=1),
+        torch.cat([g_d, itl["g_c_all"][par], itl["g_g1"].expand(nd, k2)],
+                  dim=1))
+    counts_d = torch.sum(mdq < _SENT, dim=1).to(torch.int32)
+    dropped = (
+        torch.sum(torch.clamp_min(seg_f - itl["k0"], 0))
+        - torch.sum(torch.clamp_min(dcnt - itl["k0"], 0))
+        + torch.sum(torch.clamp_min(dcnt - kd, 0))
+        + torch.sum(torch.clamp_min(itl["seg"][nf:nf + itl["nc"]]
+                                    - itl["k1"], 0))
+        + torch.clamp_min(itl["seg"][-1] - itl["k2"], 0)
+    )
+    return dtiles, gidx_d, counts_d, dropped
+
+
+def _render_windowed(pre: Preprocessed, camera, bg, cfg: RasterConfig):
+    """Windowed render: selection, gather and the K4/K5 blend; gsmpm_tpu's
+    _render_pallas_fwd_impl.  Returns (image, n_dropped)."""
+    from gsmpm_tpu_torch.render.cuda_blend import blend_blocks
+
+    if cfg.k_dense > 0:
+        return _render_two_tier(pre, camera, bg, cfg)
+    gidx, counts, origins, dropped = _select_candidates_dupsort_v2(
+        pre, camera, cfg)
+    cand = _gather_candidates(pre, gidx, counts)
+    blocks = blend_blocks(cand, counts, origins, bg, cfg)
+    return assemble_blocks(blocks, camera, cfg), dropped
+
+
+def render(
+    means3d: torch.Tensor,
+    cov6: torch.Tensor,
+    opacity: torch.Tensor,
+    shs: Optional[torch.Tensor],
+    camera: Camera,
+    bg: torch.Tensor,
+    sh_degree: int = 3,
+    cfg: RasterConfig = RasterConfig(),
+    colors_precomp: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Rasterize to an (H, W, 3) image (render_with_aux without n_dropped)."""
+    img, _ = render_with_aux(means3d, cov6, opacity, shs, camera, bg,
+                             sh_degree, cfg, colors_precomp)
+    return img
+
+
 def render_with_aux(
     means3d: torch.Tensor,
     cov6: torch.Tensor,
@@ -227,14 +514,73 @@ def render_with_aux(
     """Rasterize gaussians with precomputed 3D covariances: (image (H, W, 3),
     n_dropped).
 
-    n_dropped counts candidates beyond the stream tier budgets; the
-    reference has no caps, so callers resize and re-render when it is > 0.
+    n_dropped counts candidates beyond the caps (stream tier budgets, or the
+    windowed path's per-stream caps); the reference has no caps, so callers
+    resize and re-render when it is > 0.  The windowed path is
+    differentiable; the stream path is forward only.
     """
-    from gsmpm_tpu_torch.render.stream_raster import render_stream
-
     pre = preprocess(means3d, cov6, opacity, shs, camera, sh_degree, cfg,
                      colors_precomp)
-    return render_stream(pre, camera, bg, cfg)
+    if cfg.stream:
+        from gsmpm_tpu_torch.render.stream_raster import render_stream
+
+        return render_stream(pre, camera, bg, cfg)
+    return _render_windowed(pre, camera, bg, cfg)
+
+
+def _xla_stream_counts(pre: Preprocessed, camera: Camera, cfg: RasterConfig):
+    """(row_cnt (nby,), blk_cnt (nby, nbx)) intersection counts of the XLA
+    path's two selection stages (row interval test, then block rect test)."""
+    B = cfg.block
+    dev = pre.pix_x.device
+    _, nbx, nby = block_origins(camera, cfg, dev)
+    y0s = torch.arange(nby, dtype=torch.float32, device=dev)[:, None] * B
+    inter_y = ((pre.pix_y[None, :] + pre.radius[None, :] >= y0s - 0.5)
+               & (pre.pix_y[None, :] - pre.radius[None, :] <= y0s + B - 0.5)
+               & pre.valid[None, :])
+    row_cnt = torch.sum(inter_y, dim=1)
+    x0s = torch.arange(nbx, dtype=torch.float32, device=dev)[:, None] * B
+    inter_x = ((pre.pix_x[None, :] + pre.radius[None, :] >= x0s - 0.5)
+               & (pre.pix_x[None, :] - pre.radius[None, :] <= x0s + B - 0.5))
+    blk_cnt = torch.stack([torch.sum(inter_y[r][None, :] & inter_x, dim=1)
+                           for r in range(nby)])
+    return row_cnt, blk_cnt
+
+
+def required_raster_caps(means3d: torch.Tensor, cov6: torch.Tensor,
+                         opacity: torch.Tensor, camera: Camera,
+                         cfg: RasterConfig = RasterConfig()) -> dict:
+    """Measured per-stream candidate maxima of this geometry: the caps at
+    which the windowed render reports n_dropped == 0.  Selection is
+    geometry only, so no SH evaluation runs.
+
+    Returns {"k_tile", "k_coarse", "k_global", "k_row", "k_block",
+    "n_fine_over"} ints; n_fine_over counts the fine tiles over the current
+    k_tile (the blocks the two-tier path must re-blend).
+    """
+    zeros3 = torch.zeros((means3d.shape[0], 3), dtype=torch.float32,
+                         device=means3d.device)
+    pre = preprocess(means3d, cov6, opacity, None, camera, 0, cfg,
+                     colors_precomp=zeros3)
+    lv = _dup_levels(pre, camera, cfg)
+    nf, nc, gid = lv["nf"], lv["nc"], lv["gid"]
+    hist = torch.zeros((nf + nc + 1,), dtype=torch.int64,
+                       device=means3d.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            tile, ok = _dup_tile(lv, dx, dy)
+            hist.index_add_(0, torch.where(ok, tile, 0).to(torch.int64),
+                            ok.to(torch.int64))
+    row_cnt, blk_cnt = _xla_stream_counts(pre, camera, cfg)
+    return {
+        "k_tile": int(torch.max(hist[:nf])),
+        "k_coarse": int(torch.max(hist[nf:nf + nc])) if nc else 0,
+        "k_global": int(hist[gid]),
+        "k_row": int(torch.max(row_cnt)),
+        "k_block": int(torch.max(blk_cnt)),
+        "n_fine_over": int(torch.sum(hist[:nf] > min(cfg.k_tile,
+                                                     means3d.shape[0]))),
+    }
 
 
 def bump_caps_for_dropfree(
@@ -244,9 +590,36 @@ def bump_caps_for_dropfree(
     opacity: torch.Tensor,
     camera: Camera,
 ) -> RasterConfig:
-    """Resize the stream tier budgets so a re-render of THIS geometry is
-    drop-free: measured populations +50%, rounded up to 32, with floors;
-    doubles every budget when the measurement already fits."""
+    """Resize cfg so a re-render of THIS geometry is drop-free.
+
+    Stream configs bump the tier budgets (measured populations +50%,
+    rounded up to 32, with floors); windowed configs bump the two-tier K
+    caps and the XLA row/block caps from required_raster_caps (+25%,
+    rounded up to 128).  When the measurement already fits, every cap
+    doubles.  The result is >= cfg in every cap."""
+    if not cfg.stream:
+        need = required_raster_caps(means3d, cov6, opacity, camera, cfg)
+
+        def up(cur, needed):
+            return max(cur, -(-int(needed * 1.25) // 128) * 128)
+
+        _, nbx, nby = block_origins(camera, cfg)
+        new = cfg._replace(
+            k_dense=up(cfg.k_dense, need["k_tile"]),
+            n_dense=max(cfg.n_dense, min(need["n_fine_over"] + 4, nbx * nby)),
+            k_coarse=up(cfg.k_coarse, need["k_coarse"]),
+            k_global=up(cfg.k_global, need["k_global"]),
+            k_row=up(cfg.k_row, need["k_row"]),
+            k_block=up(cfg.k_block, need["k_block"]),
+        )
+        if new == cfg:  # the measurement already fits: double
+            new = cfg._replace(
+                k_dense=2 * max(cfg.k_dense, cfg.k_tile),
+                n_dense=min(2 * max(cfg.n_dense, 8), nbx * nby),
+                k_row=2 * cfg.k_row, k_block=2 * cfg.k_block,
+            )
+        return new
+
     from gsmpm_tpu_torch.render.stream_raster import required_stream_caps
 
     need = required_stream_caps(means3d, cov6, opacity, camera, cfg)

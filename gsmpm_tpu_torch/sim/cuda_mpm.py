@@ -1,11 +1,15 @@
-"""Wrappers of the tiled MPM transfer kernels (csrc/mpm_transfer.cu).
+"""Wrappers of the tiled MPM transfer kernels (csrc/mpm_transfer.cu,
+csrc/mpm_sored.cu).
 
 Counterpart of gsmpm_tpu/sim/pallas_mpm.py: ``p2g_tiled`` replaces
-``p2g_tiled_pallas`` (kernel K1, ``_p2g_kernel``) and ``g2p_tiled`` replaces
-``g2p_tiled_pallas`` (kernel K2, ``_g2p_kernel``).  A wrapper given CPU
-tensors returns its plain twin (``p2g_tiled_ref`` / ``g2p_tiled_ref``, from
-sim/tiles.py); given CUDA tensors it launches the kernel on the current
-stream or raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
+``p2g_tiled_pallas`` (kernel K1, ``_p2g_kernel``), ``g2p_tiled`` replaces
+``g2p_tiled_pallas`` (kernel K2, ``_g2p_kernel``) and ``sored_tiled``
+replaces ``sored_tiled_pallas`` (kernel K6, ``_sored_kernel``).  A wrapper
+given CPU tensors returns its plain twin (``p2g_tiled_ref`` /
+``g2p_tiled_ref`` from sim/tiles.py, ``sored_tiled_ref`` from
+sim/transfer_vjp.py); given CUDA tensors it launches the kernel on the
+current stream or raises.  Each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from gsmpm_tpu_torch.sim.tiles import (
 )
 from gsmpm_tpu_torch.utils import build
 
-__all__ = ["p2g_tiled", "g2p_tiled", "p2g_tiled_ref", "g2p_tiled_ref"]
+__all__ = ["p2g_tiled", "g2p_tiled", "sored_tiled", "p2g_tiled_ref",
+           "g2p_tiled_ref"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -105,5 +110,46 @@ def g2p_tiled(ts: TiledState, ext: torch.Tensor, grid: GridConfig,
     return out
 
 
+def _sored_lib():
+    lib = build.load("mpm_sored")
+    lib.gsmpm_sored_tiled.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]
+    lib.gsmpm_sored_tiled.restype = ctypes.c_int
+    return lib
+
+
+def sored_tiled(q: torch.Tensor, win_planes: torch.Tensor,
+                chunk_tile: torch.Tensor, chunk_live: torch.Tensor,
+                grid: GridConfig, tc: TileConfig) -> torch.Tensor:
+    """Second-order basis reductions of the transfer VJPs: q (QROWS, NP)
+    and the 3 window components' planes (ntiles, 48, 256) -> (64, NP) rows
+    (layout in transfer_vjp.sored_tiled_ref, its plain twin)."""
+    if q.device.type == "cpu":
+        from gsmpm_tpu_torch.sim.transfer_vjp import sored_tiled_ref
+
+        return sored_tiled_ref(q, win_planes, chunk_tile, chunk_live, grid,
+                               tc)
+    dev = q.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
+    _need(q, "q", (QROWS, tc.np_rows), torch.float32, dev)
+    _need(win_planes, "win_planes", (tc.ntiles, 48, 256),
+          torch.float32, dev)
+    for name, t in (("chunk_tile", chunk_tile), ("chunk_live", chunk_live)):
+        _need(t, name, (tc.nchunk,), torch.int32, dev)
+    out = torch.empty((64, tc.np_rows), dtype=torch.float32, device=dev)
+    lib = _sored_lib()
+    err = lib.gsmpm_sored_tiled(
+        q.data_ptr(), win_planes.data_ptr(), chunk_tile.data_ptr(),
+        chunk_live.data_ptr(), out.data_ptr(), tc.np_rows, tc.nchunk, tc.nt,
+        tc.S, tc.n_grid, grid.inv_dx,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "sored_tiled")
+    sored_tiled.launches += 1
+    return out
+
+
 p2g_tiled.launches = 0
 g2p_tiled.launches = 0
+sored_tiled.launches = 0

@@ -1,16 +1,54 @@
-"""Frame-end postprocess (port of gsmpm_tpu/sim/solver.py:postprocess).
+"""Substep driver of the golden engine and the frame-end postprocess.
 
-The golden-engine driver (run_substeps, MPMSolver) is not ported yet; the
-port's forward engine is the tiled one in sim/tiles.py.
+Port of gsmpm_tpu/sim/solver.py's ``run_substeps`` and ``postprocess``.
+The port's forward engine for simulation is the tiled one in sim/tiles.py;
+``run_substeps`` drives the golden planes engine (sim/kernels.py), which
+generates the fitting ground truth and is the fitting engine after a
+tiled-engine overflow.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.utils.checkpoint
 
 from gsmpm_tpu_torch.ops import m33
-from gsmpm_tpu_torch.sim.kernels import postprocess_soa, soa_from_state
-from gsmpm_tpu_torch.sim.state import MPMState
+from gsmpm_tpu_torch.sim.kernels import (
+    postprocess_soa,
+    soa_from_state,
+    state_from_soa,
+    substep_soa,
+)
+from gsmpm_tpu_torch.sim.state import GridConfig, MPMModel, MPMState
+from gsmpm_tpu_torch.sim.tiles import _advance
+
+
+def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
+                 n_substeps: int, grid: GridConfig, dt: float,
+                 fitting: bool = False,
+                 checkpoint_policy: Optional[str] = "substep"):
+    """n_substeps of the golden engine; returns (state, time).
+
+    ``checkpoint_policy="substep"`` recomputes each substep in the backward
+    pass (``torch.utils.checkpoint``), keeping only the particle state
+    between substeps, the JAX package's memory policy; it only matters
+    when autograd records the run.  ``time`` is a host float advanced in
+    float32 as the JAX clock.
+    """
+    soa = soa_from_state(state)
+    remat = checkpoint_policy == "substep" and torch.is_grad_enabled()
+    for _ in range(n_substeps):
+        if remat:
+            soa = torch.utils.checkpoint.checkpoint(
+                substep_soa, soa, model, bcs, time, grid, dt, fitting,
+                use_reentrant=False,
+            )
+        else:
+            soa = substep_soa(soa, model, bcs, time, grid, dt, fitting)
+        time = _advance(time, dt)
+    return state_from_soa(soa), time
 
 
 def postprocess(state: MPMState, rotate_sh: bool = False):

@@ -1,6 +1,8 @@
-"""Tile-bucketed MPM transfer: the forward engine of the port.
+"""Tile-bucketed MPM transfer: the fast engine of the port.
 
-Port of the forward half of gsmpm_tpu/sim/tiles.py.  Particles are bucketed
+Port of gsmpm_tpu/sim/tiles.py: the forward engine and its differentiable
+fitting substeps (``substep_tiled_fitting``, whose transfers are the
+hand-written VJPs of sim/transfer_vjp.py).  Particles are bucketed
 into 8-cell grid tiles; each tile owns a 16^3-cell window, emitted
 octant-decomposed so that the fold onto the blocked grid is eight in-order
 slice adds.  This module holds everything around the two transfer kernels:
@@ -28,8 +30,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
-from gsmpm_tpu_torch.ops.constitutive import compute_stress_soa
+from gsmpm_tpu_torch.ops.constitutive import (
+    cauchy_stress_stvk_green_soa,
+    compute_stress_soa,
+)
 from gsmpm_tpu_torch.sim.kernels import SoAState, grid_update_soa
 from gsmpm_tpu_torch.sim.state import GridConfig, MPMModel
 
@@ -219,8 +225,11 @@ def rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig) -> TiledState:
     slot_tile = torch.repeat_interleave(chunk_tile0, S)
 
     pat = _pad_pattern(tc, grid, slot_tile)
-    new_q = torch.where(has_src[None, :], ts.q[:, src_c], pat)
-    new_aux = torch.where(has_src[None, :], ts.aux[:, src_c], 0.0)
+    # index_select: its backward (the fitting path differentiates through
+    # this permutation) is an index_add_, not a sort of the indices
+    new_q = torch.where(has_src[None, :], ts.q.index_select(1, src_c), pat)
+    new_aux = torch.where(has_src[None, :], ts.aux.index_select(1, src_c),
+                          0.0)
     new_mat = torch.where(has_src, ts.material[src_c], 0)
     new_orig = torch.where(has_src, ts.orig[src_c], -1)
 
@@ -365,10 +374,17 @@ def _axis_bases(xrow, torg, grid: GridConfig, tc: TileConfig):
     return M @ w, M @ dw, M @ u
 
 
-def _chunk_bases(q, chunk_tile, grid, tc):
-    nchunk = chunk_tile.shape[0]
-    qc = q.reshape(QROWS, nchunk, tc.S).permute(1, 0, 2)   # (c, QROWS, S)
-    torg = _tile_origins(chunk_tile, tc)
+def _live_chunks(ts: TiledState) -> torch.Tensor:
+    """Indices of the chunks that hold real slots: the twins skip the
+    others, whose slots are padding (mass and volume 0)."""
+    return torch.nonzero(ts.chunk_live == 1).squeeze(1)
+
+
+def _chunk_bases(q, chunk_tile, grid, tc, live):
+    """Rows and per-axis bases of the chunks ``live``: (qc (c, QROWS, S),
+    window origins, [(w, dw, u)] per axis)."""
+    qc = q.reshape(QROWS, -1, tc.S)[:, live].permute(1, 0, 2)
+    torg = _tile_origins(chunk_tile[live], tc)
     bases = [_axis_bases(qc[:, RX + a], torg[a], grid, tc) for a in range(3)]
     return qc, torg, bases
 
@@ -389,11 +405,12 @@ def p2g_tiled_ref(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
     one tile accumulate with ``index_add_``.  Float32 matmuls throughout
     (TF32 stays off).
     """
+    live = _live_chunks(ts)
     qc, _, ((wx, dwx, ux), (wy, dwy, uy), (wz, dwz, uz)) = _chunk_bases(
-        ts.q, ts.chunk_tile, grid, tc
+        ts.q, ts.chunk_tile, grid, tc, live
     )
     nchunk = qc.shape[0]
-    sc = sig.reshape(16, nchunk, tc.S).permute(1, 0, 2)
+    sc = sig.reshape(16, -1, tc.S)[:, live].permute(1, 0, 2)
     m = qc[:, RMASS][:, None, :]
     vol = qc[:, RVOL][:, None, :]
     dx = grid.dx
@@ -428,7 +445,7 @@ def p2g_tiled_ref(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
     )
     out = torch.zeros((tc.ntiles, 8 * 4 * T_TILE, T_TILE * T_TILE),
                       dtype=cw.dtype, device=cw.device)
-    return out.index_add_(0, ts.chunk_tile.to(torch.int64), cw)
+    return out.index_add_(0, ts.chunk_tile[live].to(torch.int64), cw)
 
 
 def g2p_tiled_ref(ts: TiledState, windows: torch.Tensor, grid: GridConfig,
@@ -441,7 +458,7 @@ def g2p_tiled_ref(ts: TiledState, windows: torch.Tensor, grid: GridConfig,
     contracted in g2p_chunk_mm's order).
     """
     qc, torg, ((wx, dwx, ux), (wy, dwy, uy), (wz, dwz, uz)) = _chunk_bases(
-        ts.q, ts.chunk_tile, grid, tc
+        ts.q, ts.chunk_tile, grid, tc, slice(None)
     )
     nchunk = qc.shape[0]
     ext = windows[ts.chunk_tile.to(torch.int64)]       # (c, 192, 64)
@@ -640,6 +657,90 @@ def frame_tiled(
         time = _advance(time, dt)
     q = to_original_order(ts, tc.n_particles)
     return ts, unpack_q(q, soa_template), time
+
+
+def _fitting_transfer(q, aux, ct, cf, cl, model: MPMModel, bcs, time: float,
+                      grid: GridConfig, tc: TileConfig, dt: float):
+    """The differentiable body of a fitting substep on an already bucketed
+    q: Green StVK stress on F -> P2G -> grid phase -> G2P -> F := F_trial.
+    The transfers are the hand-written VJPs of sim/transfer_vjp.py."""
+    from gsmpm_tpu_torch.sim.transfer_vjp import g2p_fit, p2g_fit
+
+    F = tuple(q[RF + i] for i in range(9))
+    stress = cauchy_stress_stvk_green_soa(F, aux[AMU], aux[ALAM])
+    sig = torch.cat([
+        torch.stack(stress),
+        torch.zeros((16 - 9, q.shape[1]), dtype=q.dtype, device=q.device),
+    ])
+    windows = p2g_fit(q, sig, ct, cf, cl, grid, tc, dt)
+    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt)
+    new_q = g2p_fit(q, win_in, ct, cf, cl, grid, tc, dt)
+    # the fitting path advances F directly, no return map
+    return torch.cat([new_q[:RF], new_q[RFT:RFT + 9], new_q[RF + 9:]])
+
+
+def substep_tiled_fitting(
+    ts: TiledState,
+    model: MPMModel,
+    bcs,
+    time: float,
+    grid: GridConfig,
+    tc: TileConfig,
+    dt: float,
+) -> TiledState:
+    """One differentiable fitting substep in the tiled layout.
+
+    Fitting semantics: Green-strain StVK stress on F, no particle BCs, F
+    advanced to F_trial by G2P.  A rebucket, when the previous substep
+    flagged drift, runs first: a permutation whose gathers carry the
+    gradient.  The decision is read on the host from the flag the first
+    forward pass computed and is never recomputed: while autograd records,
+    only ``_fitting_transfer`` is checkpointed (recomputed in the backward
+    pass), whose float atomics may round differently the second time.
+    """
+    if bool(ts.need_rebucket):  # one device->host read per substep
+        s2 = rebucket(ts, grid, tc)
+        # sticky: a later successful rebucket must not mask an overflow
+        ts = dataclasses.replace(s2, ok=s2.ok & ts.ok)
+    args = (ts.q, ts.aux, ts.chunk_tile, ts.chunk_first, ts.chunk_live,
+            model, bcs, time, grid, tc, dt)
+    if torch.is_grad_enabled():
+        new_q = torch.utils.checkpoint.checkpoint(
+            _fitting_transfer, *args, use_reentrant=False)
+    else:
+        new_q = _fitting_transfer(*args)
+    need = torch.max(new_q[RDRIFT].detach()) > 0
+    return dataclasses.replace(ts, q=new_q, need_rebucket=need)
+
+
+def run_substeps_tiled_fitting(
+    soa: SoAState,
+    model: MPMModel,
+    bcs,
+    time: float,
+    n_substeps: int,
+    grid: GridConfig,
+    dt: float,
+    tc: Optional[TileConfig] = None,
+):
+    """Differentiable fitting window in the tiled layout.
+
+    Returns (soa', time', ok): ok is False when the occupied-tile cap
+    overflowed at bootstrap or at a rebucket; the caller then redoes the
+    frame on the golden engine (sim/solver.py:run_substeps).  While
+    autograd records, each substep is checkpointed: only the particle rows
+    are kept between substeps and the grid is recomputed in the backward
+    pass, the JAX package's memory policy.
+    """
+    n = soa.mass.shape[0]
+    if tc is None:
+        tc = default_tile_config(grid.n_grid, n)
+    ts = bootstrap(soa, model, grid, tc)
+    for _ in range(n_substeps):
+        ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt)
+        time = _advance(time, dt)
+    q = to_original_order(ts, n)
+    return unpack_q(q, soa), time, ts.ok
 
 
 def run_substeps_tiled(

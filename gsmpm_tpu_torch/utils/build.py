@@ -25,12 +25,16 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-# per-source extra flags: the stream rasterizer keeps IEEE mul/add order
-# (no FMA contraction) so its power term rounds exactly as the plain twin's
+# every source of the port, with its extra flags: the two rasterizers keep
+# IEEE mul/add order (no FMA contraction) so their power terms round
+# exactly as the plain twins'
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "mpm_transfer": [],
+    "mpm_sored": [],
     "stream_raster": ["--fmad=false"],
+    "tile_blend": ["--fmad=false"],
 }
+SOURCES = tuple(EXTRA_FLAGS)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -6,9 +6,9 @@ GPU it runs without the JAX conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Inputs are small (a few hundred particles, n_grid 16, 128^2) and made with
-numpy from seeds; chip_smoke.py repeats the comparisons at the main path's
-shapes.
+Inputs are small (a few hundred particles, n_grid 16-24, 64^2-128^2, blend
+windows up to K 20,480) and made with numpy from seeds; chip_smoke.py
+repeats the comparisons at the main paths' shapes.
 """
 
 import dataclasses
@@ -19,10 +19,14 @@ import torch
 
 from gsmpm_tpu_torch.apps.simulate import prepare, simulate
 from gsmpm_tpu_torch.config import MPMConfig, RenderConfig, SimConfig
+from gsmpm_tpu_torch.models.synthetic import synthetic_blob_scene
+from gsmpm_tpu_torch.render import cuda_blend as cb
 from gsmpm_tpu_torch.render import renderer as tr
 from gsmpm_tpu_torch.render import stream_raster as sr
 from gsmpm_tpu_torch.render.camera import make_camera
 from gsmpm_tpu_torch.sim import cuda_mpm, tiles
+from gsmpm_tpu_torch.sim import transfer_vjp as tv
+from gsmpm_tpu_torch.sim.fitting import FitConfig, SystemIdentifier
 from gsmpm_tpu_torch.sim.kernels import soa_from_state
 
 pytestmark = pytest.mark.cuda
@@ -150,3 +154,127 @@ def test_simulate_gpu_matches_cpu(cuda, tmp_path):
     for a, b in zip(frames["cuda"], frames["cpu"]):
         # float-atomic sum order over 20 substeps, then the render
         np.testing.assert_allclose(a, b, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5 tile blend, K6 second-order reductions, the fit frame
+# ---------------------------------------------------------------------------
+
+def _blend_case(dev, counts, K, B=64, seed=0):
+    """Random depth-ordered candidate windows: (counts, F, meta).  Faint
+    splats (opacity 0.004-0.05), so pixels stay open deep into K."""
+    rng = np.random.default_rng(seed)
+    nb = len(counts)
+    s = rng.uniform(1.0, 6.0, size=(nb, K))
+    cand = np.zeros((10, nb, K), np.float32)
+    cand[0:2] = rng.uniform(-8.0, B + 8.0, size=(2, nb, K))
+    cand[2] = 1.0 / (s * s)
+    cand[3] = rng.uniform(-0.2, 0.2, size=(nb, K)) / (s * s)
+    cand[4] = 1.0 / (s * s)
+    cand[5] = np.log(rng.uniform(0.004, 0.05, size=(nb, K)))
+    cand[6:9] = rng.uniform(0.0, 1.0, size=(3, nb, K))
+    cand[9] = np.ceil(3.0 * s)
+    live = np.arange(K)[None, :] < np.asarray(counts)[:, None]
+    cand[5] = np.where(live, cand[5], -1e30)
+    org = torch.zeros((nb, 1), device=dev)
+    F = cb._build_F(torch.from_numpy(cand).to(dev), org, org, B).contiguous()
+    meta = cb.BlendMeta(64, B, 1e-4, 1.0 / 255.0, -(-K // 64))
+    return torch.tensor(counts, dtype=torch.int32, device=dev), F, meta
+
+
+@pytest.mark.parametrize("K", [768, 20480])  # the TPU's resident / streamed
+def test_blend_kernels_match_twins(cuda, K):
+    counts, F, meta = _blend_case(cuda, [K, K // 2, 7, 0], K)
+    before = (cb.blend_fwd.launches, cb.blend_bwd.launches)
+    out = cb.blend_fwd(counts, F, meta)
+    want = cb.blend_core_ref(counts, F, meta)
+    # sequential vs chunked transmittance products round differently, and
+    # may flip a pixel's stop decision at t_min
+    assert float((out[:, 0:4] - want[:, 0:4]).abs().max()) <= 2e-3
+    assert float((out[:, 4] != want[:, 4]).float().mean()) <= 1e-3
+    assert float((out[:, 5] != want[:, 5]).float().mean()) <= 1e-3
+    assert float(out[:, 5].max()) > 0.5 * K  # the walk went deep
+
+    rng = np.random.default_rng(1)
+    g = torch.zeros_like(out)
+    g[:, 0:4] = torch.from_numpy(rng.normal(size=(4, 4, meta.P))
+                                 .astype(np.float32)).to(cuda)
+    dF = cb.blend_bwd(F, out, g, meta)
+    dF_ref = cb.blend_core_bwd_ref(F, out, g, meta)
+    assert (cb.blend_fwd.launches, cb.blend_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    # transmittance recovered by division in another order: 1e-4 of each
+    # row group's largest entry (quadratic form, log opacity, colors)
+    for rows in (slice(0, 6), slice(6, 7), slice(8, 11)):
+        scale = float(dF_ref[:, rows].abs().max())
+        assert scale > 0
+        err = float((dF[:, rows] - dF_ref[:, rows]).abs().max())
+        assert err <= 1e-4 * scale, (rows, err, scale)
+    assert float(dF[:, 11:].abs().max()) == 0.0
+    assert float(dF[:, 7].abs().max()) == 0.0
+
+
+def _fit_ident(dev, n=512, n_grid=24, substeps=3, res=64):
+    scene = synthetic_blob_scene(n=n, seed=5, radius=0.4,
+                                 center=(0.0, 0.8, 0.0), device=dev)
+    cfg = MPMConfig(material="jelly", E=1e4, nu=0.3, n_grid=n_grid,
+                    grid_extent=2.0, gravity=[0.0, -9.81, 0.0], fitting=True)
+    v = torch.tensor([[0.0, -2.0, 0.0]], device=dev).repeat(n, 1)
+    ident = SystemIdentifier(
+        scene, cfg, init_velocity=v,
+        fit_cfg=FitConfig(substeps_per_frame=substeps),
+        raster_cfg=tr.RasterConfig(block=32, chunk=32),
+        bg=torch.ones(3, device=dev))
+    cam = make_camera(res, res, 0.7, 0.7, np.eye(3),
+                      np.array([0.0, 0.8, -3.0]))
+    return ident, cam
+
+
+def test_sored_kernel_matches_twin(cuda):
+    ident, _ = _fit_ident(cuda)
+    state = ident.reset_state()
+    n = state.x.shape[0]
+    tc = tiles.default_tile_config(ident.grid.n_grid, n)
+    ts = tiles.bootstrap(soa_from_state(state), ident.model, ident.grid, tc)
+    rng = np.random.default_rng(2)
+    planes = torch.from_numpy(rng.normal(size=(tc.ntiles, 48, 256))
+                              .astype(np.float32)).to(cuda)
+    args = (ts.q, planes, ts.chunk_tile, ts.chunk_live, ident.grid, tc)
+    before = cuda_mpm.sored_tiled.launches
+    got = cuda_mpm.sored_tiled(*args)
+    assert cuda_mpm.sored_tiled.launches == before + 1
+    want = tv.sored_tiled_ref(*args)
+    # fp32 sums over 27 nodes in another order: 1e-4 of each row group's
+    # largest entry (d W, d U^k, d D^k of each window component)
+    for c in range(3):
+        for lo, hi in ((0, 3), (3, 12), (12, 21)):
+            rows = slice(21 * c + lo, 21 * c + hi)
+            scale = float(want[rows].abs().max())
+            assert scale > 0
+            err = float((got[rows] - want[rows]).abs().max())
+            assert err <= 1e-4 * scale, (c, lo, err, scale)
+    assert float(got[63].abs().max()) == 0.0
+
+
+def test_fit_frame_gpu_matches_cpu(cuda):
+    """One fit frame (3 tiled-VJP substeps, the windowed render, loss,
+    backward, SGD) on the GPU kernels and on the CPU twins."""
+    res = {}
+    gt = None
+    for dev in ("cpu", "cuda"):
+        ident, cam = _fit_ident(torch.device(dev))
+        ident._sim_engine = "tiled_vjp"
+        if gt is None:
+            gt = ident.generate_ground_truth(3e3, 0.3, [cam], 2)[1].cpu()
+        state = ident.reset_state()
+        loss, st, _, img = ident.fit_frame(state, 0.0, cam, gt.to(dev))
+        assert ident.sim_engine == "tiled_vjp"
+        res[dev] = (float(loss), img.cpu(), [g.cpu() for g in
+                                            ident.last_grads], st.x.cpu())
+    (lc, ic, gc, xc), (lg, ig, gg, xg) = res["cpu"], res["cuda"]
+    # float atomics over 3 substeps, then the render and its reverse walk
+    assert abs(lc - lg) <= 1e-6
+    assert float((ic - ig).abs().max()) <= 1e-3
+    assert float((xc - xg).abs().max()) <= 1e-4
+    for a, b in zip(gc, gg):
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())

@@ -69,7 +69,7 @@ def _jax_cfg(**kw):
 
 
 def _port_cfg(**kw):
-    return tr.RasterConfig(block=64, **kw)
+    return tr.RasterConfig(block=64, stream=True, **kw)
 
 
 def _render_both(scene, bg, jcfg, tcfg):
