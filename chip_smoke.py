@@ -19,9 +19,18 @@
    are asserted exactly, a profile of one fit frame, K4 / K5 against their
    twins on the fit frame's real candidates (tier 1 and tier 2), K6 on the
    fit state, and one small fit frame on the GPU and on the CPU.
-5. Every path is driven with every launch counter set to 0 just before it
+5. Stream-rendered fit (slice 3, path A): a SystemIdentifier on the same
+   blob with ``RasterConfig(stream=True)`` (ground truth at E 3e3, 2 fit
+   frames, then steady fit frames with exact launches, one profiled), K7
+   against its twin on the steady frame's real stream, and one small
+   stream fit frame on the GPU and on the CPU.
+6. Packed windowed render (slice 3, path B): the steady stream-fit frame's
+   geometry rendered with ``RasterConfig(packed=True)`` at drop-free caps,
+   and its backward, held against the padded path (K4 / K5); K8 and K9
+   against their twins on those inputs.
+7. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-6. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+8. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -58,7 +67,8 @@ STEADY_FRAMES = 2
 FIT_SUBSTEPS = 30
 # launches per fit frame: per substep K1 3 (forward, checkpoint recompute,
 # the fake P2G of G2P's backward), K2 5 (forward, recompute, three fake
-# G2Ps) and K6 2 (one per transfer backward); K4 / K5 once per tier
+# G2Ps) and K6 2 (one per transfer backward); the render's kernels once per
+# frame and direction (K4 / K5 once per tier, or K3 / K7), never recomputed
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 
@@ -447,7 +457,9 @@ def identify_path(dev, wrappers):
     for name in ("p2g_tiled", "g2p_tiled", "sored_tiled", "blend_fwd",
                  "blend_bwd"):
         check(counts[name] > 0, f"identify path: {name} never launched")
-    check(counts["stream_blend"] == 0, "identify path ran the stream blend")
+    for name in ("stream_blend", "stream_blend_bwd", "blend_packed_fwd",
+                 "blend_packed_bwd"):
+        check(counts[name] == 0, f"identify path ran {name}")
     # at least the launches of the fit frames themselves (re-runs after a
     # cap resize add forward launches)
     for name, k in PER_SUBSTEP.items():
@@ -501,8 +513,11 @@ def steady_fit(dev, ident, wrappers):
     check(ident._total_rebuilds == rebuilds, "caps resized in steady state")
     check(ident.sim_engine == "tiled_vjp", f"engine {ident.sim_engine}")
     tiers = 2 if ident.raster_cfg.k_dense > 0 else 1
+    stream = int(ident.raster_cfg.stream)
     want = {k: v * FIT_SUBSTEPS for k, v in PER_SUBSTEP.items()}
-    want.update(blend_fwd=tiers, blend_bwd=tiers, stream_blend=0)
+    want.update(blend_fwd=(1 - stream) * tiers, blend_bwd=(1 - stream) * tiers,
+                stream_blend=stream, stream_blend_bwd=stream,
+                blend_packed_fwd=0, blend_packed_bwd=0)
     for got in per_frame:
         check(got == want, f"launches per fit frame {got}, expected {want}")
     print(f"steady fit: {STEADY_FRAMES} frames {[round(x, 4) for x in times]}"
@@ -538,7 +553,7 @@ def fit_profile(dev, ident, first, steady):
     top = []
     # the largest entries, then the port's own kernels further down
     ours = ("p2g_kernel", "g2p_kernel", "sored_kernel", "blend_fwd_kernel",
-            "blend_bwd_kernel")
+            "blend_bwd_kernel", "stream_fwd_kernel", "stream_bwd_kernel")
     for i, e in enumerate(kernels):
         if i >= PROFILE_TOP and not any(k in e.key for k in ours):
             continue
@@ -726,10 +741,300 @@ def sored_phase(dev, ident, first):
         wrapper=cuda_mpm.sored_tiled)
 
 
-def small_fit_parity(dev):
-    """One fit frame (3 tiled-VJP substeps, the windowed render, backward,
-    SGD) on the GPU kernels and on the CPU twins: 512 gaussians, n_grid
-    24, 64x64."""
+# ---------------------------------------------------------------------------
+# slice 3: the stream-rendered fit (path A) and the packed render (path B)
+# ---------------------------------------------------------------------------
+
+def stream_fit_path(dev, wrappers):
+    """A SystemIdentifier on the bench fit configuration with the stream
+    render, the way gsmpm_tpu reaches the stream fit
+    (scripts/probe_stream_fit.py): ground truth at E_true, then fit frames
+    1 and 2 (a tier-budget resize re-runs a frame), every launch counter
+    set to 0 just before and read just after."""
+    from gsmpm_tpu_torch.apps.identify import make_ring_cameras
+    from gsmpm_tpu_torch.config import MPMConfig
+    from gsmpm_tpu_torch.models.synthetic import synthetic_blob_scene
+    from gsmpm_tpu_torch.render.renderer import RasterConfig
+    from gsmpm_tpu_torch.sim.fitting import FitConfig, SystemIdentifier
+
+    scene = synthetic_blob_scene(n=MAIN_N, radius=0.4, center=(0.0, 0.8, 0.0),
+                                 device=dev)
+    init_v = torch.tensor([[0.0, -2.0, 0.0]], device=dev).repeat(MAIN_N, 1)
+    mpm_cfg = MPMConfig(material="jelly", E=FIT_E_INIT, nu=0.4, n_grid=50,
+                        grid_extent=2.0, gravity=[0.0, -9.81, 0.0],
+                        fitting=True)
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    ident = SystemIdentifier(scene, mpm_cfg, init_velocity=init_v,
+                             fit_cfg=FitConfig(tie_params=True),
+                             raster_cfg=RasterConfig(stream=True),
+                             bg=torch.ones(3, device=dev))
+    cams = make_ring_cameras(scene, FIT_RES)
+    gt = ident.generate_ground_truth(FIT_E_TRUE, 0.3, cams, FIT_FRAMES)
+    state, t = ident.reset_state(), 0.0
+    frame_s, losses = [], []
+    for fid in range(1, FIT_FRAMES):
+        t1 = time.perf_counter()
+        loss, state, t, _ = ident.fit_frame(state, t, cams[fid], gt[fid])
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+        check(ident.n_dropped_last == 0,
+              f"stream fit frame {fid}: n_dropped {ident.n_dropped_last}")
+    wall = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in wrappers}
+    check(all(np.isfinite(v) for v in losses), f"stream fit losses {losses}")
+    check(ident.sim_engine == "tiled_vjp", f"engine {ident.sim_engine}")
+    E = ident.optimized_E
+    check(np.isfinite(E) and abs(E / FIT_E_INIT - 1.0) > 1e-6,
+          f"stream fit: E did not move from {FIT_E_INIT} ({E})")
+    for name in ("p2g_tiled", "g2p_tiled", "sored_tiled", "stream_blend",
+                 "stream_blend_bwd"):
+        check(counts[name] > 0, f"stream fit path: {name} never launched")
+    for name in ("blend_fwd", "blend_bwd", "blend_packed_fwd",
+                 "blend_packed_bwd"):
+        check(counts[name] == 0, f"stream fit path ran {name}")
+    check(counts["stream_blend_bwd"] >= FIT_FRAMES - 1,
+          f"stream_blend_bwd: {counts['stream_blend_bwd']} launches")
+    rc = ident.raster_cfg
+    print(f"stream fit path: {MAIN_N} gaussians, n_grid 50, {FIT_RES}^2, "
+          f"{FIT_FRAMES - 1} fit frames x {FIT_SUBSTEPS} substeps: frame "
+          f"seconds {[round(x, 3) for x in frame_s]}, losses "
+          f"{[round(x, 6) for x in losses]}, E {FIT_E_INIT:g} -> {E:.6g}, nu "
+          f"{ident.optimized_nu:.5f}, budgets g2/g3/g4 {rc.stream_g2}/"
+          f"{rc.stream_g3}/{rc.stream_g4}, budget rebuilds "
+          f"{ident._total_rebuilds}, wall {wall:.1f} s (ground truth "
+          f"included), launches {counts}", flush=True)
+    return ident, counts, dict(frame_s=frame_s, losses=losses, E=E,
+                               nu=ident.optimized_nu,
+                               budget_rebuilds=ident._total_rebuilds,
+                               wall_s=wall)
+
+
+def _fit_stream(ident, state, cam):
+    """The fit frame's stream: (sorted planes, bounds, levels), drop-free."""
+    from gsmpm_tpu_torch.render import renderer as rr
+    from gsmpm_tpu_torch.render import stream_raster as sr
+
+    cfg = ident.raster_cfg
+    with torch.no_grad():
+        xyz, cov = ident._world_geometry(state)
+        opacity, features = ident._appearance()
+        pre = rr.preprocess(xyz, cov, opacity, features, cam,
+                            ident.scene.sh_degree, cfg)
+        splanes, bounds, nd, lv = sr.stream_inputs(pre, cam, cfg)
+    check(int(nd) == 0, f"fit stream dropped {int(nd)}")
+    return splanes, bounds, lv
+
+
+def stream_bwd_phase(dev, ident, first):
+    """K7 against its twin on the steady stream-fit frame's real stream and
+    blend state, with a seeded cotangent; K3 timed on the same stream."""
+    from gsmpm_tpu_torch.render import stream_raster as sr
+
+    state, cam = first[0], first[1]
+    cfg = ident.raster_cfg
+    splanes, bounds, lv = _fit_stream(ident, state, cam)
+    args = (lv.nbx, cfg.block, float(cfg.alpha_min))
+    out = sr.stream_blend(splanes, bounds, lv.nbx, cfg.block,
+                          float(cfg.t_min), float(cfg.alpha_min))
+    rng = np.random.default_rng(3)
+    g = torch.zeros_like(out)
+    g[:, 0:4] = torch.from_numpy(rng.normal(size=(out.shape[0], 4,
+                                                  out.shape[2]))
+                                 .astype(np.float32)).to(dev)
+    got = sr.stream_blend_bwd(splanes, bounds, out, g, *args)
+    want = sr.stream_blend_bwd_ref(splanes, bounds, out, g, *args)
+    torch.cuda.synchronize()
+    rel = {}
+    for gname, rows in (("position", slice(0, 2)), ("conic", slice(2, 5)),
+                        ("logo", slice(5, 6)), ("rgb", slice(6, 9))):
+        scale = float(want[rows].abs().max())
+        rel[gname] = float((got[rows] - want[rows]).abs().max()) / max(
+            scale, 1e-30)
+    err7 = float((got - want).abs().max())
+    # the reverse walk recovers T by division, sequentially here and per
+    # chunk in the twin: 1e-4 of each row group's largest entry
+    check(max(rel.values()) <= 1e-4, f"K7 stream bwd: rel err {rel}")
+    ms7 = cuda_ms(lambda: sr.stream_blend_bwd(splanes, bounds, out, g, *args),
+                  20)
+    pms7 = cuda_ms(lambda: sr.stream_blend_bwd_ref(splanes, bounds, out, g,
+                                                   *args), 1, 1)
+    ms3 = cuda_ms(lambda: sr.stream_blend(splanes, bounds, lv.nbx, cfg.block,
+                                          float(cfg.t_min),
+                                          float(cfg.alpha_min)), 20)
+    # (slot, pixel) pairs this data needs: each pixel from its last
+    # contributor back to its segment's start; >= 40 fp32 operations each
+    lo = bounds[:-1].to(torch.float64)
+    last = out[:, 5].to(torch.float64)
+    pairs = float((last - lo[:, None]).clamp_min(0).sum())
+    walked = float((last.amax(dim=1) - lo).clamp_min(0).sum())
+    # bytes: the walked slots' 9 planes, the state and cotangent rows read
+    # (T, last, rgb, T), d(splanes) written whole
+    b7 = bound_ms(walked * 9 * 4 + out.shape[0] * 6 * out.shape[2] * 4
+                  + splanes.numel() * 4, pairs * 40.0)
+    print(f"K7 stream bwd: {lv.nf} blocks, {splanes.shape[1]} slots "
+          f"({walked:.0f} walked, {pairs:.4g} pairs): rel err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f"; {ms7:.4f} ms (plain {pms7:.2f} ms, bound {b7[0]:.4f} "
+          f"{b7[1]}); K3 on the same stream {ms3:.4f} ms", flush=True)
+    return dict(
+        name="stream_blend_bwd", route="cuda",
+        source="gsmpm_tpu_torch/csrc/stream_raster.cu",
+        replaces="gsmpm_tpu/render/stream_raster.py:392", max_abs_err=err7,
+        rel_err=max(rel.values()), tol="1e-4 x max per row group", ms=ms7,
+        plain_ms=pms7, bound_ms=b7[0], bound_by=b7[1], library_ms=None,
+        wrapper=sr.stream_blend_bwd, pairs=pairs, walked_slots=walked,
+        L=int(splanes.shape[1]), k3_fit_ms=ms3)
+
+
+def packed_phase(dev, ident, first, wrappers):
+    """Path B: the steady stream-fit frame's geometry rendered with the
+    packed windowed layout at drop-free caps (required_raster_caps; t_cap
+    the sum of the blocks' C-aligned counts), and a backward to the means
+    and the SH colour features under a seeded cotangent, held against the
+    padded path at the same caps; then K8 / K9 against their twins on the
+    packed inputs."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+    from gsmpm_tpu_torch.render import renderer as rr
+
+    state, cam = first[0], first[1]
+    with torch.no_grad():
+        xyz, cov = ident._world_geometry(state)
+        opacity, features = ident._appearance()
+    base = rr.RasterConfig()
+    C = base.chunk
+    need = rr.required_raster_caps(xyz, cov, opacity, cam, base)
+
+    def up(k):
+        return max(C, -(-k // C) * C)
+
+    cfg = base._replace(k_tile=up(need["k_tile"]),
+                        k_coarse=up(need["k_coarse"]),
+                        k_global=up(need["k_global"]), packed=True)
+    sh = ident.scene.sh_degree
+    with torch.no_grad():
+        pre = rr.preprocess(xyz, cov, opacity, features, cam, sh, cfg)
+        gidx, counts, origins, dropped = rr._select_candidates_dupsort_v2(
+            pre, cam, cfg)
+    check(int(dropped) == 0, f"packed caps drop {int(dropped)}")
+    cfg = cfg._replace(t_cap=int((((counts.to(torch.int64) + C - 1) // C)
+                                  * C).sum()))
+    rng = np.random.default_rng(4)
+    ct = torch.from_numpy(rng.normal(size=(FIT_RES, FIT_RES, 3)).astype(
+        np.float32)).to(dev)
+
+    def render(c):
+        m = xyz.detach().clone().requires_grad_(True)
+        f = features.detach().clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        img, nd = rr.render_with_aux(m, cov, opacity, f, cam, ident.bg, sh, c)
+        torch.sum(img * ct).backward()
+        torch.cuda.synchronize()
+        return img.detach(), int(nd), m.grad, f.grad, time.perf_counter() - t0
+
+    for w in wrappers:
+        w.launches = 0
+    img_p, nd_p, gm_p, gf_p, s_p = render(cfg)
+    counts_p = {w.__name__: w.launches for w in wrappers}
+    img_u, nd_u, gm_u, gf_u, s_u = render(cfg._replace(packed=False))
+    check(nd_p == 0 and nd_u == 0, f"packed / padded n_dropped {nd_p} {nd_u}")
+    want = {w.__name__: 0 for w in wrappers}
+    want.update(blend_packed_fwd=1, blend_packed_bwd=1)
+    check(counts_p == want, f"packed path launches {counts_p}")
+    img_err = float((img_p - img_u).abs().max())
+    g_rel = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+             for k, a, b in (("means", gm_p, gm_u), ("features", gf_p, gf_u))}
+    # the same blend on another layout: the image to 1e-6; the gradients
+    # sum the per-warp atomics and the gathers' index_add_ in another order
+    check(img_err <= 1e-6, f"packed vs padded image err {img_err}")
+    check(max(g_rel.values()) <= 1e-5, f"packed vs padded grads {g_rel}")
+
+    # K8 / K9 on the packed render's own inputs
+    with torch.no_grad():
+        cand, x0, y0, cnt, offs, over = rr._packed_candidates(
+            pre, gidx, counts, origins, cfg)
+        F, meta = cb.packed_inputs(cand, x0, y0, cfg)
+    check(int(over) == 0, f"t_cap dropped {int(over)}")
+    nb, P = cnt.shape[0], meta.P
+    out_k = cb.blend_packed_fwd(cnt, offs, F, meta)
+    out_r = cb.blend_packed_ref(cnt, offs, F, meta)
+    torch.cuda.synchronize()
+    err8 = float((out_k[:, 0:4] - out_r[:, 0:4]).abs().max())
+    done_diff = float((out_k[:, 4] != out_r[:, 4]).float().mean())
+    last_diff = float((out_k[:, 5] != out_r[:, 5]).float().mean())
+    g = torch.zeros_like(out_k)
+    g[:, 0:4] = torch.from_numpy(rng.normal(size=(nb, 4, P)).astype(
+        np.float32)).to(dev)
+    dF_k = cb.blend_packed_bwd(cnt, offs, F, out_k, g, meta)
+    dF_r = cb.blend_packed_bwd_ref(cnt, offs, F, out_k, g, meta)
+    torch.cuda.synchronize()
+    rel9 = {}
+    for gname, rows in (("quad", slice(0, 6)), ("logo", slice(6, 7)),
+                        ("rgb", slice(8, 11))):
+        scale = float(dF_r[rows].abs().max())
+        rel9[gname] = float((dF_k[rows] - dF_r[rows]).abs().max()) / max(
+            scale, 1e-30)
+    pad_rows = float(dF_k[11:].abs().max()) + float(dF_k[7].abs().max())
+    # K4 / K5's tolerances: sequential vs chunked transmittance products
+    check(err8 <= 2e-3, f"K8: max err {err8}")
+    check(done_diff <= 1e-4, f"K8: done flags differ {done_diff}")
+    check(last_diff <= 1e-4, f"K8: last index differs {last_diff}")
+    check(max(rel9.values()) <= 1e-4, f"K9: rel err {rel9}")
+    check(pad_rows == 0.0, f"K9: unused dF rows {pad_rows}")
+    ms8 = cuda_ms(lambda: cb.blend_packed_fwd(cnt, offs, F, meta), 20)
+    pms8 = cuda_ms(lambda: cb.blend_packed_ref(cnt, offs, F, meta), 1, 1)
+    ms9 = cuda_ms(lambda: cb.blend_packed_bwd(cnt, offs, F, out_k, g, meta),
+                  20)
+    pms9 = cuda_ms(lambda: cb.blend_packed_bwd_ref(cnt, offs, F, out_k, g,
+                                                   meta), 1, 1)
+    # pairs and bytes as K4 / K5's (blend_phases)
+    cntf = cnt.to(torch.float64)[:, None]
+    last = out_k[:, 5].to(torch.float64)
+    pairs8 = float(torch.where(out_k[:, 4] > 0, last, cntf).sum())
+    pairs9 = float(last.sum())
+    live_cols = float(cnt.sum())
+    b8 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs8 * 20.0)
+    b9 = bound_ms(live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4,
+                  pairs9 * 40.0)
+    print(f"packed path: caps k_tile {cfg.k_tile} k_coarse {cfg.k_coarse} "
+          f"k_global {cfg.k_global}, t_cap {cfg.t_cap} ({live_cols:.0f} live "
+          f"candidates in {nb} blocks); render + backward {s_p:.3f} s packed, "
+          f"{s_u:.3f} s padded; image err {img_err:.3g}, grad rel err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in g_rel.items())
+          + f"; launches {counts_p}", flush=True)
+    print(f"K8 packed fwd: max err {err8:.3g}, done differ {done_diff:.3g}, "
+          f"last differ {last_diff:.3g}, {ms8:.4f} ms (plain {pms8:.2f}, "
+          f"bound {b8[0]:.4f} {b8[1]}, {pairs8:.4g} pairs); K9 rel err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel9.items())
+          + f", {ms9:.4f} ms (plain {pms9:.2f}, bound {b9[0]:.4f} {b9[1]}, "
+          f"{pairs9:.4g} pairs)", flush=True)
+    common = dict(route="cuda", source="gsmpm_tpu_torch/csrc/tile_blend.cu",
+                  library_ms=None)
+    rows = [
+        dict(name="blend_packed_fwd", wrapper=cb.blend_packed_fwd,
+             replaces="gsmpm_tpu/render/pallas_blend.py:692",
+             max_abs_err=err8, tol="2e-3 abs on rgb/T", ms=ms8,
+             plain_ms=pms8, bound_ms=b8[0], bound_by=b8[1], pairs=pairs8,
+             **common),
+        dict(name="blend_packed_bwd", wrapper=cb.blend_packed_bwd,
+             replaces="gsmpm_tpu/render/pallas_blend.py:759",
+             max_abs_err=float((dF_k - dF_r).abs().max()),
+             tol="1e-4 x max per dF row group", ms=ms9, plain_ms=pms9,
+             bound_ms=b9[0], bound_by=b9[1], pairs=pairs9, **common),
+    ]
+    return counts_p, dict(
+        caps=dict(k_tile=cfg.k_tile, k_coarse=cfg.k_coarse,
+                  k_global=cfg.k_global, t_cap=cfg.t_cap),
+        live=live_cols, render_bwd_s=s_p, padded_render_bwd_s=s_u,
+        image_err=img_err, grad_rel=g_rel, rel9=rel9, err8=err8), rows
+
+
+def small_fit_parity(dev, stream: bool = False):
+    """One fit frame (3 tiled-VJP substeps, the windowed or the stream
+    render, backward, SGD) on the GPU kernels and on the CPU twins: 512
+    gaussians, n_grid 24, 64x64."""
     from gsmpm_tpu_torch.config import MPMConfig
     from gsmpm_tpu_torch.models.synthetic import synthetic_blob_scene
     from gsmpm_tpu_torch.render.camera import make_camera
@@ -749,7 +1054,7 @@ def small_fit_parity(dev):
             init_velocity=torch.tensor([[0.0, -2.0, 0.0]],
                                        device=d).repeat(n, 1),
             fit_cfg=FitConfig(substeps_per_frame=3),
-            raster_cfg=RasterConfig(block=32, chunk=32),
+            raster_cfg=RasterConfig(block=32, chunk=32, stream=stream),
             bg=torch.ones(3, device=d))
         ident._sim_engine = "tiled_vjp"
         cam = make_camera(64, 64, 0.7, 0.7, np.eye(3),
@@ -767,10 +1072,11 @@ def small_fit_parity(dev):
                             / gc[0].abs().max()),
                g_y=float((gc[1] - gg[1]).abs().max() / gc[1].abs().max()))
     # float atomics over 3 substeps, then the render and its reverse walk
+    render = "stream" if stream else "windowed"
     check(err["loss"] <= 1e-6 and err["image"] <= 1e-3 and err["x"] <= 1e-4
           and err["g_logE"] <= 1e-3 and err["g_y"] <= 1e-3,
-          f"small fit GPU-vs-CPU {err}")
-    print("small fit GPU-vs-CPU parity: " + ", ".join(
+          f"small {render} fit GPU-vs-CPU {err}")
+    print(f"small {render} fit GPU-vs-CPU parity: " + ", ".join(
         f"{k} {v:.3g}" for k, v in err.items())
           + " (tol loss 1e-6, image 1e-3, x 1e-4, gradients 1e-3 of max)",
           flush=True)
@@ -806,13 +1112,16 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     from gsmpm_tpu_torch.render import cuda_blend
+    from gsmpm_tpu_torch.render import stream_raster
     from gsmpm_tpu_torch.sim import cuda_mpm
 
     # slice 1: the simulation path
     rows = kernel_phases(dev)
     small_parity(dev)
     wrappers = [r["wrapper"] for r in rows] + [
-        cuda_mpm.sored_tiled, cuda_blend.blend_fwd, cuda_blend.blend_bwd]
+        cuda_mpm.sored_tiled, cuda_blend.blend_fwd, cuda_blend.blend_bwd,
+        stream_raster.stream_blend_bwd, cuda_blend.blend_packed_fwd,
+        cuda_blend.blend_packed_bwd]
     sim_counts, main = main_path(dev, wrappers)
     main["profile"] = profile_phase(dev, main)
 
@@ -823,25 +1132,49 @@ def main() -> int:
     blend_rows, fit["blend_tiers"] = blend_phases(dev, ident, first)
     rows += blend_rows + [sored_phase(dev, ident, first)]
     fit["small_parity"] = small_fit_parity(dev)
+    del ident, first
+    torch.cuda.empty_cache()
 
+    # slice 3: the stream-rendered fit (path A) and the packed render (B)
+    sident, sfit_counts, sfit = stream_fit_path(dev, wrappers)
+    sfit["steady"], sfirst, _, _ = steady_fit(dev, sident, wrappers)
+    print(f"steady fit frame: stream render "
+          f"{np.mean(sfit['steady']['frame_s']):.4f} s "
+          f"{[round(x, 4) for x in sfit['steady']['frame_s']]}, windowed "
+          f"render {np.mean(fit['steady']['frame_s']):.4f} s "
+          f"{[round(x, 4) for x in fit['steady']['frame_s']]}", flush=True)
+    sfit["profile"] = fit_profile(dev, sident, sfirst, sfit["steady"])
+    rows.append(stream_bwd_phase(dev, sident, sfirst))
+    packed_counts, packed, packed_rows = packed_phase(dev, sident, sfirst,
+                                                      wrappers)
+    rows += packed_rows
+    sfit["small_parity"] = small_fit_parity(dev, stream=True)
+
+    # each kernel's own path: the one its slice ported it for
+    own_path = dict(stream_blend="simulate", stream_blend_bwd="stream_fit",
+                    blend_packed_fwd="packed", blend_packed_bwd="packed")
     kernels = []
     for r in rows:
         name = r["name"]
-        by_path = {"simulate": sim_counts[name], "identify": fit_counts[name]}
+        by_path = {"simulate": sim_counts[name], "identify": fit_counts[name],
+                   "stream_fit": sfit_counts[name],
+                   "packed": packed_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
+        check(by_path[own_path.get(name, "identify")] > 0,
+              f"{name} not launched on its own path")
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"],
             "replaces": r["replaces"],
-            # its slice's path: identify for all but the stream blend
-            "launches": by_path["simulate" if name == "stream_blend"
-                                else "identify"],
+            "launches": by_path[own_path.get(name, "identify")],
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"per_tier": r["per_tier"]} if "per_tier" in r else {}),
         })
-    print(json.dumps({"main_path": main, "identify_path": fit}))
+    check(len(kernels) == 9, f"{len(kernels)} kernels in the table")
+    print(json.dumps({"main_path": main, "identify_path": fit,
+                      "stream_fit_path": sfit, "packed_path": packed}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,30 @@
-// Windowed tile blend, forward and backward, for Hopper (sm_90a), fp32.
+// Windowed tile blend, forward and backward, for Hopper (sm_90a), fp32, in
+// the padded and the packed layout.
 //
 // Replaces the Pallas TPU kernels of gsmpm_tpu/render/pallas_blend.py:
 //   K4 _blend_kernel + _blend_kernel_streamed (launcher _blend_core)
 //        -> gsmpm_blend_fwd
 //   K5 _blend_bwd_kernel + _blend_bwd_kernel_streamed (_blend_core_bwd)
 //        -> gsmpm_blend_bwd
+//   K8 _blend_kernel_packed (_blend_core_packed)  -> gsmpm_blend_packed_fwd
+//   K9 _blend_bwd_kernel_packed (_blend_core_packed_bwd)
+//        -> gsmpm_blend_packed_bwd
 // Plain twins: gsmpm_tpu_torch/render/cuda_blend.py blend_core_ref /
-// blend_core_bwd_ref.  One kernel serves every window width K: the TPU's
-// streamed variants exist only because of its VMEM limit.
+// blend_core_bwd_ref / blend_packed_ref / blend_packed_bwd_ref.  One kernel
+// serves every window width K: the TPU's streamed variants exist only
+// because of its VMEM limit.  K8 / K9 are K4 / K5 instantiated on the
+// packed addressing (template parameter PACKED).
 //
 // Layouts (the JAX package's):
 //   counts (nblocks,) int32: live candidates of each block's window
 //   F (nblocks, 16, K): rows 0..5 the quadratic form's coefficients of the
 //     block-local pixel monomials [px^2, px, 1, py^2, py, px py], row 6 the
 //     log opacity (-1e30 for dead slots), rows 8..10 the colors
+//   packed: F (16, T) holds every block's window back to back; block b owns
+//     columns [offs[b], offs[b] + n_live*C) with n_live = min(ceil(count_b
+//     / C), n_chunks), and its candidate indices (and row 5 of out) are
+//     local to that slice.  dF (16, T) is written on the walked columns
+//     only; the wrapper zero-fills the rest.
 //   out (nblocks, 8, B*B): rows 0..2 rgb, 3 transmittance T, 4 done, 5 last
 //     contributing candidate index + 1 (as float), 6..7 zero
 //   g (nblocks, 8, B*B): cotangent of out (rows 0..3 used)
@@ -43,6 +54,10 @@
 //       block's pixels reduce by warp shuffles (skipped when the warp has
 //       nothing) and one shared-memory atomic per warp; each walked column
 //       of dF is written once, with no global atomics.
+//   K8 / K9: the same two kernels on the packed addressing (window_of):
+//       block b reads F columns offs[b] + j, walks n_live chunks of C like
+//       the TPU kernels, and keeps its last-contributor index local to its
+//       slice, as _blend_kernel_packed does.
 // The power term is summed in the twin's order and this file is built with
 // --fmad=false, so power and the gating decisions round as the twin's.
 
@@ -59,6 +74,32 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int frow(int r) { return r < 7 ? r : r + 1; }
 
+// Where block b's window lives.  Padded: F[b] (16, K), every column
+// addressable; packed: the slice of the (16, T) array given by offs.
+struct Window {
+  size_t col0;  // offset of the window's column 0 in F (and dF)
+  size_t ld;    // row stride of F
+  int width;    // columns of the window
+  int count;    // live candidates, <= width
+};
+
+template <bool PACKED>
+__device__ __forceinline__ Window window_of(int b, const int* counts,
+                                            const int* offs, int K, int C,
+                                            int n_chunks) {
+  Window w;
+  w.ld = (size_t)K;  // K is T in the packed layout
+  if (PACKED) {
+    w.col0 = (size_t)offs[b];
+    w.width = min((counts[b] + C - 1) / C, n_chunks) * C;
+  } else {
+    w.col0 = (size_t)b * 16 * K;
+    w.width = K;
+  }
+  w.count = counts ? min(counts[b], w.width) : w.width;
+  return w;
+}
+
 __device__ __forceinline__ float power_of(float (*sF)[CH], int j,
                                           float pxx, float px, float pyy,
                                           float py, float pxy) {
@@ -71,10 +112,11 @@ __device__ __forceinline__ float power_of(float (*sF)[CH], int j,
   return power + sF[6][j];
 }
 
+template <bool PACKED>
 __global__ void __launch_bounds__(FWD_THREADS)
-blend_fwd_kernel(const int* __restrict__ counts, const float* __restrict__ F,
-                 float* __restrict__ out, int K, int B, float t_min,
-                 float alpha_min) {
+blend_fwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
+                 const float* __restrict__ F, float* __restrict__ out, int K,
+                 int C, int n_chunks, int B, float t_min, float alpha_min) {
   __shared__ float sF[NROW][CH];
   const int b = blockIdx.x;
   const int subs = B / 16;
@@ -83,8 +125,9 @@ blend_fwd_kernel(const int* __restrict__ counts, const float* __restrict__ F,
   const int pyi = sy * 16 + (threadIdx.x >> 4);
   const float px = (float)pxi, py = (float)pyi;
   const float pxx = px * px, pyy = py * py, pxy = px * py;
-  const float* Fb = F + (size_t)b * 16 * K;
-  const int count = min(counts[b], K);
+  const Window win = window_of<PACKED>(b, counts, offs, K, C, n_chunks);
+  const float* Fb = F + win.col0;
+  const int count = win.count;
 
   float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, last = 0.0f;
   bool done = false;
@@ -93,7 +136,7 @@ blend_fwd_kernel(const int* __restrict__ counts, const float* __restrict__ F,
     const int n = min(CH, count - base);
     for (int i = threadIdx.x; i < NROW * CH; i += FWD_THREADS) {
       const int r = i / CH, j = i % CH;
-      sF[r][j] = j < n ? Fb[(size_t)frow(r) * K + base + j] : 0.0f;
+      sF[r][j] = j < n ? Fb[frow(r) * win.ld + base + j] : 0.0f;
     }
     __syncthreads();
     if (!done) {
@@ -125,18 +168,23 @@ blend_fwd_kernel(const int* __restrict__ counts, const float* __restrict__ F,
   o[7 * P] = 0.0f;
 }
 
+template <bool PACKED>
 __global__ void __launch_bounds__(BWD_THREADS)
-blend_bwd_kernel(const float* __restrict__ F, const float* __restrict__ out,
+blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
+                 const float* __restrict__ F, const float* __restrict__ out,
                  const float* __restrict__ g, float* __restrict__ dF, int K,
-                 int B, float t_min, float alpha_min) {
+                 int C, int n_chunks, int B, float alpha_min) {
   __shared__ float sF[NROW][CH];
   __shared__ float acc[9][CH];
   __shared__ int s_top;
   const int b = blockIdx.x;
   const int P = B * B;
   const int lane = threadIdx.x & 31;
-  const float* Fb = F + (size_t)b * 16 * K;
-  float* dFb = dF + (size_t)b * 16 * K;
+  const Window win = window_of<PACKED>(b, counts, offs, K, C, n_chunks);
+  const int W = win.width;
+  const size_t ld = win.ld;
+  const float* Fb = F + win.col0;
+  float* dFb = dF + win.col0;
   const float* ob = out + (size_t)b * 8 * P;
   const float* gb = g + (size_t)b * 8 * P;
 
@@ -165,15 +213,15 @@ blend_bwd_kernel(const float* __restrict__ F, const float* __restrict__ out,
   // candidates [0, top) hold every contributor of the block; the steps
   // past them only get zeros
   const int steps = (s_top + CH - 1) / CH;
-  for (int i = min(K, steps * CH) + threadIdx.x; i < K; i += BWD_THREADS)
-    for (int r = 0; r < 16; ++r) dFb[(size_t)r * K + i] = 0.0f;
+  for (int i = min(W, steps * CH) + threadIdx.x; i < W; i += BWD_THREADS)
+    for (int r = 0; r < 16; ++r) dFb[r * ld + i] = 0.0f;
 
   for (int step = steps - 1; step >= 0; --step) {
     const int base = step * CH;
-    const int n = min(CH, K - base);
+    const int n = min(CH, W - base);
     for (int i = threadIdx.x; i < NROW * CH; i += BWD_THREADS) {
       const int r = i / CH, j = i % CH;
-      sF[r][j] = j < n ? Fb[(size_t)frow(r) * K + base + j] : 0.0f;
+      sF[r][j] = j < n ? Fb[frow(r) * ld + base + j] : 0.0f;
     }
     for (int i = threadIdx.x; i < 9 * CH; i += BWD_THREADS)
       (&acc[0][0])[i] = 0.0f;
@@ -232,7 +280,7 @@ blend_bwd_kernel(const float* __restrict__ F, const float* __restrict__ out,
       if (r <= 5) x = acc[r][j];
       else if (r == 6) x = acc[2][j];
       else if (r >= 8 && r <= 10) x = acc[r - 2][j];
-      dFb[(size_t)r * K + base + j] = x;
+      dFb[r * ld + base + j] = x;
     }
     __syncthreads();  // the next step overwrites sF and acc
   }
@@ -250,17 +298,42 @@ int gsmpm_blend_fwd(const int* counts, const float* F, float* out, int nb,
                     int K, int B, float t_min, float alpha_min, void* stream) {
   if (nb <= 0) return cudaSuccess;
   const dim3 grid(nb, (B / 16) * (B / 16));
-  blend_fwd_kernel<<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, F, out, K, B, t_min, alpha_min);
+  blend_fwd_kernel<false>
+      <<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          counts, nullptr, F, out, K, 1, 0, B, t_min, alpha_min);
   return cudaGetLastError();
 }
 
 int gsmpm_blend_bwd(const float* F, const float* out, const float* g,
-                    float* dF, int nb, int K, int B, float t_min,
-                    float alpha_min, void* stream) {
+                    float* dF, int nb, int K, int B, float alpha_min,
+                    void* stream) {
   if (nb <= 0) return cudaSuccess;
-  blend_bwd_kernel<<<nb, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      F, out, g, dF, K, B, t_min, alpha_min);
+  blend_bwd_kernel<false>
+      <<<nb, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          nullptr, nullptr, F, out, g, dF, K, 1, 0, B, alpha_min);
+  return cudaGetLastError();
+}
+
+int gsmpm_blend_packed_fwd(const int* counts, const int* offs, const float* F,
+                           float* out, int nb, int T, int C, int n_chunks,
+                           int B, float t_min, float alpha_min,
+                           void* stream) {
+  if (nb <= 0) return cudaSuccess;
+  const dim3 grid(nb, (B / 16) * (B / 16));
+  blend_fwd_kernel<true>
+      <<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          counts, offs, F, out, T, C, n_chunks, B, t_min, alpha_min);
+  return cudaGetLastError();
+}
+
+int gsmpm_blend_packed_bwd(const int* counts, const int* offs, const float* F,
+                           const float* out, const float* g, float* dF,
+                           int nb, int T, int C, int n_chunks, int B,
+                           float alpha_min, void* stream) {
+  if (nb <= 0) return cudaSuccess;
+  blend_bwd_kernel<true>
+      <<<nb, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          counts, offs, F, out, g, dF, T, C, n_chunks, B, alpha_min);
   return cudaGetLastError();
 }
 

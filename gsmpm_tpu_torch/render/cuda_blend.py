@@ -1,6 +1,6 @@
-"""Windowed tile blend: kernels K4 (forward) and K5 (backward).
+"""Windowed tile blend: kernels K4 / K5 (padded layout) and K8 / K9 (packed).
 
-Counterpart of the padded half of gsmpm_tpu/render/pallas_blend.py.  Each
+Counterpart of gsmpm_tpu/render/pallas_blend.py.  Each
 pixel block b blends its depth-ordered candidate window front to back from
 a prebuilt (16, K) coefficient block F (``_build_F``): the quadratic form
 of a splat over the block-local pixel monomials H = [px^2, px, 1, py^2, py,
@@ -14,6 +14,13 @@ of csrc/tile_blend.cu (one kernel each serves every K: global memory has
 no VMEM limit, so the TPU's resident/streamed split has no counterpart);
 for CPU tensors they are the plain twins ``blend_core_ref`` /
 ``blend_core_bwd_ref``, transcriptions of the TPU kernels' chunked math.
+
+``blend_packed`` is the same blend on the packed layout: every block's
+window stored back to back in one (16, T) array at C-aligned offsets, so
+the candidate gather tracks the real candidate total instead of nblocks x
+K.  ``_BlendCorePacked`` pairs kernels K8 / K9 (twins ``blend_packed_ref``
+/ ``blend_packed_bwd_ref``, which run the padded twins on the gathered
+windows).
 """
 
 from __future__ import annotations
@@ -57,7 +64,9 @@ def _build_F(cand_raw: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     block-local pixel, row 6 is the log opacity (its monomial is 1), rows
     8..10 the colors.  x0/y0 (nblocks, 1) are the block origins.  A
     candidate whose screen rect misses the block gets log opacity -1e30 and
-    blends to exactly nothing."""
+    blends to exactly nothing.  The packed layout's (10, T) planes with
+    per-slot origins x0/y0 (T,) give (16, T): gsmpm_tpu's _build_F_packed
+    is this function with the batch axis dropped."""
     gx = cand_raw[CGX] - x0
     gy = cand_raw[CGY] - y0
     a, b, c, r = cand_raw[CA], cand_raw[CB], cand_raw[CC], cand_raw[CRAD]
@@ -227,9 +236,14 @@ def _lib():
     lib = build.load("tile_blend")
     lib.gsmpm_blend_fwd.argtypes = [_VP, _VP, _VP, _I, _I, _I, _F, _F, _VP]
     lib.gsmpm_blend_fwd.restype = ctypes.c_int
-    lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F,
-                                    _VP]
+    lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP]
     lib.gsmpm_blend_bwd.restype = ctypes.c_int
+    lib.gsmpm_blend_packed_fwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                           _I, _F, _F, _VP]
+    lib.gsmpm_blend_packed_fwd.restype = ctypes.c_int
+    lib.gsmpm_blend_packed_bwd.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I,
+                                           _I, _I, _I, _I, _F, _VP]
+    lib.gsmpm_blend_packed_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -290,8 +304,7 @@ def blend_bwd(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     dF = torch.empty_like(F)
     lib = _lib()
     err = lib.gsmpm_blend_bwd(F.data_ptr(), out.data_ptr(), g.data_ptr(),
-                              dF.data_ptr(), nb, K, meta.B, meta.t_min,
-                              meta.alpha_min,
+                              dF.data_ptr(), nb, K, meta.B, meta.alpha_min,
                               torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "blend_bwd")
     blend_bwd.launches += 1
@@ -348,3 +361,163 @@ def blend_blocks(cand_raw: torch.Tensor, counts: torch.Tensor,
     out = _BlendCore.apply(F, counts, meta)
     rgb = out[:, 0:3, :] + out[:, 3:4, :] * bg[None, :, None]
     return rgb.reshape(nb, 3, B, B).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# packed layout: kernels K8 / K9
+# ---------------------------------------------------------------------------
+
+
+def _packed_windows(counts: torch.Tensor, offs: torch.Tensor, T: int,
+                    meta: BlendMeta):
+    """Block b's window in the packed (16, T) array: (cols (nb, n_chunks*C)
+    column of each window slot, walked (nb, n_chunks*C) the slots its blend
+    walks, j < min(ceil(count/C), n_chunks) * C).  Unwalked slots point at
+    column T - 1, which the blend does not use."""
+    C, Kw = meta.C, meta.n_chunks * meta.C
+    n_live = torch.clamp((counts.to(torch.int64) + C - 1) // C,
+                         max=meta.n_chunks)
+    j = torch.arange(Kw, device=counts.device)
+    walked = j[None, :] < (n_live * C)[:, None]
+    cols = torch.where(walked, offs.to(torch.int64)[:, None] + j, T - 1)
+    return cols, walked
+
+
+def blend_packed_ref(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
+                     meta: BlendMeta) -> torch.Tensor:
+    """Plain twin of kernel K8: blend state (nblocks, 8, P) of the packed
+    layout.  Block b blends columns [offs[b], offs[b] + n_live*C) of F
+    (16, T) front to back, its last-contributor index local to that slice
+    (gsmpm_tpu's _blend_kernel_packed): the padded twin on the gathered
+    windows."""
+    cols, _ = _packed_windows(counts, offs, F.shape[1], meta)
+    return blend_core_ref(counts, F[:, cols].transpose(0, 1), meta)
+
+
+def blend_packed_bwd_ref(counts: torch.Tensor, offs: torch.Tensor,
+                         F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+                         meta: BlendMeta) -> torch.Tensor:
+    """Plain twin of kernel K9: dF (16, T) of the packed layout, zero
+    outside the walked slots (gsmpm_tpu masks them after its kernel): the
+    padded twin's reverse walk on the gathered windows, scattered back."""
+    cols, walked = _packed_windows(counts, offs, F.shape[1], meta)
+    dFw = blend_core_bwd_ref(F[:, cols].transpose(0, 1), out, g, meta)
+    dF = torch.zeros_like(F)
+    dF[:, cols[walked]] = dFw.transpose(0, 1)[:, walked]
+    return dF
+
+
+def _check_packed(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
+                  meta: BlendMeta):
+    """(nblocks, T) after checking the packed kernels' inputs, the windows'
+    bounds included (one host sync): the kernels address F and dF at
+    offs[b] + j unchecked."""
+    dev = F.device
+    _check_block(meta.B)
+    nb, T = counts.shape[0], F.shape[-1]
+    _check(F, "F", (16, T), torch.float32, dev)
+    _check(counts, "counts", (nb,), torch.int32, dev)
+    _check(offs, "offs", (nb,), torch.int32, dev)
+    cols, walked = _packed_windows(counts, offs, T, meta)
+    if bool(((cols >= T) | (cols < 0))[walked].any()):
+        raise ValueError(f"offs / counts: a block's window leaves the {T} "
+                         "columns of the packed array")
+    return nb, T
+
+
+def blend_packed_fwd(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
+                     meta: BlendMeta) -> torch.Tensor:
+    """Blend state (nblocks, 8, P) of the packed layout: kernel K8 for CUDA
+    tensors, ``blend_packed_ref`` for CPU tensors."""
+    dev = F.device
+    if dev.type == "cpu":
+        return blend_packed_ref(counts, offs, F, meta)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
+    nb, T = _check_packed(counts, offs, F, meta)
+    out = torch.empty((nb, 8, meta.P), dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = lib.gsmpm_blend_packed_fwd(
+        counts.data_ptr(), offs.data_ptr(), F.data_ptr(), out.data_ptr(), nb,
+        T, meta.C, meta.n_chunks, meta.B, meta.t_min, meta.alpha_min,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "blend_packed_fwd")
+    blend_packed_fwd.launches += 1
+    return out
+
+
+def blend_packed_bwd(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
+                     out: torch.Tensor, g: torch.Tensor,
+                     meta: BlendMeta) -> torch.Tensor:
+    """dF (16, T) of the packed layout, zero outside the walked slots:
+    kernel K9 for CUDA tensors, ``blend_packed_bwd_ref`` for CPU tensors."""
+    dev = F.device
+    if dev.type == "cpu":
+        return blend_packed_bwd_ref(counts, offs, F, out, g, meta)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
+    nb, T = _check_packed(counts, offs, F, meta)
+    for name, t in (("out", out), ("g", g)):
+        _check(t, name, (nb, 8, meta.P), torch.float32, dev)
+    # the kernel writes the walked slots only
+    dF = torch.zeros_like(F)
+    lib = _lib()
+    err = lib.gsmpm_blend_packed_bwd(
+        counts.data_ptr(), offs.data_ptr(), F.data_ptr(), out.data_ptr(),
+        g.data_ptr(), dF.data_ptr(), nb, T, meta.C, meta.n_chunks, meta.B,
+        meta.alpha_min, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "blend_packed_bwd")
+    blend_packed_bwd.launches += 1
+    return dF
+
+
+blend_packed_fwd.launches = 0
+blend_packed_bwd.launches = 0
+
+
+class _BlendCorePacked(torch.autograd.Function):
+    """gsmpm_tpu's _blend_core_packed.  Its backward needs no mask of the
+    unwalked slots: K9 and its twin leave them zero (the TPU kernel's
+    unvisited output blocks hold garbage, hence the mask in JAX)."""
+
+    @staticmethod
+    def forward(ctx, F, counts, offs, meta):
+        out = blend_packed_fwd(counts, offs, F, meta)
+        ctx.save_for_backward(F, counts, offs, out)
+        ctx.meta = meta
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        F, counts, offs, out = ctx.saved_tensors
+        g8 = torch.zeros_like(out)
+        g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
+        return (blend_packed_bwd(counts, offs, F, out, g8, ctx.meta), None,
+                None, None)
+
+
+def packed_inputs(cand_packed: torch.Tensor, slot_x0: torch.Tensor,
+                  slot_y0: torch.Tensor, cfg):
+    """The packed kernels' inputs: (F (16, T), BlendMeta) of (10, T) packed
+    planes with per-slot block origins; n_chunks from the caps' window K."""
+    C, n_chunks, _ = _blend_meta(cfg.k_tile + cfg.k_coarse + cfg.k_global,
+                                 cfg)
+    F = _build_F(cand_packed, slot_x0, slot_y0, cfg.block).contiguous()
+    return F, BlendMeta(C, cfg.block, float(cfg.t_min), float(cfg.alpha_min),
+                        n_chunks)
+
+
+def blend_packed(cand_packed: torch.Tensor, slot_x0: torch.Tensor,
+                 slot_y0: torch.Tensor, counts: torch.Tensor,
+                 offs: torch.Tensor, bg: torch.Tensor, cfg) -> torch.Tensor:
+    """Packed-layout blend (gsmpm_tpu's blend_packed_pallas): cand_packed
+    (10, T) raw planes in per-block depth order (dead slots carry log
+    opacity -1e30), slot_x0 / slot_y0 (T,) per-slot block origins, counts /
+    offs (nblocks,) int32 with C-aligned offsets -> blended blocks
+    (nblocks, B, B, 3) with the background composited.  Differentiable in
+    cand_packed."""
+    B = cfg.block
+    F, meta = packed_inputs(cand_packed, slot_x0, slot_y0, cfg)
+    out = _BlendCorePacked.apply(F, counts, offs, meta)
+    rgb = out[:, 0:3, :] + out[:, 3:4, :] * bg[None, :, None]
+    return rgb.reshape(counts.shape[0], 3, B, B).permute(0, 2, 3, 1)

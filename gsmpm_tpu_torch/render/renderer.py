@@ -4,14 +4,18 @@ Port of gsmpm_tpu/render/renderer.py on its TPU routes (``impl="pallas"``):
 ``preprocess`` (EWA projection + SH colors, planes layout), then either
 
 - ``stream=True``: the drop-free sorted-segment stream rasterizer
-  (render/stream_raster.py, kernel K3; forward only), or
+  (render/stream_raster.py, kernels K3 forward and K7 backward), or
 - ``stream=False`` (the default): the windowed path.  The dup-sort v2
   selection bins each gaussian into fine / coarse / global tile streams
   with (tile | quantized depth) keys and one stable sort, each pixel block
   merges its depth-first windows, and the candidates blend with kernels K4
-  / K5 (render/cuda_blend.py), differentiable end to end.  With
-  ``k_dense > 0`` the ``n_dense`` densest fine tiles get a second, wider
-  window (the two-tier path that keeps a fitting render drop-free).
+  / K5 (render/cuda_blend.py).  With ``k_dense > 0`` the ``n_dense``
+  densest fine tiles get a second, wider window (the two-tier path that
+  keeps a fitting render drop-free); else ``packed=True`` stores the
+  windows back to back in one stream of at most ``t_cap`` slots and blends
+  them with kernels K8 / K9.
+
+Every path is differentiable end to end.
 
 ``required_raster_caps`` / ``bump_caps_for_dropfree`` size the caps from a
 measured frame.  The XLA golden blend (``_render_xla``) is not ported; the
@@ -45,7 +49,12 @@ class RasterConfig(NamedTuple):
     # tiles with the longest segments get a second window of k_dense
     k_dense: int = 0
     n_dense: int = 16
-    # the drop-free sorted-segment stream rasterizer (forward only)
+    # packed windowed layout (taken when k_dense == 0): the windows stored
+    # back to back at chunk-aligned offsets in one stream of t_cap slots;
+    # blocks past t_cap are dropped whole and counted in n_dropped
+    packed: bool = False
+    t_cap: int = 32768
+    # the drop-free sorted-segment stream rasterizer
     stream: bool = False
     # per-tier gaussian budgets of the stream rasterizer
     # (render/stream_raster.py) for splats whose screen rect spans
@@ -469,15 +478,76 @@ def _dense_selection(itl: dict, n: int, cfg: RasterConfig):
     return dtiles, gidx_d, counts_d, dropped
 
 
+def _packed_candidates(pre: Preprocessed, gidx, counts, origins,
+                       cfg: RasterConfig):
+    """Pack the merged per-block windows into one compact stream
+    (gsmpm_tpu's _render_pallas_packed).
+
+    Block b owns slots [offs[b], offs[b] + ceil(count_b / C) * C) of a
+    (10, t_cap) candidate array, offsets C-aligned (C the blend chunk).
+    Blocks whose slice would pass t_cap are dropped whole.  The gather is
+    t_cap indices instead of nblocks * K.  Returns (cand (10, t_cap), slot
+    origins x0, y0 (t_cap,), counts (nblocks,) int32 with the dropped
+    blocks' set to 0, offs (nblocks,) int32, candidates dropped)."""
+    from gsmpm_tpu_torch.render.cuda_blend import _blend_meta
+
+    nb, K = gidx.shape
+    dev = gidx.device
+    C, n_chunks, _ = _blend_meta(cfg.k_tile + cfg.k_coarse + cfg.k_global,
+                                 cfg)
+    t_cap = min(cfg.t_cap, nb * n_chunks * C)
+    t_cap = -(-t_cap // C) * C
+    counts_c = torch.clamp_max(counts, K)
+    aligned = ((counts_c + C - 1) // C) * C
+    offs = (torch.cumsum(aligned, 0) - aligned).to(torch.int32)
+    fits = offs + aligned <= t_cap
+    counts_eff = torch.where(fits, counts_c, 0).to(torch.int32)
+    dropped = torch.sum(torch.where(fits, 0, counts_c))
+
+    # slot -> block map without a search: one marker per block start, then
+    # a cumulative sum (the JAX package's construction)
+    mark = torch.zeros((t_cap + 1,), dtype=torch.int32, device=dev)
+    mark.index_add_(0, torch.clamp_max(offs, t_cap).to(torch.int64),
+                    torch.ones_like(offs))
+    b = torch.clamp(torch.cumsum(mark[:t_cap], 0) - 1, 0, nb - 1)
+    j = torch.arange(t_cap, device=dev) - offs[b]
+    live = (j >= 0) & (j < counts_eff[b])
+    src = b * K + torch.clamp(j, 0, K - 1)
+    pg = torch.where(live, gidx.reshape(-1)[src], 0)
+
+    planes = _raw_planes_nosentinel(pre)
+    cand = planes.index_select(1, pg.to(torch.int64))  # (10, t_cap)
+    logo = torch.where(live, cand[5], -1e30)
+    cand = torch.cat([cand[:5], logo[None], cand[6:]], dim=0)
+    org = origins.to(torch.float32)
+    return cand, org[b, 0], org[b, 1], counts_eff, offs, dropped
+
+
+def _render_packed(pre: Preprocessed, gidx, counts, origins, dropped, bg,
+                   camera, cfg: RasterConfig):
+    """The packed windowed render (kernels K8 / K9): (image, n_dropped),
+    the candidates of blocks past t_cap counted in n_dropped."""
+    from gsmpm_tpu_torch.render.cuda_blend import blend_packed
+
+    cand, x0, y0, counts_eff, offs, over = _packed_candidates(
+        pre, gidx, counts, origins, cfg)
+    blocks = blend_packed(cand, x0, y0, counts_eff, offs, bg, cfg)
+    return assemble_blocks(blocks, camera, cfg), dropped + over
+
+
 def _render_windowed(pre: Preprocessed, camera, bg, cfg: RasterConfig):
-    """Windowed render: selection, gather and the K4/K5 blend; gsmpm_tpu's
-    _render_pallas_fwd_impl.  Returns (image, n_dropped)."""
+    """Windowed render: selection, gather and the blend; gsmpm_tpu's
+    _render_pallas_fwd_impl (two tier when k_dense > 0, else packed or
+    padded).  Returns (image, n_dropped)."""
     from gsmpm_tpu_torch.render.cuda_blend import blend_blocks
 
     if cfg.k_dense > 0:
         return _render_two_tier(pre, camera, bg, cfg)
     gidx, counts, origins, dropped = _select_candidates_dupsort_v2(
         pre, camera, cfg)
+    if cfg.packed:
+        return _render_packed(pre, gidx, counts, origins, dropped, bg, camera,
+                              cfg)
     cand = _gather_candidates(pre, gidx, counts)
     blocks = blend_blocks(cand, counts, origins, bg, cfg)
     return assemble_blocks(blocks, camera, cfg), dropped
@@ -514,10 +584,10 @@ def render_with_aux(
     """Rasterize gaussians with precomputed 3D covariances: (image (H, W, 3),
     n_dropped).
 
-    n_dropped counts candidates beyond the caps (stream tier budgets, or the
-    windowed path's per-stream caps); the reference has no caps, so callers
-    resize and re-render when it is > 0.  The windowed path is
-    differentiable; the stream path is forward only.
+    n_dropped counts candidates beyond the caps (stream tier budgets, the
+    windowed path's per-stream caps, the packed stream's t_cap); the
+    reference has no caps, so callers resize and re-render when it is > 0.
+    Differentiable on every path.
     """
     pre = preprocess(means3d, cov6, opacity, shs, camera, sh_degree, cfg,
                      colors_precomp)

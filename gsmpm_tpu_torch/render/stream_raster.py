@@ -1,6 +1,6 @@
-"""Sorted-segment streaming rasterizer: the drop-free forward render.
+"""Sorted-segment streaming rasterizer: the drop-free render, differentiable.
 
-Port of gsmpm_tpu/render/stream_raster.py (forward half).
+Port of gsmpm_tpu/render/stream_raster.py.
 
 1. EMISSION: every valid gaussian emits one ``(tile | quantized depth)``
    int32 key per fine tile its screen rect overlaps; rects of <= 4 tiles
@@ -15,6 +15,13 @@ Port of gsmpm_tpu/render/stream_raster.py (forward half).
    (csrc/stream_raster.cu) on the GPU, ``stream_blend_ref`` on the CPU.
    The TPU kernel's scalar-prefetch step tables are not needed: each GPU
    block reads its own ``bounds``.
+4. The backward walks the same segments back to front, recovering the
+   transmittance by division, and emits d(sorted planes) with the F-build
+   chain rule applied per slot: kernel K7 on the GPU,
+   ``stream_blend_bwd_ref`` on the CPU (``_StreamCore``).  The gathers of
+   the emission and the sort are ``index_select``s, whose backward is an
+   ``index_add_``, so gradients reach means, covariances, opacities and
+   colors.
 """
 
 from __future__ import annotations
@@ -146,9 +153,11 @@ def stream_emission(pre: Preprocessed, camera, cfg, planes: torch.Tensor):
     keys2, gmap2, d2 = _emit_tier(lv, t2, G2, _T2_CB)
     keys3, gmap3, d3 = _emit_tier(lv, t3, G3, _T3_CB)
     keys4, gmap4, d4 = _emit_tier(lv, t4, G4, lv.nf)
-    planes2 = planes[:, gmap2].repeat_interleave(_T2_CB, dim=1)
-    planes3 = planes[:, gmap3].repeat_interleave(_T3_CB, dim=1)
-    planes4 = planes[:, gmap4].repeat_interleave(lv.nf, dim=1)
+    # index_select: its backward is an index_add_, where advanced
+    # indexing's backward sorts the indices first
+    planes2 = planes.index_select(1, gmap2).repeat_interleave(_T2_CB, dim=1)
+    planes3 = planes.index_select(1, gmap3).repeat_interleave(_T3_CB, dim=1)
+    planes4 = planes.index_select(1, gmap4).repeat_interleave(lv.nf, dim=1)
 
     keys = torch.cat([keys1, keys2, keys3, keys4]).to(torch.int32)
     emis = torch.cat([planes1, planes2, planes3, planes4], dim=1)
@@ -177,7 +186,7 @@ def sort_stream(keys: torch.Tensor, emis: torch.Tensor, nf: int, M: int):
     """One stable key sort; returns (sorted planes (9, L), bounds (nf+1,)
     int32) with tile t's segment at [bounds[t], bounds[t+1])."""
     skeys, perm = torch.sort(keys, stable=True)
-    splanes = emis[:, perm].contiguous()
+    splanes = emis.index_select(1, perm)
     needles = torch.arange(nf + 1, dtype=torch.int32, device=keys.device) * M
     bounds = torch.searchsorted(skeys, needles).to(torch.int32)
     return splanes, bounds
@@ -279,29 +288,148 @@ def stream_blend_ref(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
     return out
 
 
+def stream_blend_bwd_ref(splanes: torch.Tensor, bounds: torch.Tensor,
+                         out: torch.Tensor, g: torch.Tensor, nbx: int, B: int,
+                         alpha_min: float) -> torch.Tensor:
+    """Plain twin of kernel K7: d(sorted planes) (9, L) from the blend state
+    ``out`` of ``stream_blend`` and its cotangent ``g`` (rows 0..2 rgb, 3
+    T; the other rows are ignored).
+
+    gsmpm_tpu's _stream_bwd_kernel, vectorized over blocks and ``chunk``
+    slots at a time: each block walks its segment back to front from the
+    chunk holding its largest last contributor, keeping per pixel T_end
+    (transmittance after the chunk, recovered by division) and R_end (the
+    suffix sum of w (c . g_rgb), seeded with T_final g_T).  A slot
+    contributes to a pixel where it passes the forward's gates and lies at
+    or before the pixel's last contributor; dpower = dalpha * alpha where
+    exp(power) < 0.99 (the clamp).  Per slot, dpower summed over the
+    pixels against the monomials of the pixel's offset from the splat's
+    centre, and the colors' sum_p g_rgb w, give the 9 raw rows by the F
+    build's chain rule (the same derivative as gsmpm_tpu's sums over the
+    block-local monomials, without their cancellation).  Slots no block
+    walks (past a block's last contributor's chunk, past bounds[nf]) get
+    zero.  The forward's stop rule at t_min is recorded in ``out`` (row
+    5), so the reverse walk does not need t_min."""
+    dev = splanes.device
+    nf = bounds.shape[0] - 1
+    P = B * B
+    L = splanes.shape[1]
+    chunk = _TWIN_CHUNK
+    lo = bounds[:-1].to(torch.int64)
+    hi = bounds[1:].to(torch.int64)
+    bid = torch.arange(nf, device=dev)
+    x0 = ((bid % nbx) * B).to(torch.float32)
+    y0 = ((bid // nbx) * B).to(torch.float32)
+    px, py = _pixel_coords(B, dev)
+    pxx, pyy, pxy = px * px, py * py, px * py
+
+    g_rgb = g[:, 0:3]
+    last = out[:, 5]
+    T_end = out[:, 3].clone()
+    R_end = out[:, 3] * g[:, 3]
+    # chunks of each segment up to its largest last contributor
+    top = ((last.amax(dim=1).to(torch.int64) - lo).clamp_min(0)
+           + chunk - 1) // chunk
+    dsp = torch.zeros((9, L), dtype=torch.float32, device=dev)
+    ar = torch.arange(chunk, device=dev)
+    for j in range(int(top.max()) - 1 if nf else -1, -1, -1):
+        b_idx = (j < top).nonzero().squeeze(1)
+        ids = lo[b_idx, None] + j * chunk + ar                  # (nb, C)
+        in_rng = ids < hi[b_idx, None]
+        p = splanes[:, ids.clamp(max=max(L - 1, 0))]            # (9, nb, C)
+        gx = p[0] - x0[b_idx, None]
+        gy = p[1] - y0[b_idx, None]
+        a, b, c = p[2], p[3], p[4]
+        logo = torch.where(in_rng, p[5], -1e30)[..., None]
+        F0 = (-0.5 * a)[..., None]
+        F1 = (a * gx + b * gy)[..., None]
+        F2 = (-0.5 * (a * gx * gx + c * gy * gy) - b * gx * gy)[..., None]
+        F3 = (-0.5 * c)[..., None]
+        F4 = (c * gy + b * gx)[..., None]
+        F5 = (-b)[..., None]
+        power = F0 * pxx
+        power = power + F1 * px
+        power = power + F2
+        power = power + F3 * pyy
+        power = power + F4 * py
+        power = power + F5 * pxy
+        power = power + logo
+        expp = torch.exp(power)
+        alpha = torch.clamp_max(expp, 0.99)
+        gate0 = (power <= logo) & (alpha >= alpha_min)
+        gidx1 = (ids + 1).to(torch.float32)[..., None]
+        contrib = gate0 & (gidx1 <= last[b_idx][:, None, :])
+        a_eff = torch.where(contrib, alpha, 0.0)
+        one_minus = 1.0 - a_eff
+        T_start = T_end[b_idx] / torch.prod(one_minus, dim=1)
+        cp = torch.cumprod(one_minus, dim=1)
+        excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
+        T_before = T_start[:, None, :] * excl
+        w = T_before * a_eff
+        cdot = torch.einsum("knc,nkp->ncp", p[6:9], g_rgb[b_idx])
+        v = w * cdot
+        suf = torch.flip(torch.cumsum(torch.flip(v, [1]), dim=1), [1])
+        S = R_end[b_idx][:, None, :] + (suf - v)
+        dA = T_before * cdot - S / one_minus
+        dP = torch.where(contrib & (expp < 0.99), dA * alpha, 0.0)
+        # the F build's transpose to the raw rows (gsmpm_tpu's in-kernel
+        # chain rule) in centred coordinates, power = -0.5 a dx^2 - b dx dy
+        # - 0.5 c dy^2 + log opacity: sums over the raw monomials would
+        # cancel for splats of a pixel or two
+        dx = px - gx[..., None]
+        dy = py - gy[..., None]
+        sxx = (dP * dx * dx).sum(-1)
+        sxy = (dP * dx * dy).sum(-1)
+        syy = (dP * dy * dy).sum(-1)
+        sx = (dP * dx).sum(-1)
+        sy = (dP * dy).sum(-1)
+        dFc = torch.einsum("nkp,ncp->knc", g_rgb[b_idx], w)     # (3, nb, C)
+        dp = torch.stack([
+            a * sx + b * sy, b * sx + c * sy,
+            -0.5 * sxx, -sxy, -0.5 * syy,
+            dP.sum(-1) * in_rng,  # the log opacity passes inside the segment
+            dFc[0], dFc[1], dFc[2],
+        ])
+        dsp[:, ids[in_rng]] = dp[:, in_rng]
+        T_end[b_idx] = T_start
+        R_end[b_idx] = R_end[b_idx] + v.sum(dim=1)
+    return dsp
+
+
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# row 5 of the blend state holds "last contributing slot + 1" as float32,
+# exact only below 2^24 (the JAX package's layout, kept for parity)
+MAX_SLOTS = 2 ** 24
 
 
 def _lib():
     lib = build.load("stream_raster")
     lib.gsmpm_stream_fwd.argtypes = [_VP, _I, _VP, _VP, _I, _I, _I, _F, _F, _VP]
     lib.gsmpm_stream_fwd.restype = ctypes.c_int
+    lib.gsmpm_stream_bwd.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                     _F, _VP]
+    lib.gsmpm_stream_bwd.restype = ctypes.c_int
     return lib
 
 
-def stream_blend(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
-                 B: int, t_min: float, alpha_min: float) -> torch.Tensor:
-    """Blend state (nf, 8, B*B) of the sorted stream: kernel K3 for CUDA
-    tensors, ``stream_blend_ref`` for CPU tensors."""
+def _check_stream(splanes: torch.Tensor, bounds: torch.Tensor, B: int):
+    """Raise on inputs the kernels do not take; returns the device."""
+    if splanes.shape[1] >= MAX_SLOTS:
+        raise ValueError(f"{splanes.shape[1]} stream slots: the blend state "
+                         f"stores slot indices as float32, exact below "
+                         f"{MAX_SLOTS}")
     dev = splanes.device
     if dev.type == "cpu":
-        return stream_blend_ref(splanes, bounds, nbx, B, t_min, alpha_min)
+        return dev
     if dev.type != "cuda":
         raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
-    if B % 16 != 0:
-        raise ValueError(f"block size {B} must be a multiple of 16")
+    # one thread per pixel of 16x16 sub-tiles (K3), at most 4 pixels per
+    # thread of a 1024-thread block (K7)
+    if B % 16 != 0 or B * B > 4096:
+        raise ValueError(f"block {B}: the kernels take multiples of 16 up "
+                         "to 64")
     if splanes.dtype != torch.float32 or splanes.dim() != 2 or \
             splanes.shape[0] != 9 or not splanes.is_contiguous():
         raise ValueError("splanes must be a contiguous float32 (9, L) tensor")
@@ -309,6 +437,16 @@ def stream_blend(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
             not bounds.is_contiguous() or bounds.dim() != 1:
         raise ValueError("bounds must be a contiguous int32 (nf+1,) tensor "
                          "on the planes' device")
+    return dev
+
+
+def stream_blend(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
+                 B: int, t_min: float, alpha_min: float) -> torch.Tensor:
+    """Blend state (nf, 8, B*B) of the sorted stream: kernel K3 for CUDA
+    tensors, ``stream_blend_ref`` for CPU tensors."""
+    dev = _check_stream(splanes, bounds, B)
+    if dev.type == "cpu":
+        return stream_blend_ref(splanes, bounds, nbx, B, t_min, alpha_min)
     nf = bounds.shape[0] - 1
     out = torch.empty((nf, 8, B * B), dtype=torch.float32, device=dev)
     lib = _lib()
@@ -322,7 +460,56 @@ def stream_blend(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
     return out
 
 
+def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
+                     out: torch.Tensor, g: torch.Tensor, nbx: int, B: int,
+                     alpha_min: float) -> torch.Tensor:
+    """d(sorted planes) (9, L) of the stream blend: kernel K7 for CUDA
+    tensors, ``stream_blend_bwd_ref`` for CPU tensors."""
+    dev = _check_stream(splanes, bounds, B)
+    if dev.type == "cpu":
+        return stream_blend_bwd_ref(splanes, bounds, out, g, nbx, B,
+                                    alpha_min)
+    nf = bounds.shape[0] - 1
+    for name, t in (("out", out), ("g", g)):
+        if t.device != dev or t.dtype != torch.float32 or \
+                tuple(t.shape) != (nf, 8, B * B) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{(nf, 8, B * B)} tensor on {dev}")
+    # the kernel writes only the chunks it walks: the rest stays zero
+    dsp = torch.zeros_like(splanes)
+    lib = _lib()
+    err = lib.gsmpm_stream_bwd(
+        splanes.data_ptr(), splanes.shape[1], bounds.data_ptr(),
+        out.data_ptr(), g.data_ptr(), dsp.data_ptr(), nf, nbx, B, alpha_min,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "stream_blend_bwd")
+    stream_blend_bwd.launches += 1
+    return dsp
+
+
 stream_blend.launches = 0
+stream_blend_bwd.launches = 0
+
+
+class _StreamCore(torch.autograd.Function):
+    """(sorted planes (9, L), bounds) -> blend state (nf, 8, B*B), with the
+    reverse stream walk as its backward (gsmpm_tpu's _stream_core)."""
+
+    @staticmethod
+    def forward(ctx, splanes, bounds, nbx, B, t_min, alpha_min):
+        out = stream_blend(splanes, bounds, nbx, B, t_min, alpha_min)
+        ctx.save_for_backward(splanes, bounds, out)
+        ctx.args = (nbx, B, alpha_min)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        splanes, bounds, out = ctx.saved_tensors
+        g8 = torch.zeros_like(out)
+        g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
+        dsp = stream_blend_bwd(splanes, bounds, out, g8, *ctx.args)
+        return dsp, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -344,12 +531,13 @@ def render_stream(pre: Preprocessed, camera, bg: torch.Tensor, cfg):
 
     n_dropped counts candidates of gaussians beyond the tier budgets
     (stream_g2/g3/g4): zero for any scene whose large-splat population fits
-    the budgets, independent of density.
+    the budgets, independent of density.  Differentiable in ``pre``'s
+    planes (kernels K3 forward, K7 backward).
     """
     splanes, bounds, n_dropped, lv = stream_inputs(pre, camera, cfg)
     B = cfg.block
-    out = stream_blend(splanes, bounds, lv.nbx, B, float(cfg.t_min),
-                       float(cfg.alpha_min))
+    out = _StreamCore.apply(splanes, bounds, lv.nbx, B, float(cfg.t_min),
+                            float(cfg.alpha_min))
 
     counts = bounds[1:] - bounds[:-1]
     rgb = out[:, 0:3, :] + out[:, 3:4, :] * bg[None, :, None]

@@ -10,9 +10,12 @@ The substeps run on the tiled engine with the hand-written transfer VJPs
 takes it on the TPU, and on the golden planes engine (``"golden"``,
 sim/solver.py) elsewhere; an occupied-tile-cap overflow moves the run to
 the golden engine and re-runs the frame, as in the JAX package.  The
-render is the windowed path (kernels K4 / K5); a frame whose render
-dropped candidates is re-run after the caps are resized from the
-measured geometry, so no truncated gradient is applied.
+render is the one ``raster_cfg`` selects: the windowed path (kernels K4 /
+K5, the two-tier windows once a resize set k_dense) or, with
+``RasterConfig(stream=True)``, the stream rasterizer (kernels K3 / K7).  A
+frame whose render dropped candidates is re-run after the caps (or the
+stream's tier budgets) are resized from the measured geometry, so no
+truncated gradient is applied.
 """
 
 from __future__ import annotations

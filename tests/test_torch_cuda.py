@@ -6,9 +6,10 @@ GPU it runs without the JAX conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Inputs are small (a few hundred particles, n_grid 16-24, 64^2-128^2, blend
-windows up to K 20,480) and made with numpy from seeds; chip_smoke.py
-repeats the comparisons at the main paths' shapes.
+Inputs are small (a few hundred particles, n_grid 16-24, 64^2-256^2, blend
+windows up to K 20,480, streams up to ~10^5 slots) and made with numpy
+from seeds; chip_smoke.py repeats the comparisons at the main paths'
+shapes.
 """
 
 import dataclasses
@@ -119,9 +120,10 @@ def test_wrappers_reject_bad_inputs(cuda, tmp_path):
                            su.grid, su.tc, 1e-3)
 
 
-def test_stream_kernel_matches_twin(cuda):
-    rng = np.random.default_rng(9)
-    n = 800
+def _stream_case(dev, n=800, res=128, seed=9):
+    """A dense cluster's sorted stream: (splanes, bounds, nbx, B, t_min,
+    alpha_min)."""
+    rng = np.random.default_rng(seed)
     means = (0.08 * rng.normal(size=(n, 3))).astype(np.float32)
     means[:, 2] += 3.5
     A = 0.05 * rng.normal(size=(n, 3, 3)).astype(np.float32)
@@ -129,13 +131,17 @@ def test_stream_kernel_matches_twin(cuda):
     cov6 = cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
     opacity = rng.uniform(0.15, 0.95, size=n).astype(np.float32)
     colors = rng.uniform(0.0, 1.0, size=(n, 3)).astype(np.float32)
-    cam = make_camera(128, 128, 0.9, 0.9, np.eye(3), np.zeros(3))
+    cam = make_camera(res, res, 0.9, 0.9, np.eye(3), np.zeros(3))
     cfg = tr.RasterConfig(block=64)
-    C = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    C = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     pre = tr.preprocess(C(means), C(cov6), C(opacity), None, cam, 0, cfg,
                         colors_precomp=C(colors))
     splanes, bounds, _, lv = sr.stream_inputs(pre, cam, cfg)
-    args = (splanes, bounds, lv.nbx, cfg.block, cfg.t_min, cfg.alpha_min)
+    return splanes, bounds, lv.nbx, cfg.block, cfg.t_min, cfg.alpha_min
+
+
+def test_stream_kernel_matches_twin(cuda):
+    args = _stream_case(cuda)
     before = sr.stream_blend.launches
     got = sr.stream_blend(*args)
     assert sr.stream_blend.launches == before + 1
@@ -143,6 +149,37 @@ def test_stream_kernel_matches_twin(cuda):
     # sequential vs chunked transmittance products round differently
     assert float((got[:, 0:4] - want[:, 0:4]).abs().max()) <= 2e-3
     assert float((got[:, 4] != want[:, 4]).float().mean()) <= 1e-3
+
+
+# the clamp and gate edges of K7 only show in large streams: a small and a
+# medium one (~10^5 slots, pixels saturating deep into their segments)
+@pytest.mark.parametrize("n,res", [(800, 128), (40000, 256)])
+def test_stream_bwd_kernel_matches_twin(cuda, n, res):
+    args = _stream_case(cuda, n, res)
+    splanes = args[0]
+    out = sr.stream_blend(*args)
+    rng = np.random.default_rng(3)
+    g = torch.zeros_like(out)
+    g[:, 0:4] = torch.from_numpy(rng.normal(size=(out.shape[0], 4,
+                                                  out.shape[2]))
+                                 .astype(np.float32)).to(cuda)
+    before = sr.stream_blend_bwd.launches
+    bwd_args = (args[2], args[3], args[5])  # nbx, B, alpha_min
+    got = sr.stream_blend_bwd(splanes, args[1], out, g, *bwd_args)
+    assert sr.stream_blend_bwd.launches == before + 1
+    want = sr.stream_blend_bwd_ref(splanes, args[1], out, g, *bwd_args)
+    # transmittance recovered by division in another order: 1e-4 of each
+    # row group's largest entry (position, conic, log opacity, colors)
+    for rows in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)):
+        scale = float(want[rows].abs().max())
+        assert scale > 0
+        err = float((got[rows] - want[rows]).abs().max())
+        assert err <= 1e-4 * scale, (rows, err, scale)
+    # slots no pixel blends get exact zeros (past every last contributor,
+    # past the last segment), as in the twin
+    dead = (want == 0).all(dim=0)
+    assert bool(dead[int(args[1][-1]):].all())
+    assert float(got[:, dead].abs().max()) == 0.0
 
 
 def test_simulate_gpu_matches_cpu(cuda, tmp_path):
@@ -212,6 +249,54 @@ def test_blend_kernels_match_twins(cuda, K):
         assert err <= 1e-4 * scale, (rows, err, scale)
     assert float(dF[:, 11:].abs().max()) == 0.0
     assert float(dF[:, 7].abs().max()) == 0.0
+
+
+def _packed_case(dev, counts, K, seed=0):
+    """The windows of _blend_case stored back to back at chunk-aligned
+    offsets, plus C unowned tail slots: (counts, offs, F (16, T), padded F,
+    meta)."""
+    counts_t, Fpad, meta = _blend_case(dev, counts, K, seed=seed)
+    C = meta.C
+    aligned = [-(-c // C) * C for c in counts]
+    offs = np.concatenate([[0], np.cumsum(aligned)[:-1]]).astype(np.int32)
+    F = torch.zeros((16, sum(aligned) + C), device=dev)
+    for b, (o, a) in enumerate(zip(offs, aligned)):
+        F[:, o:o + a] = Fpad[b, :, :a]
+    return counts_t, torch.from_numpy(offs).to(dev), F, Fpad, meta
+
+
+@pytest.mark.parametrize("K", [768, 20480])
+def test_packed_blend_kernels_match_twins(cuda, K):
+    counts, offs, F, Fpad, meta = _packed_case(cuda, [K, K // 2, 7, 0], K)
+    before = (cb.blend_packed_fwd.launches, cb.blend_packed_bwd.launches)
+    out = cb.blend_packed_fwd(counts, offs, F, meta)
+    want = cb.blend_packed_ref(counts, offs, F, meta)
+    # as K4: sequential vs chunked transmittance products
+    assert float((out[:, 0:4] - want[:, 0:4]).abs().max()) <= 2e-3
+    assert float((out[:, 4] != want[:, 4]).float().mean()) <= 1e-3
+    assert float((out[:, 5] != want[:, 5]).float().mean()) <= 1e-3
+    assert float(out[:, 5].max()) > 0.5 * K  # the walk went deep
+    # K8 is K4's code on another addressing: the same bits
+    assert torch.equal(out, cb.blend_fwd(counts, Fpad, meta))
+
+    rng = np.random.default_rng(1)
+    g = torch.zeros_like(out)
+    g[:, 0:4] = torch.from_numpy(rng.normal(size=(4, 4, meta.P))
+                                 .astype(np.float32)).to(cuda)
+    dF = cb.blend_packed_bwd(counts, offs, F, out, g, meta)
+    dF_ref = cb.blend_packed_bwd_ref(counts, offs, F, out, g, meta)
+    assert (cb.blend_packed_fwd.launches, cb.blend_packed_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for rows in (slice(0, 6), slice(6, 7), slice(8, 11)):
+        scale = float(dF_ref[:, rows].abs().max())
+        assert scale > 0
+        err = float((dF[:, rows] - dF_ref[:, rows]).abs().max())
+        assert err <= 1e-4 * scale, (rows, err, scale)
+    assert float(dF[11:].abs().max()) == 0.0
+    assert float(dF[7].abs().max()) == 0.0
+    assert float(dF[:, -meta.C:].abs().max()) == 0.0  # unowned tail
+    with pytest.raises(ValueError):  # a window past the array's end
+        cb.blend_packed_fwd(counts, offs + F.shape[1] // 2, F, meta)
 
 
 def _fit_ident(dev, n=512, n_grid=24, substeps=3, res=64):
