@@ -53,6 +53,12 @@ import torch
 # peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# fp32 operations of a reverse blend walk (K5, K7, K9) per (slot, pixel)
+# pair: the gate (5 mul and 6 add of the power, exp, min, three compares)
+# for every pair it evaluates, and for a pair that passes the gate at or
+# before the pixel's last contributor >= 33 more (1 - alpha, the division,
+# w, c . g, dA, dpower, the suffix update, 9 accumulating multiply-adds)
+GATE_OPS, BWD_CONTRIB_OPS = 16, 33
 
 MAIN_N = 245_760
 MAIN_RES = 800
@@ -565,6 +571,53 @@ def fit_profile(dev, ident, first, steady):
                 profiled_wall_ms=wall * 1e3, top=top)
 
 
+def _contrib_pairs_windows(F, out, meta) -> float:
+    """(candidate, pixel) pairs of windows F (nblocks, 16, K) that pass the
+    forward's gates (power <= log opacity, alpha >= alpha_min) at or before
+    the pixel's last contributor (row 5 of the blend state ``out``)."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+
+    mono = cb._monomials(meta.B, F.device)
+    last = out[:, 5]
+    n = torch.zeros((), dtype=torch.int64, device=F.device)
+    for c0 in range(0, int(last.max()), meta.C):
+        Fc = F[:, :, c0:c0 + meta.C]
+        power = cb._power(Fc, mono)
+        alpha = torch.clamp_max(torch.exp(power), 0.99)
+        idx1 = torch.arange(c0 + 1, c0 + 1 + Fc.shape[2], device=F.device,
+                            dtype=torch.float32)
+        n += ((power <= Fc[:, 6, :, None]) & (alpha >= meta.alpha_min)
+              & (idx1[None, :, None] <= last[:, None, :])).sum()
+    return float(n)
+
+
+def _contrib_pairs_stream(splanes, bounds, out, nbx, B, alpha_min) -> float:
+    """(slot, pixel) pairs of the sorted stream that pass the forward's
+    gates at or before the pixel's last contributor (row 5 of ``out``)."""
+    from gsmpm_tpu_torch.render import stream_raster as sr
+
+    dev, L = splanes.device, splanes.shape[1]
+    C = sr._TWIN_CHUNK
+    lo = bounds[:-1].to(torch.int64)
+    hi = bounds[1:].to(torch.int64)
+    bid = torch.arange(lo.shape[0], device=dev)
+    x0 = ((bid % nbx) * B).to(torch.float32)
+    y0 = ((bid // nbx) * B).to(torch.float32)
+    pix = sr._pixel_coords(B, dev)
+    last = out[:, 5]
+    depth = int((last.amax(dim=1).to(torch.int64) - lo).clamp_min(0).max())
+    ar = torch.arange(C, device=dev)
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    for j0 in range(0, depth, C):
+        ids = lo[:, None] + j0 + ar
+        p = splanes[:, ids.clamp(max=L - 1)]
+        gate = sr._chunk_power(p, x0, y0, ids < hi[:, None], pix,
+                               alpha_min)[5]
+        n += (gate & ((ids + 1).to(torch.float32)[..., None]
+                      <= last[:, None, :])).sum()
+    return float(n)
+
+
 def _fit_candidates(ident, state, cam):
     """The fit frame's windowed render inputs: (pre, tier-1 window
     (cand, counts, origins), tier-2 window (cand, counts, origins))."""
@@ -641,16 +694,19 @@ def blend_phases(dev, ident, first):
         last = out_k[:, 5].to(torch.float64)
         pairs4 = float(torch.where(out_k[:, 4] > 0, last, cnt).sum())
         pairs5 = float(last.sum())
+        contrib5 = _contrib_pairs_windows(F, out_k, meta)
         live_cols = float(counts.sum())
         # bytes: the 10 used F rows of the live candidates, the outputs
-        # (K4) / inputs and dF (K5); >= 20 / 40 fp32 operations per pair
+        # (K4) / inputs and dF (K5); >= 20 fp32 operations per forward pair,
+        # the backward's as GATE_OPS / BWD_CONTRIB_OPS say
         b4 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs4 * 20.0)
         b5 = bound_ms(live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4,
-                      pairs5 * 40.0)
+                      pairs5 * GATE_OPS + contrib5 * BWD_CONTRIB_OPS)
         tiers[tier] = dict(nblocks=nb, K=K, live=live_cols, err4=err4,
                            done_diff=done_diff, last_diff=last_diff,
                            rel5=rel5, ms4=ms4, pms4=pms4, ms5=ms5, pms5=pms5,
-                           b4=b4, b5=b5, pairs4=pairs4, pairs5=pairs5)
+                           b4=b4, b5=b5, pairs4=pairs4, pairs5=pairs5,
+                           contrib5=contrib5)
         print(f"K4/K5 {tier}: {nb} blocks x K {K} ({live_cols:.0f} live "
               f"candidates): K4 max err {err4:.3g}, done differ "
               f"{done_diff:.3g}, last differ {last_diff:.3g}, "
@@ -658,9 +714,10 @@ def blend_phases(dev, ident, first):
               f"{pairs4:.4g} pairs); K5 rel err "
               + ", ".join(f"{k} {v:.3g}" for k, v in rel5.items())
               + f", {ms5:.4f} ms (plain {pms5:.2f}, bound {b5[0]:.4f} "
-              f"{b5[1]}, {pairs5:.4g} pairs)", flush=True)
+              f"{b5[1]}, {pairs5:.4g} pairs, {contrib5:.4g} contributing)",
+              flush=True)
 
-    def row(name, wrapper, err, ms, pms, b, replaces, tol):
+    def row(name, wrapper, err, ms, pms, b, pairs, replaces, tol):
         bound = sum(tiers[t][b][0] for t in tiers)
         by = max(tiers.values(), key=lambda v: v[b][0])[b][1]
         return dict(
@@ -673,14 +730,16 @@ def blend_phases(dev, ident, first):
             bound_ms=bound, bound_by=by,
             per_tier={t: dict(K=v["K"], nblocks=v["nblocks"], ms=v[ms],
                               plain_ms=v[pms], bound_ms=v[b][0],
-                              bound_by=v[b][1]) for t, v in tiers.items()})
+                              bound_by=v[b][1], pairs=v[pairs])
+                      for t, v in tiers.items()})
 
     r4 = row("blend_fwd", cb.blend_fwd,
              max(v["err4"] for v in tiers.values()), "ms4", "pms4", "b4",
-             "gsmpm_tpu/render/pallas_blend.py:136", "2e-3 abs on rgb/T")
+             "pairs4", "gsmpm_tpu/render/pallas_blend.py:136",
+             "2e-3 abs on rgb/T")
     r5 = row("blend_bwd", cb.blend_bwd,
              max(max(v["rel5"].values()) for v in tiers.values()), "ms5",
-             "pms5", "b5", "gsmpm_tpu/render/pallas_blend.py:212",
+             "pms5", "b5", "pairs5", "gsmpm_tpu/render/pallas_blend.py:212",
              "1e-4 x max per dF row group")
     return [r4, r5], tiers
 
@@ -865,17 +924,21 @@ def stream_bwd_phase(dev, ident, first):
                                           float(cfg.t_min),
                                           float(cfg.alpha_min)), 20)
     # (slot, pixel) pairs this data needs: each pixel from its last
-    # contributor back to its segment's start; >= 40 fp32 operations each
+    # contributor back to its segment's start, gated; the contributing
+    # ones among them (GATE_OPS / BWD_CONTRIB_OPS)
     lo = bounds[:-1].to(torch.float64)
     last = out[:, 5].to(torch.float64)
     pairs = float((last - lo[:, None]).clamp_min(0).sum())
+    contrib = _contrib_pairs_stream(splanes, bounds, out, *args)
     walked = float((last.amax(dim=1) - lo).clamp_min(0).sum())
     # bytes: the walked slots' 9 planes, the state and cotangent rows read
     # (T, last, rgb, T), d(splanes) written whole
     b7 = bound_ms(walked * 9 * 4 + out.shape[0] * 6 * out.shape[2] * 4
-                  + splanes.numel() * 4, pairs * 40.0)
+                  + splanes.numel() * 4,
+                  pairs * GATE_OPS + contrib * BWD_CONTRIB_OPS)
     print(f"K7 stream bwd: {lv.nf} blocks, {splanes.shape[1]} slots "
-          f"({walked:.0f} walked, {pairs:.4g} pairs): rel err "
+          f"({walked:.0f} walked, {pairs:.4g} pairs, {contrib:.4g} "
+          f"contributing): rel err "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
           + f"; {ms7:.4f} ms (plain {pms7:.2f} ms, bound {b7[0]:.4f} "
           f"{b7[1]}); K3 on the same stream {ms3:.4f} ms", flush=True)
@@ -885,7 +948,8 @@ def stream_bwd_phase(dev, ident, first):
         replaces="gsmpm_tpu/render/stream_raster.py:392", max_abs_err=err7,
         rel_err=max(rel.values()), tol="1e-4 x max per row group", ms=ms7,
         plain_ms=pms7, bound_ms=b7[0], bound_by=b7[1], library_ms=None,
-        wrapper=sr.stream_blend_bwd, pairs=pairs, walked_slots=walked,
+        wrapper=sr.stream_blend_bwd, pairs=pairs, contrib_pairs=contrib,
+        walked_slots=walked,
         L=int(splanes.shape[1]), k3_fit_ms=ms3)
 
 
@@ -994,10 +1058,12 @@ def packed_phase(dev, ident, first, wrappers):
     last = out_k[:, 5].to(torch.float64)
     pairs8 = float(torch.where(out_k[:, 4] > 0, last, cntf).sum())
     pairs9 = float(last.sum())
+    cols, _ = cb._packed_windows(cnt, offs, F.shape[1], meta)
+    contrib9 = _contrib_pairs_windows(F[:, cols].transpose(0, 1), out_k, meta)
     live_cols = float(cnt.sum())
     b8 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs8 * 20.0)
     b9 = bound_ms(live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4,
-                  pairs9 * 40.0)
+                  pairs9 * GATE_OPS + contrib9 * BWD_CONTRIB_OPS)
     print(f"packed path: caps k_tile {cfg.k_tile} k_coarse {cfg.k_coarse} "
           f"k_global {cfg.k_global}, t_cap {cfg.t_cap} ({live_cols:.0f} live "
           f"candidates in {nb} blocks); render + backward {s_p:.3f} s packed, "
@@ -1009,7 +1075,7 @@ def packed_phase(dev, ident, first, wrappers):
           f"bound {b8[0]:.4f} {b8[1]}, {pairs8:.4g} pairs); K9 rel err "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel9.items())
           + f", {ms9:.4f} ms (plain {pms9:.2f}, bound {b9[0]:.4f} {b9[1]}, "
-          f"{pairs9:.4g} pairs)", flush=True)
+          f"{pairs9:.4g} pairs, {contrib9:.4g} contributing)", flush=True)
     common = dict(route="cuda", source="gsmpm_tpu_torch/csrc/tile_blend.cu",
                   library_ms=None)
     rows = [
@@ -1022,7 +1088,8 @@ def packed_phase(dev, ident, first, wrappers):
              replaces="gsmpm_tpu/render/pallas_blend.py:759",
              max_abs_err=float((dF_k - dF_r).abs().max()),
              tol="1e-4 x max per dF row group", ms=ms9, plain_ms=pms9,
-             bound_ms=b9[0], bound_by=b9[1], pairs=pairs9, **common),
+             bound_ms=b9[0], bound_by=b9[1], pairs=pairs9,
+             contrib_pairs=contrib9, **common),
     ]
     return counts_p, dict(
         caps=dict(k_tile=cfg.k_tile, k_coarse=cfg.k_coarse,

@@ -22,11 +22,14 @@
 // evaluates the slots from its last contributor back to the segment start.
 // Each (slot, pixel) pair takes at least 20 fp32 operations forward (6 mul
 // + 6 add for the power term, exp, clamp, two compares, the transmittance
-// and three color updates) and 40 backward.  The bytes are small: the
+// and three color updates).  Backward, every pair evaluated takes the gate
+// (16) and a pair that contributes at least 33 more (the division, w,
+// c . g, dA, dpower, the suffix and 9 accumulating multiply-adds).  The
+// bytes are small: the
 // stream (36 B per slot, 30 MB at the simulate path's 0.84 M slots), the
 // blend state and, for K7, the cotangent and d(splanes).  So both are
-// bound by operations; chip_smoke.py counts the pairs from each run's
-// output.
+// bound by operations; chip_smoke.py counts the pairs, and the
+// contributing ones by the forward's gates, on each run's data.
 //
 // Design.
 //   K3: the TPU kernel walks a chunk-major grid from scalar-prefetched step

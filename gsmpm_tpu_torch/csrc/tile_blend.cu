@@ -24,7 +24,9 @@
 //     columns [offs[b], offs[b] + n_live*C) with n_live = min(ceil(count_b
 //     / C), n_chunks), and its candidate indices (and row 5 of out) are
 //     local to that slice.  dF (16, T) is written on the walked columns
-//     only; the wrapper zero-fills the rest.
+//     only; the wrapper zero-fills the rest.  A window that leaves the T
+//     columns is a device-side assert (as PyTorch's own kernels treat an
+//     index out of range): no host sync checks offs before the launch.
 //   out (nblocks, 8, B*B): rows 0..2 rgb, 3 transmittance T, 4 done, 5 last
 //     contributing candidate index + 1 (as float), 6..7 zero
 //   g (nblocks, 8, B*B): cotangent of out (rows 0..3 used)
@@ -34,9 +36,11 @@
 // What bounds them on this card.  The work depends on the data: a pixel
 // evaluates candidates until it is done (forward) or back from its last
 // contributor (backward).  Each (candidate, pixel) pair is >= 20 fp32
-// operations forward and >= 40 backward, and the bytes (F once, out / g /
-// dF once) are small, so both are bound by operations; chip_smoke.py
-// counts the pairs of each run from the kernels' own outputs.
+// operations forward; backward >= 16 (the gate) for every pair evaluated
+// and >= 33 more for a contributing one.  The bytes (F once, out / g / dF
+// once) are small, so both are bound by operations; chip_smoke.py counts
+// the pairs of each run from the kernels' own outputs, the contributing
+// ones by the forward's gates.
 //
 // Design.
 //   K4: grid (nblocks, (B/16)^2): one 256-thread block per 16x16 sub-tile,
@@ -52,14 +56,19 @@
 //       w (c . g_rgb) seeded with T_final g_T, exactly the quantities of
 //       _blend_bwd_kernel.  Per candidate the 9 distinct sums over the
 //       block's pixels reduce by warp shuffles (skipped when the warp has
-//       nothing) and one shared-memory atomic per warp; each walked column
-//       of dF is written once, with no global atomics.
+//       nothing) into one shared-memory partial per warp; every JS
+//       candidates the partials are summed over the warps in a fixed order
+//       and written, so dF is deterministic (the same windows give the same
+//       bits in K5 and K9).  Each walked column of dF is written once, with
+//       no atomics.
 //   K8 / K9: the same two kernels on the packed addressing (window_of):
 //       block b reads F columns offs[b] + j, walks n_live chunks of C like
 //       the TPU kernels, and keeps its last-contributor index local to its
 //       slice, as _blend_kernel_packed does.
 // The power term is summed in the twin's order and this file is built with
 // --fmad=false, so power and the gating decisions round as the twin's.
+
+#include <cassert>
 
 #include <cuda_runtime.h>
 
@@ -69,6 +78,8 @@ constexpr int FWD_THREADS = 256;   // 16 x 16 pixels
 constexpr int BWD_THREADS = 1024;
 constexpr int MAX_PPT = 4;         // pixels per backward thread (B <= 64)
 constexpr int CH = 256;            // candidates staged per step
+constexpr int JS = 32;             // candidates per backward partial sum
+constexpr int NWARP = BWD_THREADS / 32;
 constexpr int NROW = 10;           // staged F rows: 0..6 and 8..10
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -90,8 +101,10 @@ __device__ __forceinline__ Window window_of(int b, const int* counts,
   Window w;
   w.ld = (size_t)K;  // K is T in the packed layout
   if (PACKED) {
-    w.col0 = (size_t)offs[b];
     w.width = min((counts[b] + C - 1) / C, n_chunks) * C;
+    // a block that walks nothing may carry any offset
+    assert(w.width == 0 || (offs[b] >= 0 && offs[b] + w.width <= K));
+    w.col0 = (size_t)offs[b];
   } else {
     w.col0 = (size_t)b * 16 * K;
     w.width = K;
@@ -175,11 +188,11 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                  const float* __restrict__ g, float* __restrict__ dF, int K,
                  int C, int n_chunks, int B, float alpha_min) {
   __shared__ float sF[NROW][CH];
-  __shared__ float acc[9][CH];
+  __shared__ float part[NWARP][9][JS];  // per-warp sums of JS candidates
   __shared__ int s_top;
   const int b = blockIdx.x;
   const int P = B * B;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const Window win = window_of<PACKED>(b, counts, offs, K, C, n_chunks);
   const int W = win.width;
   const size_t ld = win.ld;
@@ -223,66 +236,74 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
       const int r = i / CH, j = i % CH;
       sF[r][j] = j < n ? Fb[frow(r) * ld + base + j] : 0.0f;
     }
-    for (int i = threadIdx.x; i < 9 * CH; i += BWD_THREADS)
-      (&acc[0][0])[i] = 0.0f;
     __syncthreads();
-    for (int j = n - 1; j >= 0; --j) {
-      const int idx1 = base + j + 1;
-      float v[9];
+    for (int j0 = (n - 1) / JS * JS; j0 >= 0; j0 -= JS) {
+      const int jn = min(JS, n - j0);
+      for (int jj = jn - 1; jj >= 0; --jj) {
+        const int j = j0 + jj;
+        const int idx1 = base + j + 1;
+        float v[9];
 #pragma unroll
-      for (int r = 0; r < 9; ++r) v[r] = 0.0f;
-      bool any = false;
+        for (int r = 0; r < 9; ++r) v[r] = 0.0f;
+        bool any = false;
 #pragma unroll
-      for (int k = 0; k < MAX_PPT; ++k) {
-        if (idx1 > last[k]) continue;
-        const float pxx = px[k] * px[k], pyy = py[k] * py[k];
-        const float pxy = px[k] * py[k];
-        const float power = power_of(sF, j, pxx, px[k], pyy, py[k], pxy);
-        const float expp = expf(power);
-        const float alpha = fminf(0.99f, expp);
-        if (!(power <= sF[6][j] && alpha >= alpha_min)) continue;
-        const float one_minus = 1.0f - alpha;
-        const float T_before = T[k] / one_minus;
-        const float w = T_before * alpha;
-        const float cdot = sF[7][j] * gr[k] + sF[8][j] * gg[k]
-                           + sF[9][j] * gbl[k];
-        const float dA = T_before * cdot - S[k] / one_minus;
-        const float dP = expp < 0.99f ? dA * alpha : 0.0f;
-        S[k] += w * cdot;
-        T[k] = T_before;
-        v[0] += pxx * dP;
-        v[1] += px[k] * dP;
-        v[2] += dP;
-        v[3] += pyy * dP;
-        v[4] += py[k] * dP;
-        v[5] += pxy * dP;
-        v[6] += gr[k] * w;
-        v[7] += gg[k] * w;
-        v[8] += gbl[k] * w;
-        any = true;
-      }
-      if (__any_sync(FULL, any)) {
+        for (int k = 0; k < MAX_PPT; ++k) {
+          if (idx1 > last[k]) continue;
+          const float pxx = px[k] * px[k], pyy = py[k] * py[k];
+          const float pxy = px[k] * py[k];
+          const float power = power_of(sF, j, pxx, px[k], pyy, py[k], pxy);
+          const float expp = expf(power);
+          const float alpha = fminf(0.99f, expp);
+          if (!(power <= sF[6][j] && alpha >= alpha_min)) continue;
+          const float one_minus = 1.0f - alpha;
+          const float T_before = T[k] / one_minus;
+          const float w = T_before * alpha;
+          const float cdot = sF[7][j] * gr[k] + sF[8][j] * gg[k]
+                             + sF[9][j] * gbl[k];
+          const float dA = T_before * cdot - S[k] / one_minus;
+          const float dP = expp < 0.99f ? dA * alpha : 0.0f;
+          S[k] += w * cdot;
+          T[k] = T_before;
+          v[0] += pxx * dP;
+          v[1] += px[k] * dP;
+          v[2] += dP;
+          v[3] += pyy * dP;
+          v[4] += py[k] * dP;
+          v[5] += pxy * dP;
+          v[6] += gr[k] * w;
+          v[7] += gg[k] * w;
+          v[8] += gbl[k] * w;
+          any = true;
+        }
+        const bool warp_any = __any_sync(FULL, any);
 #pragma unroll
         for (int r = 0; r < 9; ++r) {
           float x = v[r];
+          if (warp_any) {
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            x += __shfl_xor_sync(FULL, x, off);
-          if (lane == 0 && x != 0.0f) atomicAdd(&acc[r][j], x);
+            for (int off = 16; off > 0; off >>= 1)
+              x += __shfl_xor_sync(FULL, x, off);
+          }
+          if (lane == 0) part[warp][r][jj] = x;
         }
       }
+      __syncthreads();
+      // the warps' partials summed in warp order: dF rows 0..5 the monomial
+      // sums, 6 the log opacity (= row 2's sum of dP), 8..10 the colors
+      for (int i = threadIdx.x; i < 16 * JS; i += BWD_THREADS) {
+        const int r = i / JS, jj = i % JS;
+        if (jj >= jn) continue;
+        int src = -1;
+        if (r <= 5) src = r;
+        else if (r == 6) src = 2;
+        else if (r >= 8 && r <= 10) src = r - 2;
+        float x = 0.0f;
+        if (src >= 0)
+          for (int w = 0; w < NWARP; ++w) x += part[w][src][jj];
+        dFb[r * ld + base + j0 + jj] = x;
+      }
+      __syncthreads();  // the next JS candidates overwrite part
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 16 * CH; i += BWD_THREADS) {
-      const int r = i / CH, j = i % CH;
-      if (j >= n) continue;
-      float x = 0.0f;
-      if (r <= 5) x = acc[r][j];
-      else if (r == 6) x = acc[2][j];
-      else if (r >= 8 && r <= 10) x = acc[r - 2][j];
-      dFb[r * ld + base + j] = x;
-    }
-    __syncthreads();  // the next step overwrites sF and acc
   }
 }
 

@@ -373,13 +373,19 @@ def _packed_windows(counts: torch.Tensor, offs: torch.Tensor, T: int,
     """Block b's window in the packed (16, T) array: (cols (nb, n_chunks*C)
     column of each window slot, walked (nb, n_chunks*C) the slots its blend
     walks, j < min(ceil(count/C), n_chunks) * C).  Unwalked slots point at
-    column T - 1, which the blend does not use."""
+    column T - 1, which the blend does not use.  Raises if a walked window
+    leaves the T columns (the kernels' device-side assert)."""
     C, Kw = meta.C, meta.n_chunks * meta.C
-    n_live = torch.clamp((counts.to(torch.int64) + C - 1) // C,
-                         max=meta.n_chunks)
+    width = torch.clamp((counts.to(torch.int64) + C - 1) // C,
+                        max=meta.n_chunks) * C
+    o = offs.to(torch.int64)
+    # a block that walks nothing may carry any offset
+    if bool(((width > 0) & ((o < 0) | (o + width > T))).any()):
+        raise ValueError(f"offs / counts: a block's window leaves the {T} "
+                         "columns of the packed array")
     j = torch.arange(Kw, device=counts.device)
-    walked = j[None, :] < (n_live * C)[:, None]
-    cols = torch.where(walked, offs.to(torch.int64)[:, None] + j, T - 1)
+    walked = j[None, :] < width[:, None]
+    cols = torch.where(walked, o[:, None] + j, T - 1)
     return cols, walked
 
 
@@ -409,19 +415,16 @@ def blend_packed_bwd_ref(counts: torch.Tensor, offs: torch.Tensor,
 
 def _check_packed(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
                   meta: BlendMeta):
-    """(nblocks, T) after checking the packed kernels' inputs, the windows'
-    bounds included (one host sync): the kernels address F and dF at
-    offs[b] + j unchecked."""
+    """(nblocks, T) after checking the packed kernels' input shapes without
+    a host sync.  The windows' bounds are the kernels' own device-side
+    assert: a window that leaves F stops the CUDA context, as an index out
+    of range does in PyTorch's kernels."""
     dev = F.device
     _check_block(meta.B)
     nb, T = counts.shape[0], F.shape[-1]
     _check(F, "F", (16, T), torch.float32, dev)
     _check(counts, "counts", (nb,), torch.int32, dev)
     _check(offs, "offs", (nb,), torch.int32, dev)
-    cols, walked = _packed_windows(counts, offs, T, meta)
-    if bool(((cols >= T) | (cols < 0))[walked].any()):
-        raise ValueError(f"offs / counts: a block's window leaves the {T} "
-                         "columns of the packed array")
     return nb, T
 
 

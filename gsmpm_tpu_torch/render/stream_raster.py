@@ -198,8 +198,44 @@ def sort_stream(keys: torch.Tensor, emis: torch.Tensor, nf: int, M: int):
 
 
 def _pixel_coords(B: int, device):
+    """Block-local pixel coordinates and monomials (px, py, px^2, py^2,
+    px py), each (B*B,)."""
     pix = torch.arange(B * B, device=device)
-    return (pix % B).to(torch.float32), (pix // B).to(torch.float32)
+    px, py = (pix % B).to(torch.float32), (pix // B).to(torch.float32)
+    return px, py, px * px, py * py, px * py
+
+
+def _chunk_power(p: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                 in_rng: torch.Tensor, pix, alpha_min: float):
+    """A chunk of sorted slots p (9, n, C) of n display blocks with origins
+    x0 / y0 (n,) against the blocks' pixels ``pix`` (``_pixel_coords``):
+    (gx, gy (n, C) splat offsets from the origin; power, exp(power), alpha,
+    gate (n, C, P)).  The conic rows and the 7-term power are formed with
+    the kernels' expressions in their order, so the twins reach the
+    kernels' gate decisions (quad <= 0, alpha >= alpha_min) bit for bit;
+    slots outside the segment (~in_rng) get log opacity -1e30."""
+    px, py, pxx, pyy, pxy = pix
+    gx = p[0] - x0[:, None]
+    gy = p[1] - y0[:, None]
+    a, b, c = p[2], p[3], p[4]
+    logo = torch.where(in_rng, p[5], -1e30)[..., None]
+    F0 = (-0.5 * a)[..., None]
+    F1 = (a * gx + b * gy)[..., None]
+    F2 = (-0.5 * (a * gx * gx + c * gy * gy) - b * gx * gy)[..., None]
+    F3 = (-0.5 * c)[..., None]
+    F4 = (c * gy + b * gx)[..., None]
+    F5 = (-b)[..., None]
+    power = F0 * pxx
+    power = power + F1 * px
+    power = power + F2
+    power = power + F3 * pyy
+    power = power + F4 * py
+    power = power + F5 * pxy
+    power = power + logo
+    expp = torch.exp(power)
+    alpha = torch.clamp_max(expp, 0.99)
+    gate = (power <= logo) & (alpha >= alpha_min)
+    return gx, gy, power, expp, alpha, gate
 
 
 def stream_blend_ref(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
@@ -227,8 +263,7 @@ def stream_blend_ref(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
     bid = torch.arange(nf, device=dev)
     x0 = ((bid % nbx) * B).to(torch.float32)
     y0 = ((bid // nbx) * B).to(torch.float32)
-    px, py = _pixel_coords(B, dev)
-    pxx, pyy, pxy = px * px, py * py, px * py
+    pix = _pixel_coords(B, dev)
 
     rgb = torch.zeros((nf, 3, P), dtype=torch.float32, device=dev)
     T = torch.ones((nf, P), dtype=torch.float32, device=dev)
@@ -244,27 +279,9 @@ def stream_blend_ref(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
         ids = lo[a_idx, None] + j * chunk + ar                  # (na, C)
         in_rng = ids < hi[a_idx, None]
         p = splanes[:, ids.clamp(max=max(L - 1, 0))]            # (9, na, C)
-        # per-slot conic coefficients, (na, C, 1) against (P,) pixels
-        gx = (p[0] - x0[a_idx, None])[..., None]
-        gy = (p[1] - y0[a_idx, None])[..., None]
-        a, b, c = p[2][..., None], p[3][..., None], p[4][..., None]
-        logo = torch.where(in_rng, p[5], -1e30)[..., None]
-        F0 = -0.5 * a
-        F1 = a * gx + b * gy
-        F2 = -0.5 * (a * gx * gx + c * gy * gy) - b * gx * gy
-        F3 = -0.5 * c
-        F4 = c * gy + b * gx
-        F5 = -b
-        power = F0 * pxx
-        power = power + F1 * px
-        power = power + F2
-        power = power + F3 * pyy
-        power = power + F4 * py
-        power = power + F5 * pxy
-        power = power + logo
-        alpha = torch.clamp_max(torch.exp(power), 0.99)
-        alpha = torch.where((power <= logo) & (alpha >= alpha_min),
-                            alpha, 0.0)
+        _, _, _, _, alpha, gate = _chunk_power(p, x0[a_idx], y0[a_idx],
+                                               in_rng, pix, alpha_min)
+        alpha = torch.where(gate, alpha, 0.0)
         one_minus = 1.0 - alpha
         cp = torch.cumprod(one_minus, dim=1)
         excl = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
@@ -320,8 +337,8 @@ def stream_blend_bwd_ref(splanes: torch.Tensor, bounds: torch.Tensor,
     bid = torch.arange(nf, device=dev)
     x0 = ((bid % nbx) * B).to(torch.float32)
     y0 = ((bid // nbx) * B).to(torch.float32)
-    px, py = _pixel_coords(B, dev)
-    pxx, pyy, pxy = px * px, py * py, px * py
+    pix = _pixel_coords(B, dev)
+    px, py = pix[0], pix[1]
 
     g_rgb = g[:, 0:3]
     last = out[:, 5]
@@ -337,26 +354,9 @@ def stream_blend_bwd_ref(splanes: torch.Tensor, bounds: torch.Tensor,
         ids = lo[b_idx, None] + j * chunk + ar                  # (nb, C)
         in_rng = ids < hi[b_idx, None]
         p = splanes[:, ids.clamp(max=max(L - 1, 0))]            # (9, nb, C)
-        gx = p[0] - x0[b_idx, None]
-        gy = p[1] - y0[b_idx, None]
+        gx, gy, _, expp, alpha, gate0 = _chunk_power(
+            p, x0[b_idx], y0[b_idx], in_rng, pix, alpha_min)
         a, b, c = p[2], p[3], p[4]
-        logo = torch.where(in_rng, p[5], -1e30)[..., None]
-        F0 = (-0.5 * a)[..., None]
-        F1 = (a * gx + b * gy)[..., None]
-        F2 = (-0.5 * (a * gx * gx + c * gy * gy) - b * gx * gy)[..., None]
-        F3 = (-0.5 * c)[..., None]
-        F4 = (c * gy + b * gx)[..., None]
-        F5 = (-b)[..., None]
-        power = F0 * pxx
-        power = power + F1 * px
-        power = power + F2
-        power = power + F3 * pyy
-        power = power + F4 * py
-        power = power + F5 * pxy
-        power = power + logo
-        expp = torch.exp(power)
-        alpha = torch.clamp_max(expp, 0.99)
-        gate0 = (power <= logo) & (alpha >= alpha_min)
         gidx1 = (ids + 1).to(torch.float32)[..., None]
         contrib = gate0 & (gidx1 <= last[b_idx][:, None, :])
         a_eff = torch.where(contrib, alpha, 0.0)
@@ -425,11 +425,9 @@ def _check_stream(splanes: torch.Tensor, bounds: torch.Tensor, B: int):
         return dev
     if dev.type != "cuda":
         raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
-    # one thread per pixel of 16x16 sub-tiles (K3), at most 4 pixels per
-    # thread of a 1024-thread block (K7)
-    if B % 16 != 0 or B * B > 4096:
-        raise ValueError(f"block {B}: the kernels take multiples of 16 up "
-                         "to 64")
+    # one thread per pixel of 16x16 sub-tiles (K3)
+    if B % 16 != 0:
+        raise ValueError(f"block size {B} must be a multiple of 16")
     if splanes.dtype != torch.float32 or splanes.dim() != 2 or \
             splanes.shape[0] != 9 or not splanes.is_contiguous():
         raise ValueError("splanes must be a contiguous float32 (9, L) tensor")
@@ -469,6 +467,10 @@ def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
     if dev.type == "cpu":
         return stream_blend_bwd_ref(splanes, bounds, out, g, nbx, B,
                                     alpha_min)
+    # at most 4 pixels per thread of a 1024-thread block
+    if B * B > 4096:
+        raise ValueError(f"block {B}: the backward kernel takes blocks up "
+                         "to 64")
     nf = bounds.shape[0] - 1
     for name, t in (("out", out), ("g", g)):
         if t.device != dev or t.dtype != torch.float32 or \

@@ -13,6 +13,9 @@ shapes.
 """
 
 import dataclasses
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -120,7 +123,7 @@ def test_wrappers_reject_bad_inputs(cuda, tmp_path):
                            su.grid, su.tc, 1e-3)
 
 
-def _stream_case(dev, n=800, res=128, seed=9):
+def _stream_case(dev, n=800, res=128, seed=9, block=64):
     """A dense cluster's sorted stream: (splanes, bounds, nbx, B, t_min,
     alpha_min)."""
     rng = np.random.default_rng(seed)
@@ -132,7 +135,7 @@ def _stream_case(dev, n=800, res=128, seed=9):
     opacity = rng.uniform(0.15, 0.95, size=n).astype(np.float32)
     colors = rng.uniform(0.0, 1.0, size=(n, 3)).astype(np.float32)
     cam = make_camera(res, res, 0.9, 0.9, np.eye(3), np.zeros(3))
-    cfg = tr.RasterConfig(block=64)
+    cfg = tr.RasterConfig(block=block)
     C = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     pre = tr.preprocess(C(means), C(cov6), C(opacity), None, cam, 0, cfg,
                         colors_precomp=C(colors))
@@ -140,8 +143,10 @@ def _stream_case(dev, n=800, res=128, seed=9):
     return splanes, bounds, lv.nbx, cfg.block, cfg.t_min, cfg.alpha_min
 
 
-def test_stream_kernel_matches_twin(cuda):
-    args = _stream_case(cuda)
+# K3 takes any multiple of 16; K7 (4 pixels per thread) blocks up to 64
+@pytest.mark.parametrize("block", [64, 80])
+def test_stream_kernel_matches_twin(cuda, block):
+    args = _stream_case(cuda, res=2 * block, block=block)
     before = sr.stream_blend.launches
     got = sr.stream_blend(*args)
     assert sr.stream_blend.launches == before + 1
@@ -149,6 +154,10 @@ def test_stream_kernel_matches_twin(cuda):
     # sequential vs chunked transmittance products round differently
     assert float((got[:, 0:4] - want[:, 0:4]).abs().max()) <= 2e-3
     assert float((got[:, 4] != want[:, 4]).float().mean()) <= 1e-3
+    if block > 64:
+        with pytest.raises(ValueError):
+            sr.stream_blend_bwd(args[0], args[1], got, torch.zeros_like(got),
+                                args[2], block, args[5])
 
 
 # the clamp and gate edges of K7 only show in large streams: a small and a
@@ -249,6 +258,8 @@ def test_blend_kernels_match_twins(cuda, K):
         assert err <= 1e-4 * scale, (rows, err, scale)
     assert float(dF[:, 11:].abs().max()) == 0.0
     assert float(dF[:, 7].abs().max()) == 0.0
+    # the per-candidate sums run in a fixed order: a rerun gives the bits
+    assert torch.equal(dF, cb.blend_bwd(F, out, g, meta))
 
 
 def _packed_case(dev, counts, K, seed=0):
@@ -295,8 +306,32 @@ def test_packed_blend_kernels_match_twins(cuda, K):
     assert float(dF[11:].abs().max()) == 0.0
     assert float(dF[7].abs().max()) == 0.0
     assert float(dF[:, -meta.C:].abs().max()) == 0.0  # unowned tail
-    with pytest.raises(ValueError):  # a window past the array's end
-        cb.blend_packed_fwd(counts, offs + F.shape[1] // 2, F, meta)
+    # K9 is K5's deterministic code on another addressing: the same bits
+    dF_pad = cb.blend_bwd(Fpad, out, g, meta)
+    for b, o in enumerate(offs.tolist()):
+        a = -(-int(counts[b]) // meta.C) * meta.C
+        assert torch.equal(dF[:, o:o + a], dF_pad[b, :, :a])
+
+
+def test_packed_window_outside_array_asserts(cuda):
+    """A window past the packed array's end stops K8 with a device-side
+    assert (no host sync checks it); run in a child process, whose CUDA
+    context the assert ends."""
+    code = (
+        "import sys, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_cuda as t\n"
+        "dev = torch.device('cuda')\n"
+        "counts, offs, F, _, meta = t._packed_case(dev, [768, 384, 7, 0], 768)\n"
+        "t.cb.blend_packed_fwd(counts, offs + F.shape[1] // 2, F, meta)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no assert')\n")
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=300,
+                       capture_output=True, text=True)
+    assert r.returncode != 0, r.stdout + r.stderr
+    assert "no assert" not in r.stdout
+    assert "assert" in (r.stdout + r.stderr).lower(), r.stdout + r.stderr
 
 
 def _fit_ident(dev, n=512, n_grid=24, substeps=3, res=64):

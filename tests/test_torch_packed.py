@@ -145,6 +145,26 @@ def test_packed_dF_zero_outside_walked_slots():
     np.testing.assert_array_equal(dF[:, 0:96].numpy(), dFw[0].numpy())
 
 
+@pytest.mark.parametrize("block,shift,bad", [(0, -32, True), (3, 64, True),
+                                             (1, -999, False)])
+def test_packed_window_outside_array_raises(block, shift, bad):
+    """A walked window that leaves the packed array raises in the twins (the
+    kernels' device-side assert); a block that walks nothing may carry any
+    offset."""
+    B, C = 16, 32
+    counts = torch.tensor([70, 0, 5, 33], dtype=torch.int32)
+    offs = torch.tensor([0, 96, 96, 128], dtype=torch.int32)
+    F = torch.zeros((16, 192))
+    meta = cb.BlendMeta(C, B, 1e-4, 1.0 / 255.0, 3)
+    offs[block] += shift
+    if bad:
+        with pytest.raises(ValueError):
+            cb.blend_packed_fwd(counts, offs, F, meta)
+    else:
+        out = cb.blend_packed_fwd(counts, offs, F, meta)
+        assert float(out[1, 3].min()) == 1.0  # nothing blended
+
+
 def test_t_cap_overflow_drops_like_jax(scenes):
     """A t_cap below the C-aligned total drops whole tail blocks: the same
     n_dropped and the same image as gsmpm_tpu's packed render."""
