@@ -11,18 +11,22 @@
    n_grid 50, 800x800; the transfers on a state given seeded motion, the
    blend on frame 0), runs the port on the GPU and on the CPU at a small
    size, drives ``apps.simulate.simulate`` for 4 frames x 100 substeps and
-   profiles 2 more frames.
+   profiles 2 more frames.  K1 is timed for every grid variant
+   (K1_VARIANTS: chunks per block, warp combine), each held against the
+   twin; K3's cull share of (slot, pixel group) pairs is printed.
 4. Identification path (slice 2): ``apps.identify.identify`` at the bench
    configuration (245,760-gaussian blob, 512x512, 30 substeps per frame,
    E 1e4 -> 3e3; frame-0 appearance step, ground truth, 2 fit frames),
    then a timed steady-state loop of fit frames whose launches per frame
    are asserted exactly, a profile of one fit frame, K4 / K5 against their
    twins on the fit frame's real candidates (tier 1 and tier 2), K6 on the
-   fit state, and one small fit frame on the GPU and on the CPU.
+   fit state, K1 and its variants on the fit state (the blob's dense
+   tiles), and one small fit frame on the GPU and on the CPU.
 5. Stream-rendered fit (slice 3, path A): a SystemIdentifier on the same
    blob with ``RasterConfig(stream=True)`` (ground truth at E 3e3, 2 fit
    frames, then steady fit frames with exact launches, one profiled), K7
-   against its twin on the steady frame's real stream, and one small
+   against its twin on the steady frame's real stream (K3 too, with its
+   cull share), and one small
    stream fit frame on the GPU and on the CPU.
 6. Packed windowed render (slice 3, path B): the steady stream-fit frame's
    geometry rendered with ``RasterConfig(packed=True)`` at drop-free caps,
@@ -77,6 +81,11 @@ FIT_SUBSTEPS = 30
 # frame and direction (K4 / K5 once per tier, or K3 / K7), never recomputed
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
+# a kernel row's numbers beyond the required keys, copied into the kernels
+# line: K1 at the fit's shapes and its grid, K3's cull, K4/K5 per tier
+ROW_EXTRAS = ("per_tier", "group", "combine", "blocks", "fit_ms",
+              "fit_plain_ms", "fit_bound_ms", "fit_bound_by", "fit_blocks",
+              "culled_share", "variants", "fit_variants")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -142,6 +151,97 @@ def window_components(win):
     return win.reshape(-1, 8, 4, 8, 64).transpose(0, 2).reshape(4, -1)
 
 
+# K1's variants timed at both shapes: chunks per block (G; "tile" is one
+# block per tile, the grid of the first design) and the warp combine
+K1_VARIANTS = [(1, False), (1, True), (2, False), (2, True), (4, False),
+               (4, True), ("tile", False), ("tile", True)]
+
+
+def p2g_phase(ts, sig, grid, tc, dt, label):
+    """K1 against its twin on one tiled state (the wrapper's defaults), the
+    time of every K1_VARIANTS entry, each also held against the twin, and
+    the bound.  Returns (K1's windows, its kernels-table row)."""
+    from gsmpm_tpu_torch.sim import cuda_mpm, tiles
+
+    win_k = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt)
+    win_r = cuda_mpm.p2g_tiled_ref(ts, sig, grid, tc, dt)
+    torch.cuda.synchronize()
+    comp_scale = window_components(win_r).abs().amax(dim=1)
+    comp_err = window_components(win_k - win_r).abs().amax(dim=1)
+    rel1 = comp_err / comp_scale
+    # how far the stress and the APIC term each move the momentum rows: a
+    # kernel that got either wrong would miss by about that much
+    no_stress = cuda_mpm.p2g_tiled_ref(ts, torch.zeros_like(sig), grid, tc, dt)
+    q_no_c = ts.q.clone()
+    q_no_c[tiles.RC:tiles.RC + 9] = 0.0
+    no_apic = cuda_mpm.p2g_tiled_ref(dataclasses.replace(ts, q=q_no_c), sig,
+                                     grid, tc, dt)
+    share = {k: (window_components(win_r - w).abs().amax(dim=1)
+                 / comp_scale)[1:]
+             for k, w in (("stress", no_stress), ("APIC", no_apic))}
+    print(f"K1 p2g ({label}): relative err mass / momentum x, y, z "
+          + " / ".join(f"{float(e):.3g}" for e in rel1)
+          + "; momentum scale " + " ".join(f"{float(c):.4g}"
+                                           for c in comp_scale[1:])
+          + "; share of momentum moved by "
+          + ", ".join(f"{k} {float(v.min()):.3g}" for k, v in share.items()),
+          flush=True)
+    check(bool((comp_scale > 0).all()), f"K1 inputs: zero rows {comp_scale}")
+    for k, v in share.items():
+        check(float(v.min()) >= 1e-3, f"K1 inputs: {k} term too small {v}")
+    err1 = float(comp_err.max())
+    rel1 = float(rel1.max())
+    # float atomics add in a run-dependent order: 1e-5 of each component's
+    # largest entry (mass and each momentum component on its own)
+    check(rel1 <= 1e-5, f"K1 p2g ({label}): relative err {rel1}")
+
+    live = ts.chunk_live == 1
+    per_tile = torch.bincount(ts.chunk_tile[live].to(torch.int64),
+                              minlength=tc.ntiles)
+    variants = {}
+    for G, comb in K1_VARIANTS:
+        g = tc.nchunk if G == "tile" else G
+        kw = dict(group=g, combine=comb)
+        w = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt, **kw)
+        rel = float((window_components(w - win_r).abs().amax(dim=1)
+                     / comp_scale).max())
+        check(rel <= 1e-5, f"K1 p2g ({label}) G {G} combine {comb}: {rel}")
+        variants[f"G={G}" + (" combine" if comb else "")] = dict(
+            ms=cuda_ms(lambda: cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt,
+                                                  **kw), 10),
+            blocks=int(((per_tile + g - 1) // g).sum()),
+            launched=cuda_mpm.p2g_max_groups(tc, g), rel_err=rel)
+    ms1 = cuda_ms(lambda: cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt), 20)
+    pms1 = cuda_ms(lambda: cuda_mpm.p2g_tiled_ref(ts, sig, grid, tc, dt), 3, 1)
+    n_live = int(live.sum()) * tc.S
+    n_real = int((ts.q[tiles.RMASS] > 0).sum())
+    # must read x, v, C, mass, vol (17 rows) and 9 stress rows of the live
+    # slots, write the windows; ~1260 flops per real particle
+    b1 = bound_ms(n_live * 26 * 4 + win_k.numel() * 4, n_real * 1260.0)
+    G0 = cuda_mpm.P2G_GROUP
+    print(f"K1 p2g ({label}): {n_real} particles in {int(live.sum())} live "
+          f"chunks of {int((per_tile > 0).sum())} tiles (densest "
+          f"{int(per_tile.max())} chunks); wrapper G {G0} combine "
+          f"{cuda_mpm.P2G_COMBINE}: {variants_key(G0, cuda_mpm.P2G_COMBINE)}"
+          f" {ms1:.4f} ms (plain {pms1:.3f}, bound {b1[0]:.4f} {b1[1]}); "
+          "variants " + ", ".join(
+              f"{k}: {v['ms']:.4f} ms / {v['blocks']} blocks ({v['launched']}"
+              f" launched)" for k, v in variants.items()), flush=True)
+    return win_k, dict(
+        name="p2g_tiled", route="cuda",
+        source="gsmpm_tpu_torch/csrc/mpm_transfer.cu",
+        replaces="gsmpm_tpu/sim/pallas_mpm.py:160",
+        max_abs_err=err1, rel_err=rel1, tol="1e-5 x max per component",
+        ms=ms1, plain_ms=pms1, bound_ms=b1[0], bound_by=b1[1],
+        library_ms=None, wrapper=cuda_mpm.p2g_tiled, group=G0,
+        combine=cuda_mpm.P2G_COMBINE, variants=variants,
+        blocks=variants[variants_key(G0, cuda_mpm.P2G_COMBINE)]["blocks"])
+
+
+def variants_key(G, comb):
+    return f"G={G}" + (" combine" if comb else "")
+
+
 def kernel_phases(dev):
     """K1, K2 on a moved main-path state and K3 on frame 0, each against
     its plain twin."""
@@ -164,50 +264,8 @@ def kernel_phases(dev):
     n_real = int((ts.q[tiles.RMASS] > 0).sum())
 
     # ---- K1 P2G
-    win_k = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt)
-    win_r = cuda_mpm.p2g_tiled_ref(ts, sig, grid, tc, dt)
-    torch.cuda.synchronize()
-    comp_scale = window_components(win_r).abs().amax(dim=1)
-    comp_err = window_components(win_k - win_r).abs().amax(dim=1)
-    rel1 = comp_err / comp_scale
-    # how far the stress and the APIC term each move the momentum rows: a
-    # kernel that got either wrong would miss by about that much
-    no_stress = cuda_mpm.p2g_tiled_ref(ts, torch.zeros_like(sig), grid, tc, dt)
-    q_no_c = ts.q.clone()
-    q_no_c[tiles.RC:tiles.RC + 9] = 0.0
-    no_apic = cuda_mpm.p2g_tiled_ref(dataclasses.replace(ts, q=q_no_c), sig,
-                                     grid, tc, dt)
-    share = {k: (window_components(win_r - w).abs().amax(dim=1)
-                 / comp_scale)[1:]
-             for k, w in (("stress", no_stress), ("APIC", no_apic))}
-    print("K1 p2g: relative err mass / momentum x, y, z "
-          + " / ".join(f"{float(e):.3g}" for e in rel1)
-          + "; momentum scale " + " ".join(f"{float(c):.4g}"
-                                           for c in comp_scale[1:])
-          + "; share of momentum moved by "
-          + ", ".join(f"{k} {float(v.min()):.3g}" for k, v in share.items()),
-          flush=True)
-    check(bool((comp_scale > 0).all()), f"K1 inputs: zero rows {comp_scale}")
-    for k, v in share.items():
-        check(float(v.min()) >= 1e-3, f"K1 inputs: {k} term too small {v}")
-    err1 = float(comp_err.max())
-    rel1 = float(rel1.max())
-    # float atomics add in a run-dependent order: 1e-5 of each component's
-    # largest entry (mass and each momentum component on its own)
-    check(rel1 <= 1e-5, f"K1 p2g: relative err {rel1}")
-    ms1 = cuda_ms(lambda: cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt), 20)
-    pms1 = cuda_ms(lambda: cuda_mpm.p2g_tiled_ref(ts, sig, grid, tc, dt), 3, 1)
-    # must read x, v, C, mass, vol (17 rows) and 9 stress rows of the live
-    # slots, write the windows; ~1260 flops per real particle
-    b1 = bound_ms(n_live * 26 * 4 + win_k.numel() * 4, n_real * 1260.0)
-    rows.append(dict(
-        name="p2g_tiled", route="cuda",
-        source="gsmpm_tpu_torch/csrc/mpm_transfer.cu",
-        replaces="gsmpm_tpu/sim/pallas_mpm.py:160",
-        max_abs_err=err1, rel_err=rel1, tol="1e-5 x max per component",
-        ms=ms1, plain_ms=pms1, bound_ms=b1[0], bound_by=b1[1],
-        library_ms=None, wrapper=cuda_mpm.p2g_tiled,
-    ))
+    win_k, row = p2g_phase(ts, sig, grid, tc, dt, "simulate")
+    rows.append(row)
 
     # ---- K2 G2P (input: this substep's grid velocities)
     ext = tiles.grid_phase(win_k, su.model, su.bcs, 0.0, grid, tc, dt)
@@ -283,26 +341,21 @@ def kernel_phases(dev):
     check(done_mismatch <= 1e-4, f"K3 stream: done flags differ {done_mismatch}")
     ms3 = cuda_ms(lambda: sr.stream_blend(*args), 20)
     pms3 = cuda_ms(lambda: sr.stream_blend_ref(*args), 1, 1)
-    # evaluated (slot, pixel) pairs of this data: each pixel walks its
-    # block's segment up to its last contributor when done, else to the end
-    lo = bounds[:-1].to(torch.float64)[:, None]
-    hi = bounds[1:].to(torch.float64)[:, None]
-    last = out_k[:, 5].to(torch.float64)
-    walked = torch.where(out_k[:, 4] > 0, (last - lo).clamp_min(0), hi - lo)
-    pairs = float(walked.sum())
-    # >= 20 fp32 operations per pair: 6 mul + 6 add for the power term,
-    # exp, clamp, two compares, the transmittance and three color updates
-    b3 = bound_ms(splanes.numel() * 4 + bounds.numel() * 4
-                  + out_k.numel() * 4, pairs * 20.0)
+    cull = k3_cull(splanes, bounds, out_k, lv.nbx, rcfg.block,
+                   rcfg.alpha_min)
+    b3 = k3_bound(splanes, bounds, out_k, cull)
+    print(f"K3 stream (simulate): {cull['culled_share']:.4f} of the (slot, "
+          f"16x8 pixel group) pairs culled; walked pairs {cull['pairs']:.4g}"
+          f", kept by the cull {cull['kept_pairs']:.4g}; {ms3:.4f} ms, bound "
+          f"{b3[0]:.4f} {b3[1]}", flush=True)
     rows.append(dict(
         name="stream_blend", route="cuda",
         source="gsmpm_tpu_torch/csrc/stream_raster.cu",
         replaces="gsmpm_tpu/render/stream_raster.py:315",
         max_abs_err=err3, rel_err=err3, tol="2e-3 abs on rgb/T",
         ms=ms3, plain_ms=pms3, bound_ms=b3[0], bound_by=b3[1],
-        library_ms=None, wrapper=sr.stream_blend,
-        pairs=pairs, L=int(splanes.shape[1]),
-    ))
+        library_ms=None, wrapper=sr.stream_blend, L=int(splanes.shape[1]),
+        **cull))
     for r in rows:
         print(f"{r['name']}: max_abs_err {r['max_abs_err']:.3g} rel "
               f"{r['rel_err']:.3g} (tol {r['tol']}) kernel {r['ms']:.4f} ms "
@@ -311,9 +364,57 @@ def kernel_phases(dev):
     print(f"main-path shapes: NP {tc.np_rows}, nchunk {tc.nchunk}, live "
           f"chunks {n_live // tc.S}, occupied tiles {occupied}, real "
           f"particles {n_real}, stream slots {splanes.shape[1]}, "
-          f"pairs {pairs:.4g}, K2 drift flags differing {drift_mismatch}, "
+          f"pairs {cull['pairs']:.4g}, K2 drift flags differing "
+          f"{drift_mismatch}, "
           f"K3 done flags differing {done_mismatch:.3g}", flush=True)
     return rows
+
+
+def k3_cull(splanes, bounds, out, nbx, B, alpha_min):
+    """K3's walk on this data: the share of the (slot in a segment, 16 x 8
+    pixel group of its block) pairs that the cull (stream_raster.
+    cull_boxes) skips, the (slot, pixel) pairs of the walk (each pixel up
+    to its last contributor when done, else to its segment's end) and the
+    ones among them that the cull keeps."""
+    from gsmpm_tpu_torch.render import stream_raster as sr
+
+    dev = splanes.device
+    nf = bounds.numel() - 1
+    lo = bounds[:-1].to(torch.int64)
+    hi = bounds[1:].to(torch.int64)
+    s0, s1 = int(bounds[0]), int(bounds[-1])
+    blk = torch.repeat_interleave(torch.arange(nf, device=dev), hi - lo)
+    p = splanes[:, s0:s1]
+    xl, xh, yl, yh = sr.cull_boxes(p[0] - ((blk % nbx) * B).float(),
+                                   p[1] - ((blk // nbx) * B).float(), p,
+                                   alpha_min)
+    gxn = B // 16
+    r = torch.arange(gxn * (B // 8), device=dev)
+    rx = ((r % gxn) * 16).float()
+    ry = ((r // gxn) * 8).float()
+    hit = ((xl[:, None] <= rx + 15) & (xh[:, None] >= rx)
+           & (yl[:, None] <= ry + 7) & (yh[:, None] >= ry))
+    culled = 1.0 - float(hit.sum()) / max(hit.numel(), 1)
+    cum = torch.zeros((s1 - s0 + 1, r.numel()), dtype=torch.int64,
+                      device=dev)
+    cum[1:] = torch.cumsum(hit, 0)
+    pix = torch.arange(B * B, device=dev)
+    grp = (pix // B // 8) * gxn + (pix % B) // 16
+    last = out[:, 5].to(torch.int64)
+    end = torch.where(out[:, 4] > 0, torch.maximum(last, lo[:, None]),
+                      hi[:, None])
+    kept = cum[end - s0, grp] - cum[(lo - s0)[:, None], grp]
+    return dict(culled_share=culled, pairs=float((end - lo[:, None]).sum()),
+                kept_pairs=float(kept.sum()))
+
+
+def k3_bound(splanes, bounds, out, cull):
+    """K3's bound: >= 20 fp32 operations per (slot, pixel) pair that the
+    cull keeps (6 mul + 6 add for the power term, exp, clamp, two
+    compares, the transmittance and three color updates); the bytes of the
+    stream, the bounds and the blend state."""
+    return bound_ms(splanes.numel() * 4 + bounds.numel() * 4
+                    + out.numel() * 4, cull["kept_pairs"] * 20.0)
 
 
 def small_parity(dev):
@@ -558,7 +659,8 @@ def fit_profile(dev, ident, first, steady):
           f"{100 * busy_ms / frame_ms:.1f}%", flush=True)
     top = []
     # the largest entries, then the port's own kernels further down
-    ours = ("p2g_kernel", "g2p_kernel", "sored_kernel", "blend_fwd_kernel",
+    ours = ("p2g_kernel", "p2g_groups_kernel", "p2g_reduce_kernel",
+            "g2p_kernel", "sored_kernel", "blend_fwd_kernel",
             "blend_bwd_kernel", "stream_fwd_kernel", "stream_bwd_kernel")
     for i, e in enumerate(kernels):
         if i >= PROFILE_TOP and not any(k in e.key for k in ours):
@@ -800,6 +902,37 @@ def sored_phase(dev, ident, first):
         wrapper=cuda_mpm.sored_tiled)
 
 
+def p2g_fit_phase(dev, ident, first):
+    """K1 at the fit's shapes: the steady identify frame's state bucketed
+    as a fitting substep buckets it (the blob's ~21 dense tiles), given
+    seeded motion and strain, with the fit's Green StVK stress and substep
+    dt."""
+    from gsmpm_tpu_torch.ops.constitutive import cauchy_stress_stvk_green_soa
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state
+
+    state = first[0]
+    grid = ident.grid
+    tc = tiles.default_tile_config(grid.n_grid, state.x.shape[0])
+    ts = seeded_motion(tiles.bootstrap(soa_from_state(state), ident.model,
+                                       grid, tc))
+    # a seeded strain, as seeded_motion's on F_trial: the fit's first
+    # frames barely deform the blob, and its stress would vanish
+    rng = np.random.default_rng(5)
+    live = (ts.q[tiles.RMASS] > 0).to(ts.q.dtype)
+    noise = torch.from_numpy(rng.normal(size=(9, tc.np_rows)).astype(
+        np.float32)).to(dev)
+    ts.q[tiles.RF:tiles.RF + 9] += 0.02 * noise * live
+    F = tuple(ts.q[tiles.RF + i] for i in range(9))
+    stress = cauchy_stress_stvk_green_soa(F, ts.aux[tiles.AMU],
+                                          ts.aux[tiles.ALAM])
+    sig = torch.cat([torch.stack(stress),
+                     torch.zeros((7, tc.np_rows), device=dev)])
+    dt = ident.fit_cfg.frame_dt / ident.fit_cfg.substeps_per_frame
+    _, row = p2g_phase(ts, sig, grid, tc, dt, "fit")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # slice 3: the stream-rendered fit (path A) and the packed render (path B)
 # ---------------------------------------------------------------------------
@@ -923,6 +1056,20 @@ def stream_bwd_phase(dev, ident, first):
     ms3 = cuda_ms(lambda: sr.stream_blend(splanes, bounds, lv.nbx, cfg.block,
                                           float(cfg.t_min),
                                           float(cfg.alpha_min)), 20)
+    out_r = sr.stream_blend_ref(splanes, bounds, lv.nbx, cfg.block,
+                                float(cfg.t_min), float(cfg.alpha_min))
+    err3 = float((out[:, 0:4] - out_r[:, 0:4]).abs().max())
+    done3 = float((out[:, 4] != out_r[:, 4]).float().mean())
+    check(err3 <= 2e-3 and done3 <= 1e-4,
+          f"K3 on the fit stream: max err {err3}, done differ {done3}")
+    cull = k3_cull(splanes, bounds, out, lv.nbx, cfg.block,
+                   float(cfg.alpha_min))
+    b3 = k3_bound(splanes, bounds, out, cull)
+    print(f"K3 stream (stream fit): max err {err3:.3g}, done differ "
+          f"{done3:.3g}; {cull['culled_share']:.4f} of the (slot, group) "
+          f"pairs culled; walked pairs {cull['pairs']:.4g}, kept "
+          f"{cull['kept_pairs']:.4g}; {ms3:.4f} ms, bound {b3[0]:.4f} "
+          f"{b3[1]}", flush=True)
     # (slot, pixel) pairs this data needs: each pixel from its last
     # contributor back to its segment's start, gated; the contributing
     # ones among them (GATE_OPS / BWD_CONTRIB_OPS)
@@ -950,7 +1097,9 @@ def stream_bwd_phase(dev, ident, first):
         plain_ms=pms7, bound_ms=b7[0], bound_by=b7[1], library_ms=None,
         wrapper=sr.stream_blend_bwd, pairs=pairs, contrib_pairs=contrib,
         walked_slots=walked,
-        L=int(splanes.shape[1]), k3_fit_ms=ms3)
+        L=int(splanes.shape[1]),
+        k3_fit=dict(ms=ms3, max_abs_err=err3, done_differ=done3,
+                    bound_ms=b3[0], bound_by=b3[1], **cull))
 
 
 def packed_phase(dev, ident, first, wrappers):
@@ -1198,6 +1347,11 @@ def main() -> int:
     fit["profile"] = fit_profile(dev, ident, first, fit["steady"])
     blend_rows, fit["blend_tiers"] = blend_phases(dev, ident, first)
     rows += blend_rows + [sored_phase(dev, ident, first)]
+    # K1 at the fit's shapes, beside its row at simulate's
+    k1_fit = p2g_fit_phase(dev, ident, first)
+    rows[0].update({f"fit_{k}": k1_fit[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "rel_err", "blocks",
+        "variants")})
     fit["small_parity"] = small_fit_parity(dev)
     del ident, first
     torch.cuda.empty_cache()
@@ -1237,9 +1391,12 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"per_tier": r["per_tier"]} if "per_tier" in r else {}),
+            **{k: r[k] for k in ROW_EXTRAS if k in r},
         })
     check(len(kernels) == 9, f"{len(kernels)} kernels in the table")
+    k3_fit = next(r for r in rows if r["name"] == "stream_blend_bwd")["k3_fit"]
+    next(k for k in kernels if k["name"] == "stream_blend").update(fit_ms=k3_fit["ms"], fit_bound_ms=k3_fit["bound_ms"],
+                      fit_culled_share=k3_fit["culled_share"])
     print(json.dumps({"main_path": main, "identify_path": fit,
                       "stream_fit_path": sfit, "packed_path": packed}))
     print(card)  # nvidia-smi name, power.limit

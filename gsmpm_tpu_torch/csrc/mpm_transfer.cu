@@ -25,21 +25,38 @@
 //   vol, yield, padding; 284,672 slots) and the occupied tiles' velocity
 //   blocks, and write all 40 rows: ~69 MB, 21 us.  ~1,900 flops per
 //   particle is 5.6 us, so the bound is bytes.
-// In practice K1 is bound by shared-memory atomics (27 nodes x 4
-// components per particle) and their contention inside one 8^3-cell tile,
-// with one block per occupied tile.
+// What holds K1 back is not the bytes but 108 shared-memory float atomics
+// per particle (27 nodes x 4 components).  With one block per tile (the
+// port's first design) a dense scene put ~46 chunks of one tile through one
+// block on one SM: the fit's 21 occupied tiles used 21 of 132 SMs.
 //
 // Design.  The TPU kernels expand the separable B-spline stencil into dense
 // pair-table matmuls because the TPU has no scatter; a GPU has fast
 // shared-memory atomics, so here each thread owns one particle and touches
 // only its 27 stencil nodes.
-//   K1: one block per tile walks that tile's consecutive live chunks
-//       (found by binary search in chunk_tile) and accumulates the tile's
-//       4 x 16^3 window (64 KB) in dynamic shared memory with atomicAdd;
-//       the window is written once, coalesced, in the octant layout above.
-//       Tiles without chunks write zeros.  Float atomics add in a
-//       run-dependent order, so results agree with the twin to ~1e-6 of the
-//       window's largest entry, not bitwise.
+//   K1: the TPU grid has one program per chunk; here the chunks of a tile
+//       are split into groups of G consecutive live chunks, one block per
+//       group, so a dense tile spreads over many SMs.  Three launches:
+//       (1) one block builds the group table from chunk_tile / chunk_live
+//           on the device (block-wide prefix sums, no host sync): the first
+//           chunk of every group and each tile's range of groups; the grid
+//           of (2) is the host's upper bound on the group count, and blocks
+//           past the real count return at once;
+//       (2) each group's block accumulates a private 4 x 16^3 window (64
+//           KB of dynamic shared memory, 3 blocks per SM) with shared
+//           atomicAdd, then writes it coalesced in the octant layout: into
+//           the tile's output window when the tile has one group, else into
+//           a scratch partial (ngroups x 64 KB, allocated by the wrapper);
+//       (3) per tile, the partials are summed in group order into the
+//           output window; tiles without chunks get zeros.
+//       With COMBINE, the lanes of a warp whose particles share a base
+//       cell (hence all 27 stencil nodes) sum their values by shuffles and
+//       one lane issues the atomic: the contention of dense cells.
+//       The cross-block sum runs in a fixed order, but the shared atomics
+//       inside a block add in a run-dependent order, so the kernel is NOT
+//       deterministic: results agree with the twin to ~1e-6 of the
+//       window's largest entry, not bitwise, and may differ in the last
+//       bits between runs.
 //   K2: one block per chunk stages its tile's (192, 64) block (48 KB) in
 //       shared memory; one thread per particle gathers its 27 nodes, then
 //       writes every q row (advected x, v, C, F_trial, drift flag; other
@@ -59,6 +76,8 @@ constexpr int LOCAL_MIN = 0, LOCAL_MAX = 13, SAFE_MIN = 1, SAFE_MAX = 12;
 constexpr int WIN_FLOATS = 256 * 64;   // P2G window: 4 comps x 16^3
 constexpr int EXT_FLOATS = 192 * 64;   // G2P block: 3 comps x 16^3
 constexpr int THREADS = 256;
+constexpr int TABLE_THREADS = 1024;  // the group-table block
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Axis {
   int slot[3];     // folded window slot of stencil node k
@@ -89,66 +108,187 @@ __device__ __forceinline__ void axis_stencil(float x, int torg, float inv_dx,
   }
 }
 
-__device__ __forceinline__ int win_index(int i, int j, int k, int comp) {
-  int oct = (i >> 3) * 4 + (j >> 3) * 2 + (k >> 3);
-  return ((oct * 32 + comp * 8 + (i & 7)) << 6) + ((j & 7) << 3) + (k & 7);
-}
+// The P2G window index of component 0 at window slot (i, j, k), row
+// oct*32 + comp*8 + (i&7) and column (j&7)*8 + (k&7) with oct = (i>>3)*4 +
+// (j>>3)*2 + (k>>3), is a sum of one term per axis; component comp adds
+// comp * 8 * 64.
+__device__ __forceinline__ int win_x(int i) { return (i >> 3) * 8192 + (i & 7) * 64; }
+__device__ __forceinline__ int win_y(int j) { return (j >> 3) * 4096 + (j & 7) * 8; }
+__device__ __forceinline__ int win_z(int k) { return (k >> 3) * 2048 + (k & 7); }
 
 __device__ __forceinline__ int ext_index(int i, int j, int k, int comp) {
   int oct = (i >> 3) * 4 + (j >> 3) * 2 + (k >> 3);
   return ((oct * 24 + comp * 8 + (i & 7)) << 6) + ((j & 7) << 3) + (k & 7);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---- K1 (1): the chunk-group table ------------------------------------
+
+__device__ int lower_bound(const int* __restrict__ a, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Exclusive prefix sum of flag(c), c in [0, n), into out[0..n] (out[n] =
+// total), by the one TABLE_THREADS-thread block; out is visible to the
+// whole block on return.
+template <class Flag>
+__device__ void block_scan(int n, Flag flag, int* __restrict__ out,
+                           int* s_warp) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < n; base += TABLE_THREADS) {
+    const int c = base + threadIdx.x;
+    const int v = c < n ? flag(c) : 0;
+    int x = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) s_warp[wid] = x;
+    __syncthreads();
+    if (wid == 0) {
+      int w = s_warp[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, w, off);
+        if (lane >= off) w += y;
+      }
+      s_warp[lane] = w;
+    }
+    __syncthreads();
+    if (c < n) out[c] = carry + (wid ? s_warp[wid - 1] : 0) + x - v;
+    carry += s_warp[31];
+    __syncthreads();  // s_warp is rewritten by the next piece
+  }
+  if (threadIdx.x == 0) out[n] = carry;
+  __syncthreads();
+}
+
+// Groups of G consecutive live chunks of one tile, in chunk order.  Writes
+// group_chunk[k] (the first chunk of group k) and tile_group[0..ntiles]
+// (tile t owns groups [tile_group[t], tile_group[t+1]); tile_group[ntiles]
+// is the group count).  live_before / start_before are (nchunk+1,) scratch.
+__global__ void __launch_bounds__(TABLE_THREADS)
+p2g_groups_kernel(const int* __restrict__ chunk_tile,
+                  const int* __restrict__ chunk_live, int nchunk, int ntiles,
+                  int G, int* __restrict__ group_chunk,
+                  int* __restrict__ tile_group, int* live_before,
+                  int* start_before) {
+  __shared__ int s_warp[32];
+  block_scan(nchunk, [&](int c) { return chunk_live[c] == 1 ? 1 : 0; },
+             live_before, s_warp);
+  // a live chunk starts a group when its rank among its tile's live chunks
+  // is a multiple of G
+  block_scan(nchunk, [&](int c) {
+    if (chunk_live[c] != 1) return 0;
+    const int first = lower_bound(chunk_tile, nchunk, chunk_tile[c]);
+    return (live_before[c] - live_before[first]) % G == 0 ? 1 : 0;
+  }, start_before, s_warp);
+  for (int c = threadIdx.x; c < nchunk; c += TABLE_THREADS)
+    if (start_before[c + 1] != start_before[c])
+      group_chunk[start_before[c]] = c;
+  for (int t = threadIdx.x; t <= ntiles; t += TABLE_THREADS)
+    tile_group[t] = start_before[lower_bound(chunk_tile, nchunk, t)];
+}
+
+// ---- K1 (2): one block per chunk group ----------------------------------
+
+template <bool COMBINE>
+__global__ void __launch_bounds__(THREADS, 3)
 p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
            const int* __restrict__ chunk_tile,
-           const int* __restrict__ chunk_live, float* __restrict__ windows,
-           int NP, int nchunk, int nt, int S, int g, float dx, float inv_dx,
-           float dt) {
+           const int* __restrict__ chunk_live,
+           const int* __restrict__ group_chunk,
+           const int* __restrict__ tile_group, float* __restrict__ partials,
+           float* __restrict__ windows, int NP, int nchunk, int ntiles,
+           int nt, int S, int G, int g, float dx, float inv_dx, float dt) {
   extern __shared__ float win[];
-  const int t = blockIdx.x;
+  const int grp = blockIdx.x;
+  if (grp >= tile_group[ntiles]) return;  // past the real group count
+  const int c0 = group_chunk[grp];
+  const int t = chunk_tile[c0];
+  // a tile of one group writes its output window itself
+  float* dst = tile_group[t + 1] - tile_group[t] == 1
+                   ? windows + (size_t)t * WIN_FLOATS
+                   : partials + (size_t)grp * WIN_FLOATS;
   for (int i = threadIdx.x; i < WIN_FLOATS; i += THREADS) win[i] = 0.0f;
-
-  // first chunk of tile t (chunk_tile is non-decreasing)
-  int lo = 0, hi = nchunk;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (chunk_tile[mid] < t) lo = mid + 1; else hi = mid;
-  }
   const int tx = (t / (nt * nt)) * T_TILE;
   const int ty = ((t / nt) % nt) * T_TILE;
   const int tz = (t % nt) * T_TILE;
+  const int lane = threadIdx.x & 31;
   __syncthreads();
 
-  for (int c = lo; c < nchunk && chunk_tile[c] == t; ++c) {
+  int taken = 0;  // the loop bounds are uniform over the block
+  for (int c = c0; c < nchunk && taken < G && chunk_tile[c] == t; ++c) {
     if (chunk_live[c] != 1) continue;
-    for (int s = threadIdx.x; s < S; s += THREADS) {
-      const int p = c * S + s;
-      const float m = q[RMASS * NP + p];
-      const float vol = q[RVOL * NP + p];
-      if (m == 0.0f && vol == 0.0f) continue;  // padding slot: adds zeros
+    ++taken;
+    for (int s0 = 0; s0 < S; s0 += THREADS) {
+      const int s = s0 + threadIdx.x;
+      const bool in = s < S;
+      const int p = c * S + (in ? s : 0);
+      const float m = in ? q[RMASS * NP + p] : 0.0f;
+      const float vol = in ? q[RVOL * NP + p] : 0.0f;
+      const bool real = !(m == 0.0f && vol == 0.0f);  // padding adds zeros
       Axis ax, ay, az;
       axis_stencil(q[(RX + 0) * NP + p], tx, inv_dx, g, ax);
       axis_stencil(q[(RX + 1) * NP + p], ty, inv_dx, g, ay);
       axis_stencil(q[(RX + 2) * NP + p], tz, inv_dx, g, az);
       const float mdx = m * dx;
       const float ndtv = -dt * vol;
-      float cv[3], cc[3][3], cs[3][3];
+      // per-axis factors of the three momentum terms: xr (the x-side factor
+      // of the wy*wz group), yr of wx*wz, zr of wx*wy; per component r
+      float xr[3][3], yr[3][3], zr[3][3];
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
-        cv[r] = m * q[(RV + r) * NP + p];
+        const float cv = m * q[(RV + r) * NP + p];
+        float cc[3], cs[3];
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          cc[r][k] = mdx * q[(RC + 3 * r + k) * NP + p];
-          cs[r][k] = ndtv * sig[(3 * r + k) * NP + p];
+          cc[k] = mdx * q[(RC + 3 * r + k) * NP + p];
+          cs[k] = ndtv * sig[(3 * r + k) * NP + p];
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          xr[r][k] = cv * ax.w[k] + cc[0] * ax.u[k] + cs[0] * ax.dw[k];
+          yr[r][k] = cc[1] * ay.u[k] + cs[1] * ay.dw[k];
+          zr[r][k] = cc[2] * az.u[k] + cs[2] * az.dw[k];
         }
       }
+      int ix[3], iy[3], iz[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        ix[k] = win_x(ax.slot[k]);
+        iy[k] = win_y(ay.slot[k]);
+        iz[k] = win_z(az.slot[k]);
+      }
+      // lanes whose particles share node (0,0,0) share all 27 nodes: with
+      // COMBINE the lowest of them adds the group's sum
+      bool lead = real && in;
+      unsigned peers = 0u;
+      int rounds = 0;
+      if (COMBINE) {
+        const int key = lead ? ix[0] + iy[0] + iz[0] : -1 - lane;
+        const unsigned same = __match_any_sync(FULL, key);
+        lead = lead && __ffs(same) - 1 == lane;
+        peers = lead ? same & ~(1u << lane) : 0u;
+        rounds = __reduce_max_sync(FULL, __popc(peers));
+      }
+      auto add = [&](int idx, float v) {
+        unsigned rem = peers;
+        for (int k = 0; k < rounds; ++k) {
+          const float x = __shfl_sync(FULL, v, rem ? __ffs(rem) - 1 : lane);
+          if (rem) v += x;
+          rem &= rem - 1;
+        }
+        if (lead) atomicAdd(&win[idx], v);
+      };
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        float xr[3];  // x-side factor of the wy*wz group, per component
-#pragma unroll
-        for (int r = 0; r < 3; ++r)
-          xr[r] = cv[r] * ax.w[a] + cc[r][0] * ax.u[a] + cs[r][0] * ax.dw[a];
 #pragma unroll
         for (int b = 0; b < 3; ++b) {
 #pragma unroll
@@ -156,24 +296,45 @@ p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
             const float wyz = ay.w[b] * az.w[cz];
             const float wxz = ax.w[a] * az.w[cz];
             const float wxy = ax.w[a] * ay.w[b];
-            const int base = win_index(ax.slot[a], ay.slot[b], az.slot[cz], 0);
-            atomicAdd(&win[base], m * (ax.w[a] * wyz));
+            const int base = ix[a] + iy[b] + iz[cz];
+            add(base, m * (ax.w[a] * wyz));
 #pragma unroll
-            for (int r = 0; r < 3; ++r) {
-              float mom = wyz * xr[r]
-                  + wxz * (cc[r][1] * ay.u[b] + cs[r][1] * ay.dw[b])
-                  + wxy * (cc[r][2] * az.u[cz] + cs[r][2] * az.dw[cz]);
-              atomicAdd(&win[base + (r + 1) * 8 * 64], mom);
-            }
+            for (int r = 0; r < 3; ++r)
+              add(base + (r + 1) * 8 * 64,
+                  wyz * xr[r][a] + wxz * yr[r][b] + wxy * zr[r][cz]);
           }
         }
       }
     }
   }
   __syncthreads();
-  float4* out = reinterpret_cast<float4*>(windows + (size_t)t * WIN_FLOATS);
+  float4* out = reinterpret_cast<float4*>(dst);
   const float4* src = reinterpret_cast<const float4*>(win);
   for (int i = threadIdx.x; i < WIN_FLOATS / 4; i += THREADS) out[i] = src[i];
+}
+
+// ---- K1 (3): each tile's partials summed in group order ------------------
+
+__global__ void __launch_bounds__(THREADS)
+p2g_reduce_kernel(const float* __restrict__ partials,
+                  const int* __restrict__ tile_group,
+                  float* __restrict__ windows) {
+  const int t = blockIdx.x;
+  const int g0 = tile_group[t], n = tile_group[t + 1] - g0;
+  if (n == 1) return;  // written by its group's block
+  constexpr int W4 = WIN_FLOATS / 4;
+  const int i = blockIdx.y * THREADS + threadIdx.x;
+  const float4* src = reinterpret_cast<const float4*>(partials)
+                      + (size_t)g0 * W4 + i;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < n; ++k) {
+    const float4 v = src[(size_t)k * W4];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  reinterpret_cast<float4*>(windows)[(size_t)t * W4 + i] = acc;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -282,17 +443,42 @@ const char* gsmpm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// partials: (max_groups, 256, 64) float scratch; work: int32 scratch of
+// max_groups + (ntiles + 1) + 2 (nchunk + 1) entries.  max_groups bounds
+// the group count from above (cuda_mpm.p2g_max_groups).
 int gsmpm_p2g_tiled(const float* q, const float* sig, const int* chunk_tile,
-                    const int* chunk_live, float* windows, int NP, int nchunk,
-                    int ntiles, int nt, int S, int g, float dx, float inv_dx,
-                    float dt, void* stream) {
-  const int smem = WIN_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      p2g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                    const int* chunk_live, float* windows, float* partials,
+                    int* work, int max_groups, int G, int combine, int NP,
+                    int nchunk, int ntiles, int nt, int S, int g, float dx,
+                    float inv_dx, float dt, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* group_chunk = work;
+  int* tile_group = group_chunk + max_groups;
+  int* live_before = tile_group + ntiles + 1;
+  int* start_before = live_before + nchunk + 1;
+  p2g_groups_kernel<<<1, TABLE_THREADS, 0, st>>>(
+      chunk_tile, chunk_live, nchunk, ntiles, G, group_chunk, tile_group,
+      live_before, start_before);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  p2g_kernel<<<ntiles, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, sig, chunk_tile, chunk_live, windows, NP, nchunk, nt, S, g, dx,
-      inv_dx, dt);
+
+  auto kernel = combine ? p2g_kernel<true> : p2g_kernel<false>;
+  const int smem = WIN_FLOATS * sizeof(float);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<max_groups, THREADS, smem, st>>>(
+      q, sig, chunk_tile, chunk_live, group_chunk, tile_group, partials,
+      windows, NP, nchunk, ntiles, nt, S, G, g, dx, inv_dx, dt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  p2g_reduce_kernel<<<dim3(ntiles, WIN_FLOATS / 4 / THREADS), THREADS, 0,
+                      st>>>(partials, tile_group, windows);
   return cudaGetLastError();
 }
 

@@ -20,6 +20,9 @@
 // pixel evaluates the slots of its block's segment up to its last
 // contributor once it is done, else to the segment's end; in K7 each pixel
 // evaluates the slots from its last contributor back to the segment start.
+// K3's pixels skip the slots whose splat's box misses their warp's 16 x 8
+// group (below), a test per (slot, group) and not per pair, so its bound
+// counts the pairs of that walk that the cull keeps.
 // Each (slot, pixel) pair takes at least 20 fp32 operations forward (6 mul
 // + 6 add for the power term, exp, clamp, two compares, the transmittance
 // and three color updates).  Backward, every pair evaluated takes the gate
@@ -34,16 +37,30 @@
 // Design.
 //   K3: the TPU kernel walks a chunk-major grid from scalar-prefetched step
 //       tables and evaluates a chunk of slots against all 4096 block pixels
-//       as an MXU matmul with a log-depth cumulative product.  Here grid
-//       (nf, (B/16)^2) gives each 16x16-pixel sub-tile of a display block
-//       one 256-thread block, one pixel per thread; the block reads bounds
-//       itself, stages the segment in shared memory 256 slots (9 planes) at
-//       a time, and every thread composites its pixel sequentially front to
-//       back, which is exactly the stop rule of the TPU kernel (a pixel is
-//       done at the first slot whose T_after would fall below t_min;
-//       T_after decreases monotonically, so the chunked and the sequential
-//       forms agree up to rounding of the transmittance product).  The
-//       block leaves its segment as soon as __syncthreads_and(done) holds.
+//       as an MXU matmul with a log-depth cumulative product.  Here one
+//       1024-thread block takes a whole 64 x 64 display block (larger
+//       blocks take several CUDA blocks), one 16 x 8 pixel group per warp,
+//       4 pixels per lane.  The block reads bounds itself and walks its
+//       segment 256 slots at a time.  Each staged slot is read once per
+//       display block (the first design staged it once per 16 x 16
+//       sub-tile, 16 times): one thread builds its conic rows (K7's
+//       expressions) and the box outside which its splat cannot pass the
+//       gate (power = log opacity - q/2 needs q <= 2 (log opacity -
+//       ln alpha_min): the ellipse's half-extents sqrt(2k c / det),
+//       sqrt(2k a / det), widened by one pixel and 0.1% against the
+//       rounding of the F form; a slot with k < 0 is culled everywhere, a
+//       conic that is not positive definite nowhere).  Each warp then
+//       compacts, by ballot, the staged slots whose box meets its
+//       rectangle into a list in slot order, and its lanes composite their
+//       pixels sequentially front to back over that list only.  A culled
+//       (slot, pixel) pair is one the gate would have rejected, so each
+//       pixel still meets its contributors in the same order with the same
+//       expressions: the rgb, T, done and last bits of the unculled walk.
+//       This is the stop rule of the TPU kernel (a pixel is done at the
+//       first slot whose T_after would fall below t_min; T_after decreases
+//       monotonically, so the chunked and the sequential forms agree up to
+//       rounding of the transmittance product).  The block leaves its
+//       segment as soon as every pixel of it is done.
 //   K7: one 1024-thread block per display block, up to 4 pixels per thread
 //       (K5's design in csrc/tile_blend.cu, over a segment of raw planes).
 //       The block finds its largest last contributor by one shared atomic
@@ -74,8 +91,11 @@
 
 namespace {
 
-constexpr int THREADS = 256;       // K3: 16 x 16 pixels
-constexpr int CH = 256;            // slots staged per step
+constexpr int FWD_WARPS = 32;      // K3: one 16 x 8 pixel group per warp
+constexpr int FWD_THREADS = FWD_WARPS * 32;
+constexpr int FWD_PPT = 4;         // pixels per K3 lane
+constexpr int CH = 256;            // slots staged per step (K3's lists
+                                   // hold slot indices in a byte)
 constexpr int BWD_THREADS = 1024;  // K7
 constexpr int MAX_PPT = 4;         // pixels per K7 thread (B <= 64)
 constexpr unsigned FULL = 0xffffffffu;
@@ -107,64 +127,137 @@ __device__ __forceinline__ float power_of(float F0, float F1, float F2,
   return power + logo;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_THREADS)
 stream_fwd_kernel(const float* __restrict__ splanes, int L,
                   const int* __restrict__ bounds, float* __restrict__ out,
                   int nbx, int B, float t_min, float alpha_min) {
-  __shared__ float sp[9][CH];
+  __shared__ float sF[10][CH];             // conic rows, log opacity, rgb
+  __shared__ float box[4][CH];             // x lo, x hi, y lo, y hi
+  __shared__ unsigned char list[FWD_WARPS][CH];
   const int b = blockIdx.x;
-  const int subs = B / 16;
-  const int sx = blockIdx.y % subs, sy = blockIdx.y / subs;
-  const int lx = threadIdx.x & 15, ly = threadIdx.x >> 4;
-  const int pxi = sx * 16 + lx, pyi = sy * 16 + ly;
-  const int pix = pyi * B + pxi;
-  const float px = (float)pxi, py = (float)pyi;
-  const float pxx = px * px, pyy = py * py, pxy = px * py;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  // this warp's 16 x 8 pixel group; a lane owns column lx of rows ly,
+  // ly + 2, ly + 4, ly + 6
+  const int rect = blockIdx.y * FWD_WARPS + wid;
+  const int rects_x = B / 16;
+  const bool has_rect = rect < rects_x * (B / 8);
+  const int rx0 = (rect % rects_x) * 16, ry0 = (rect / rects_x) * 8;
+  const float rxlo = (float)rx0, rxhi = (float)(rx0 + 15);
+  const float rylo = (float)ry0, ryhi = (float)(ry0 + 7);
+  const float px = (float)(rx0 + (lane & 15));
+  const float pxx = px * px;
+  float py[FWD_PPT], T[FWD_PPT], cr[FWD_PPT], cg[FWD_PPT], cb[FWD_PPT];
+  float last[FWD_PPT];
+  bool done[FWD_PPT];
+#pragma unroll
+  for (int k = 0; k < FWD_PPT; ++k) {
+    py[k] = (float)(ry0 + (lane >> 4) + 2 * k);
+    T[k] = 1.0f;
+    cr[k] = cg[k] = cb[k] = last[k] = 0.0f;
+    done[k] = !has_rect;
+  }
   const float x0 = (float)((b % nbx) * B), y0 = (float)((b / nbx) * B);
   const int lo = bounds[b], hi = bounds[b + 1];
+  // the gate needs exp(power) >= alpha_min with power <= log opacity; the
+  // 1e-3 slack in log space covers expf's rounding
+  const float log_amin = logf(alpha_min) - 1e-3f;
 
-  float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, last = 0.0f;
-  bool done = false;
   for (int base = lo; base < hi; base += CH) {
-    if (__syncthreads_and(done)) break;
+    bool mine = true;
+#pragma unroll
+    for (int k = 0; k < FWD_PPT; ++k) mine = mine && done[k];
+    if (__syncthreads_and(mine)) break;
     const int n = min(CH, hi - base);
-    for (int i = threadIdx.x; i < 9 * CH; i += THREADS) {
-      const int row = i / CH, j = i % CH;
-      sp[row][j] = j < n ? splanes[(size_t)row * L + base + j] : 0.0f;
+    // stage each slot once: its conic rows (K7's expressions) and the box
+    // outside which its splat cannot pass the gate
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const size_t i = (size_t)base + j;
+      const float gx = splanes[i] - x0, gy = splanes[L + i] - y0;
+      const float a = splanes[2 * (size_t)L + i];
+      const float bb = splanes[3 * (size_t)L + i];
+      const float c = splanes[4 * (size_t)L + i];
+      const float logo = splanes[5 * (size_t)L + i];
+      float F[6];
+      conic_rows(gx, gy, a, bb, c, F);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) sF[r][j] = F[r];
+      sF[6][j] = logo;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) sF[7 + r][j] = splanes[(6 + r) * (size_t)L + i];
+      // power = log opacity - q / 2, q = a dx^2 + 2 b dx dy + c dy^2, so
+      // the gate needs q <= 2 k with k = log opacity - ln(alpha_min): none
+      // when k < 0, else |dx| <= sqrt(2 k c / det), |dy| <= sqrt(2 k a /
+      // det), widened by one pixel against the rounding of the F form.  A
+      // conic that is not positive definite is never culled by its box.
+      const float k = logo - log_amin;
+      const float det = a * c - bb * bb;
+      const float inf = __int_as_float(0x7f800000);
+      float xl = -inf, xh = inf, yl = -inf, yh = inf;
+      if (!(k >= 0.0f)) {
+        xl = inf;  // culled everywhere (NaN planes too)
+      } else if (a > 0.0f && c > 0.0f && det > 0.0f) {
+        const float ex = sqrtf(2.0f * k * c / det) * 1.001f + 1.0f;
+        const float ey = sqrtf(2.0f * k * a / det) * 1.001f + 1.0f;
+        xl = gx - ex; xh = gx + ex; yl = gy - ey; yh = gy + ey;
+      }
+      box[0][j] = xl; box[1][j] = xh; box[2][j] = yl; box[3][j] = yh;
     }
     __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        float F[6];
-        conic_rows(sp[0][j] - x0, sp[1][j] - y0, sp[2][j], sp[3][j],
-                   sp[4][j], F);
-        const float logo = sp[5][j];
-        const float power = power_of(F[0], F[1], F[2], F[3], F[4], F[5],
-                                     logo, pxx, px, pyy, py, pxy);
-        float alpha = fminf(0.99f, expf(power));
+    // this warp's list: the staged slots whose box meets its rectangle, in
+    // slot order
+    int count = 0;
+    if (!__all_sync(FULL, mine)) {
+      for (int j0 = 0; j0 < n; j0 += 32) {
+        const int j = j0 + lane;
+        const bool hit = j < n && box[0][j] <= rxhi && box[1][j] >= rxlo
+                         && box[2][j] <= ryhi && box[3][j] >= rylo;
+        const unsigned m = __ballot_sync(FULL, hit);
+        if (hit) list[wid][count + __popc(m & ((1u << lane) - 1u))] =
+            (unsigned char)j;
+        count += __popc(m);
+      }
+      __syncwarp();
+    }
+    for (int e = 0; e < count; ++e) {
+      const int j = list[wid][e];
+      const float F0 = sF[0][j], F1 = sF[1][j], F2 = sF[2][j];
+      const float F3 = sF[3][j], F4 = sF[4][j], F5 = sF[5][j];
+      const float logo = sF[6][j];
+#pragma unroll
+      for (int k = 0; k < FWD_PPT; ++k) {
+        if (done[k]) continue;
+        const float power = power_of(F0, F1, F2, F3, F4, F5, logo, pxx, px,
+                                     py[k] * py[k], py[k], px * py[k]);
+        const float alpha = fminf(0.99f, expf(power));
         if (!(power <= logo && alpha >= alpha_min)) continue;  // alpha = 0
-        const float T_after = T * (1.0f - alpha);
-        if (T_after < t_min) { done = true; break; }
-        const float w = T * alpha;
-        cr += sp[6][j] * w;
-        cg += sp[7][j] * w;
-        cb += sp[8][j] * w;
-        T = T_after;
-        last = (float)(base + j + 1);
+        const float T_after = T[k] * (1.0f - alpha);
+        if (T_after < t_min) { done[k] = true; continue; }
+        const float w = T[k] * alpha;
+        cr[k] += sF[7][j] * w;
+        cg[k] += sF[8][j] * w;
+        cb[k] += sF[9][j] * w;
+        T[k] = T_after;
+        last[k] = (float)(base + j + 1);
       }
     }
-    __syncthreads();  // the next step overwrites sp
+    __syncthreads();  // the next step overwrites sF, box and the lists
   }
+  if (!has_rect) return;
   const size_t P = (size_t)B * B;
-  float* o = out + (size_t)b * 8 * P + pix;
-  o[0 * P] = cr;
-  o[1 * P] = cg;
-  o[2 * P] = cb;
-  o[3 * P] = T;
-  o[4 * P] = done ? 1.0f : 0.0f;
-  o[5 * P] = last;
-  o[6 * P] = 0.0f;
-  o[7 * P] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < FWD_PPT; ++k) {
+    const int pix = (ry0 + (lane >> 4) + 2 * k) * B + rx0 + (lane & 15);
+    float* o = out + (size_t)b * 8 * P + pix;
+    o[0 * P] = cr[k];
+    o[1 * P] = cg[k];
+    o[2 * P] = cb[k];
+    o[3 * P] = T[k];
+    o[4 * P] = done[k] ? 1.0f : 0.0f;
+    o[5 * P] = last[k];
+    o[6 * P] = 0.0f;
+    o[7 * P] = 0.0f;
+  }
 }
 
 __global__ void __launch_bounds__(BWD_THREADS)
@@ -312,8 +405,12 @@ int gsmpm_stream_fwd(const float* splanes, int L, const int* bounds,
                      float* out, int nf, int nbx, int B, float t_min,
                      float alpha_min, void* stream) {
   if (nf <= 0) return cudaSuccess;
-  const dim3 grid(nf, (B / 16) * (B / 16));
-  stream_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  // one warp per 16 x 8 pixel group; a display block's groups share one
+  // CUDA block up to B = 64, larger blocks take several
+  const int rects = (B / 16) * (B / 8);
+  const dim3 grid(nf, (rects + FWD_WARPS - 1) / FWD_WARPS);
+  const int threads = 32 * min(rects, FWD_WARPS);
+  stream_fwd_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       splanes, L, bounds, out, nbx, B, t_min, alpha_min);
   return cudaGetLastError();
 }

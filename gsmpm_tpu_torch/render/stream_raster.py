@@ -238,6 +238,34 @@ def _chunk_power(p: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     return gx, gy, power, expp, alpha, gate
 
 
+def cull_boxes(gx: torch.Tensor, gy: torch.Tensor, p: torch.Tensor,
+               alpha_min: float):
+    """Kernel K3's cull, in plain torch: for splats at block offsets gx, gy
+    with raw planes p (9, ...), the box (x lo, x hi, y lo, y hi) in
+    block-local pixel coordinates outside which the splat cannot pass the
+    blend gate (power <= log opacity, alpha >= alpha_min).  With power =
+    log opacity - q / 2 the gate needs q <= 2 k, k = log opacity -
+    ln(alpha_min) (less 1e-3 against expf's rounding): the ellipse's
+    half-extents sqrt(2 k c / det) and sqrt(2 k a / det), widened by 0.1%
+    and one pixel against the rounding of the kernels' power term.  k < 0
+    culls everywhere (an empty box), a conic that is not positive definite
+    nowhere (an infinite one).  The expressions are the kernel's, in
+    float32; the tests hold the gate's passing pairs inside the box."""
+    a, b, c, logo = p[2], p[3], p[4], p[5]
+    log_amin = torch.log(torch.tensor(alpha_min, dtype=torch.float32)) - 1e-3
+    k = logo - log_amin.to(logo.device)
+    det = a * c - b * b
+    ex = torch.sqrt(2.0 * k * c / det) * 1.001 + 1.0
+    ey = torch.sqrt(2.0 * k * a / det) * 1.001 + 1.0
+    finite = (a > 0) & (c > 0) & (det > 0)
+    inf = torch.full_like(gx, float("inf"))
+    xl = torch.where(finite, gx - ex, -inf)
+    xh = torch.where(finite, gx + ex, inf)
+    yl = torch.where(finite, gy - ey, -inf)
+    yh = torch.where(finite, gy + ey, inf)
+    return torch.where(k >= 0, xl, inf), xh, yl, yh
+
+
 def stream_blend_ref(splanes: torch.Tensor, bounds: torch.Tensor, nbx: int,
                      B: int, t_min: float, alpha_min: float) -> torch.Tensor:
     """Plain twin of kernel K3: blend state (nf, 8, B*B).

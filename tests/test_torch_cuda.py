@@ -98,6 +98,33 @@ def test_p2g_kernel_matches_twin(cuda, tmp_path):
     assert float((err / scale).max()) <= 1e-5
 
 
+@pytest.mark.parametrize("combine", [False, True])
+def test_p2g_kernel_dense_groups(cuda, combine):
+    """K1 on tests/test_torch_cull_groups.py's dense case (~740 particles
+    a cell in tile 0, a tile of one chunk, a dead chunk inside a tile's
+    range, dead slack chunks, five empty tiles) for chunk groups of 1, 2
+    and 3 chunks and one group per tile: each within 1e-5 of each
+    component's largest entry of the twin (float atomics add in a
+    run-dependent order), the empty tiles' windows exactly zero."""
+    from test_torch_cull_groups import dense_tiled_state
+
+    ts, sig, grid, tc, dt = dense_tiled_state(cuda)
+    want = tiles.p2g_tiled_ref(ts, sig, grid, tc, dt)
+    scale = _components(want).abs().amax(dim=1)
+    assert bool((scale > 0).all())
+    empty = torch.bincount(ts.chunk_tile[ts.chunk_live == 1].long(),
+                           minlength=tc.ntiles) == 0
+    assert int(empty.sum()) == 5
+    for group in (1, 2, 3, tc.nchunk):
+        before = cuda_mpm.p2g_tiled.launches
+        got = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt, group=group,
+                                 combine=combine)
+        assert cuda_mpm.p2g_tiled.launches == before + 1
+        err = _components(got - want).abs().amax(dim=1)
+        assert float((err / scale).max()) <= 1e-5, (group, err / scale)
+        assert float(got[empty].abs().max()) == 0.0
+
+
 def test_g2p_kernel_matches_twin(cuda, tmp_path):
     cfg, su, ts, sig = _first_substep_inputs(tmp_path)
     dt = cfg.mpm.substep_dt
@@ -158,6 +185,41 @@ def test_stream_kernel_matches_twin(cuda, block):
         with pytest.raises(ValueError):
             sr.stream_blend_bwd(args[0], args[1], got, torch.zeros_like(got),
                                 args[2], block, args[5])
+
+
+@pytest.mark.parametrize("block", [32, 64, 80])
+def test_stream_kernels_on_crafted_splats(cuda, block):
+    """K3 on tests/test_torch_cull_groups.py's crafted stream (large
+    anisotropic splats straddling the 16 x 8 pixel groups and the block
+    edges, splats below alpha_min, conics that are not positive definite)
+    against its twin, and K7 on the new K3's output against its own."""
+    from test_torch_cull_groups import crafted_stream
+
+    splanes, bounds, nbx, B = crafted_stream(B=block, per_block=1500,
+                                             device=cuda)
+    cfg = tr.RasterConfig(block=B)
+    args = (splanes, bounds, nbx, B, cfg.t_min, cfg.alpha_min)
+    out = sr.stream_blend(*args)
+    want = sr.stream_blend_ref(*args)
+    # sequential vs chunked transmittance products round differently
+    assert float((out[:, 0:4] - want[:, 0:4]).abs().max()) <= 2e-3
+    assert float((out[:, 4] != want[:, 4]).float().mean()) <= 1e-3
+    assert float(out[:, 4].mean()) > 0.05  # some pixels saturate
+    if B > 64:
+        return  # K7 takes blocks up to 64
+    rng = np.random.default_rng(5)
+    g = torch.zeros_like(out)
+    g[:, 0:4] = torch.from_numpy(rng.normal(size=(out.shape[0], 4,
+                                                  out.shape[2]))
+                                 .astype(np.float32)).to(cuda)
+    got = sr.stream_blend_bwd(splanes, bounds, out, g, nbx, B, cfg.alpha_min)
+    dsp = sr.stream_blend_bwd_ref(splanes, bounds, out, g, nbx, B,
+                                  cfg.alpha_min)
+    for rows in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)):
+        scale = float(dsp[rows].abs().max())
+        assert scale > 0
+        err = float((got[rows] - dsp[rows]).abs().max())
+        assert err <= 1e-4 * scale, (rows, err, scale)
 
 
 # the clamp and gate edges of K7 only show in large streams: a small and a
