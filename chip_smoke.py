@@ -11,9 +11,9 @@
    n_grid 50, 800x800; the transfers on a state given seeded motion, the
    blend on frame 0), runs the port on the GPU and on the CPU at a small
    size, drives ``apps.simulate.simulate`` for 4 frames x 100 substeps and
-   profiles 2 more frames.  K1 is timed for every grid variant
-   (K1_VARIANTS: chunks per block, warp combine), each held against the
-   twin; K3's cull share of (slot, pixel group) pairs is printed.
+   profiles 2 more frames.  K1 is timed for every grid in K1_VARIANTS
+   (live chunks per block), each held against the twin; K3's cull share
+   of (slot, pixel group) pairs is printed.
 4. Identification path (slice 2): ``apps.identify.identify`` at the bench
    configuration (245,760-gaussian blob, 512x512, 30 substeps per frame,
    E 1e4 -> 3e3; frame-0 appearance step, ground truth, 2 fit frames),
@@ -83,7 +83,7 @@ PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # a kernel row's numbers beyond the required keys, copied into the kernels
 # line: K1 at the fit's shapes and its grid, K3's cull, K4/K5 per tier
-ROW_EXTRAS = ("per_tier", "group", "combine", "blocks", "fit_ms",
+ROW_EXTRAS = ("per_tier", "group", "blocks", "fit_ms",
               "fit_plain_ms", "fit_bound_ms", "fit_bound_by", "fit_blocks",
               "culled_share", "variants", "fit_variants")
 
@@ -151,10 +151,9 @@ def window_components(win):
     return win.reshape(-1, 8, 4, 8, 64).transpose(0, 2).reshape(4, -1)
 
 
-# K1's variants timed at both shapes: chunks per block (G; "tile" is one
-# block per tile, the grid of the first design) and the warp combine
-K1_VARIANTS = [(1, False), (1, True), (2, False), (2, True), (4, False),
-               (4, True), ("tile", False), ("tile", True)]
+# K1's grids timed at both shapes: live chunks per block (G; "tile" is one
+# block per tile, the grid of the first design)
+K1_VARIANTS = (1, 2, 4, "tile")
 
 
 def p2g_phase(ts, sig, grid, tc, dt, label):
@@ -199,16 +198,15 @@ def p2g_phase(ts, sig, grid, tc, dt, label):
     per_tile = torch.bincount(ts.chunk_tile[live].to(torch.int64),
                               minlength=tc.ntiles)
     variants = {}
-    for G, comb in K1_VARIANTS:
+    for G in K1_VARIANTS:
         g = tc.nchunk if G == "tile" else G
-        kw = dict(group=g, combine=comb)
-        w = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt, **kw)
+        w = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt, group=g)
         rel = float((window_components(w - win_r).abs().amax(dim=1)
                      / comp_scale).max())
-        check(rel <= 1e-5, f"K1 p2g ({label}) G {G} combine {comb}: {rel}")
-        variants[f"G={G}" + (" combine" if comb else "")] = dict(
+        check(rel <= 1e-5, f"K1 p2g ({label}) G {G}: relative err {rel}")
+        variants[f"G={G}"] = dict(
             ms=cuda_ms(lambda: cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt,
-                                                  **kw), 10),
+                                                  group=g), 10),
             blocks=int(((per_tile + g - 1) // g).sum()),
             launched=cuda_mpm.p2g_max_groups(tc, g), rel_err=rel)
     ms1 = cuda_ms(lambda: cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt), 20)
@@ -221,9 +219,8 @@ def p2g_phase(ts, sig, grid, tc, dt, label):
     G0 = cuda_mpm.P2G_GROUP
     print(f"K1 p2g ({label}): {n_real} particles in {int(live.sum())} live "
           f"chunks of {int((per_tile > 0).sum())} tiles (densest "
-          f"{int(per_tile.max())} chunks); wrapper G {G0} combine "
-          f"{cuda_mpm.P2G_COMBINE}: {variants_key(G0, cuda_mpm.P2G_COMBINE)}"
-          f" {ms1:.4f} ms (plain {pms1:.3f}, bound {b1[0]:.4f} {b1[1]}); "
+          f"{int(per_tile.max())} chunks); wrapper G {G0}: {ms1:.4f} ms "
+          f"(plain {pms1:.3f}, bound {b1[0]:.4f} {b1[1]}); "
           "variants " + ", ".join(
               f"{k}: {v['ms']:.4f} ms / {v['blocks']} blocks ({v['launched']}"
               f" launched)" for k, v in variants.items()), flush=True)
@@ -234,12 +231,7 @@ def p2g_phase(ts, sig, grid, tc, dt, label):
         max_abs_err=err1, rel_err=rel1, tol="1e-5 x max per component",
         ms=ms1, plain_ms=pms1, bound_ms=b1[0], bound_by=b1[1],
         library_ms=None, wrapper=cuda_mpm.p2g_tiled, group=G0,
-        combine=cuda_mpm.P2G_COMBINE, variants=variants,
-        blocks=variants[variants_key(G0, cuda_mpm.P2G_COMBINE)]["blocks"])
-
-
-def variants_key(G, comb):
-    return f"G={G}" + (" combine" if comb else "")
+        variants=variants, blocks=variants[f"G={G0}"]["blocks"])
 
 
 def kernel_phases(dev):
@@ -370,12 +362,13 @@ def kernel_phases(dev):
     return rows
 
 
-def k3_cull(splanes, bounds, out, nbx, B, alpha_min):
+def k3_cull(splanes, bounds, out, nbx, B, alpha_min, chunk=2048):
     """K3's walk on this data: the share of the (slot in a segment, 16 x 8
     pixel group of its block) pairs that the cull (stream_raster.
     cull_boxes) skips, the (slot, pixel) pairs of the walk (each pixel up
     to its last contributor when done, else to its segment's end) and the
-    ones among them that the cull keeps."""
+    ones among them whose pixel lies in the slot's box (the pairs K3
+    evaluates)."""
     from gsmpm_tpu_torch.render import stream_raster as sr
 
     dev = splanes.device
@@ -383,34 +376,37 @@ def k3_cull(splanes, bounds, out, nbx, B, alpha_min):
     lo = bounds[:-1].to(torch.int64)
     hi = bounds[1:].to(torch.int64)
     s0, s1 = int(bounds[0]), int(bounds[-1])
-    blk = torch.repeat_interleave(torch.arange(nf, device=dev), hi - lo)
-    p = splanes[:, s0:s1]
-    xl, xh, yl, yh = sr.cull_boxes(p[0] - ((blk % nbx) * B).float(),
-                                   p[1] - ((blk // nbx) * B).float(), p,
-                                   alpha_min)
+    last = out[:, 5].to(torch.int64)
+    end = torch.where(out[:, 4] > 0, torch.maximum(last, lo[:, None]),
+                      hi[:, None])
+    blk_all = torch.repeat_interleave(torch.arange(nf, device=dev), hi - lo)
+    px, py = sr._pixel_coords(B, dev)[:2]
     gxn = B // 16
     r = torch.arange(gxn * (B // 8), device=dev)
     rx = ((r % gxn) * 16).float()
     ry = ((r // gxn) * 8).float()
-    hit = ((xl[:, None] <= rx + 15) & (xh[:, None] >= rx)
-           & (yl[:, None] <= ry + 7) & (yh[:, None] >= ry))
-    culled = 1.0 - float(hit.sum()) / max(hit.numel(), 1)
-    cum = torch.zeros((s1 - s0 + 1, r.numel()), dtype=torch.int64,
-                      device=dev)
-    cum[1:] = torch.cumsum(hit, 0)
-    pix = torch.arange(B * B, device=dev)
-    grp = (pix // B // 8) * gxn + (pix % B) // 16
-    last = out[:, 5].to(torch.int64)
-    end = torch.where(out[:, 4] > 0, torch.maximum(last, lo[:, None]),
-                      hi[:, None])
-    kept = cum[end - s0, grp] - cum[(lo - s0)[:, None], grp]
-    return dict(culled_share=culled, pairs=float((end - lo[:, None]).sum()),
-                kept_pairs=float(kept.sum()))
+    hits = kept = 0
+    for c0 in range(s0, s1, chunk):
+        ids = torch.arange(c0, min(c0 + chunk, s1), device=dev)
+        blk = blk_all[ids - s0]
+        p = splanes[:, ids]
+        xl, xh, yl, yh = sr.cull_boxes(p[0] - ((blk % nbx) * B).float(),
+                                       p[1] - ((blk // nbx) * B).float(), p,
+                                       alpha_min)
+        hits += int(((xl[:, None] <= rx + 15) & (xh[:, None] >= rx)
+                     & (yl[:, None] <= ry + 7) & (yh[:, None] >= ry)).sum())
+        inside = ((xl[:, None] <= px) & (px <= xh[:, None])
+                  & (yl[:, None] <= py) & (py <= yh[:, None]))
+        kept += int((inside & (ids[:, None] < end[blk])).sum())
+    n = (s1 - s0) * r.numel()
+    return dict(culled_share=1.0 - hits / max(n, 1),
+                pairs=float((end - lo[:, None]).sum()),
+                kept_pairs=float(kept))
 
 
 def k3_bound(splanes, bounds, out, cull):
     """K3's bound: >= 20 fp32 operations per (slot, pixel) pair that the
-    cull keeps (6 mul + 6 add for the power term, exp, clamp, two
+    box test keeps (6 mul + 6 add for the power term, exp, clamp, two
     compares, the transmittance and three color updates); the bytes of the
     stream, the bounds and the blend state."""
     return bound_ms(splanes.numel() * 4 + bounds.numel() * 4

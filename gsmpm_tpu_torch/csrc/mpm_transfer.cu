@@ -49,9 +49,10 @@
 //           a scratch partial (ngroups x 64 KB, allocated by the wrapper);
 //       (3) per tile, the partials are summed in group order into the
 //           output window; tiles without chunks get zeros.
-//       With COMBINE, the lanes of a warp whose particles share a base
-//       cell (hence all 27 stencil nodes) sum their values by shuffles and
-//       one lane issues the atomic: the contention of dense cells.
+//       Summing the lanes of a warp that share a base cell by shuffles
+//       before the atomics (one atomic per node and component) was
+//       measured and dropped: it cost 3-21% at both shapes, the particles
+//       of a tile being in random order (PERF.md, PR 4).
 //       The cross-block sum runs in a fixed order, but the shared atomics
 //       inside a block add in a run-dependent order, so the kernel is NOT
 //       deterministic: results agree with the twin to ~1e-6 of the
@@ -198,7 +199,6 @@ p2g_groups_kernel(const int* __restrict__ chunk_tile,
 
 // ---- K1 (2): one block per chunk group ----------------------------------
 
-template <bool COMBINE>
 __global__ void __launch_bounds__(THREADS, 3)
 p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
            const int* __restrict__ chunk_tile,
@@ -220,20 +220,17 @@ p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
   const int tx = (t / (nt * nt)) * T_TILE;
   const int ty = ((t / nt) % nt) * T_TILE;
   const int tz = (t % nt) * T_TILE;
-  const int lane = threadIdx.x & 31;
   __syncthreads();
 
-  int taken = 0;  // the loop bounds are uniform over the block
+  int taken = 0;
   for (int c = c0; c < nchunk && taken < G && chunk_tile[c] == t; ++c) {
     if (chunk_live[c] != 1) continue;
     ++taken;
-    for (int s0 = 0; s0 < S; s0 += THREADS) {
-      const int s = s0 + threadIdx.x;
-      const bool in = s < S;
-      const int p = c * S + (in ? s : 0);
-      const float m = in ? q[RMASS * NP + p] : 0.0f;
-      const float vol = in ? q[RVOL * NP + p] : 0.0f;
-      const bool real = !(m == 0.0f && vol == 0.0f);  // padding adds zeros
+    for (int s = threadIdx.x; s < S; s += THREADS) {
+      const int p = c * S + s;
+      const float m = q[RMASS * NP + p];
+      const float vol = q[RVOL * NP + p];
+      if (m == 0.0f && vol == 0.0f) continue;  // padding slot: adds zeros
       Axis ax, ay, az;
       axis_stencil(q[(RX + 0) * NP + p], tx, inv_dx, g, ax);
       axis_stencil(q[(RX + 1) * NP + p], ty, inv_dx, g, ay);
@@ -266,27 +263,6 @@ p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
         iy[k] = win_y(ay.slot[k]);
         iz[k] = win_z(az.slot[k]);
       }
-      // lanes whose particles share node (0,0,0) share all 27 nodes: with
-      // COMBINE the lowest of them adds the group's sum
-      bool lead = real && in;
-      unsigned peers = 0u;
-      int rounds = 0;
-      if (COMBINE) {
-        const int key = lead ? ix[0] + iy[0] + iz[0] : -1 - lane;
-        const unsigned same = __match_any_sync(FULL, key);
-        lead = lead && __ffs(same) - 1 == lane;
-        peers = lead ? same & ~(1u << lane) : 0u;
-        rounds = __reduce_max_sync(FULL, __popc(peers));
-      }
-      auto add = [&](int idx, float v) {
-        unsigned rem = peers;
-        for (int k = 0; k < rounds; ++k) {
-          const float x = __shfl_sync(FULL, v, rem ? __ffs(rem) - 1 : lane);
-          if (rem) v += x;
-          rem &= rem - 1;
-        }
-        if (lead) atomicAdd(&win[idx], v);
-      };
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
 #pragma unroll
@@ -297,11 +273,11 @@ p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
             const float wxz = ax.w[a] * az.w[cz];
             const float wxy = ax.w[a] * ay.w[b];
             const int base = ix[a] + iy[b] + iz[cz];
-            add(base, m * (ax.w[a] * wyz));
+            atomicAdd(&win[base], m * (ax.w[a] * wyz));
 #pragma unroll
             for (int r = 0; r < 3; ++r)
-              add(base + (r + 1) * 8 * 64,
-                  wyz * xr[r][a] + wxz * yr[r][b] + wxy * zr[r][cz]);
+              atomicAdd(&win[base + (r + 1) * 8 * 64],
+                        wyz * xr[r][a] + wxz * yr[r][b] + wxy * zr[r][cz]);
           }
         }
       }
@@ -448,7 +424,7 @@ const char* gsmpm_cuda_error_string(int err) {
 // the group count from above (cuda_mpm.p2g_max_groups).
 int gsmpm_p2g_tiled(const float* q, const float* sig, const int* chunk_tile,
                     const int* chunk_live, float* windows, float* partials,
-                    int* work, int max_groups, int G, int combine, int NP,
+                    int* work, int max_groups, int G, int NP,
                     int nchunk, int ntiles, int nt, int S, int g, float dx,
                     float inv_dx, float dt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -462,16 +438,15 @@ int gsmpm_p2g_tiled(const float* q, const float* sig, const int* chunk_tile,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kernel = combine ? p2g_kernel<true> : p2g_kernel<false>;
   const int smem = WIN_FLOATS * sizeof(float);
   err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      p2g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
+  err = cudaFuncSetAttribute(p2g_kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<max_groups, THREADS, smem, st>>>(
+  p2g_kernel<<<max_groups, THREADS, smem, st>>>(
       q, sig, chunk_tile, chunk_live, group_chunk, tile_group, partials,
       windows, NP, nchunk, ntiles, nt, S, G, g, dx, inv_dx, dt);
   err = cudaGetLastError();

@@ -21,8 +21,8 @@
 // contributor once it is done, else to the segment's end; in K7 each pixel
 // evaluates the slots from its last contributor back to the segment start.
 // K3's pixels skip the slots whose splat's box misses their warp's 16 x 8
-// group (below), a test per (slot, group) and not per pair, so its bound
-// counts the pairs of that walk that the cull keeps.
+// group, then the pixel (below): a few compares instead of the gate, so its
+// bound counts the pairs of that walk whose pixel lies in the slot's box.
 // Each (slot, pixel) pair takes at least 20 fp32 operations forward (6 mul
 // + 6 add for the power term, exp, clamp, two compares, the transmittance
 // and three color updates).  Backward, every pair evaluated takes the gate
@@ -52,8 +52,10 @@
 //       conic that is not positive definite nowhere).  Each warp then
 //       compacts, by ballot, the staged slots whose box meets its
 //       rectangle into a list in slot order, and its lanes composite their
-//       pixels sequentially front to back over that list only.  A culled
-//       (slot, pixel) pair is one the gate would have rejected, so each
+//       pixels sequentially front to back over that list, skipping a slot
+//       for a pixel outside its box (two compares before the 7-term power
+//       and the exp).  A culled (slot, pixel) pair is one the gate would
+//       have rejected, so each
 //       pixel still meets its contributors in the same order with the same
 //       expressions: the rgb, T, done and last bits of the unculled walk.
 //       This is the stop rule of the TPU kernel (a pixel is done at the
@@ -221,12 +223,15 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
     }
     for (int e = 0; e < count; ++e) {
       const int j = list[wid][e];
+      // the same box, per pixel: a lane's 4 pixels share its column
+      if (px < box[0][j] || px > box[1][j]) continue;
+      const float yl = box[2][j], yh = box[3][j];
       const float F0 = sF[0][j], F1 = sF[1][j], F2 = sF[2][j];
       const float F3 = sF[3][j], F4 = sF[4][j], F5 = sF[5][j];
       const float logo = sF[6][j];
 #pragma unroll
       for (int k = 0; k < FWD_PPT; ++k) {
-        if (done[k]) continue;
+        if (done[k] || py[k] < yl || py[k] > yh) continue;
         const float power = power_of(F0, F1, F2, F3, F4, F5, logo, pxx, px,
                                      py[k] * py[k], py[k], px * py[k]);
         const float alpha = fminf(0.99f, expf(power));

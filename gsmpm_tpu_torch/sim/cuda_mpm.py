@@ -36,16 +36,15 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# K1's chunks per block and its warp combine (chip_smoke.py times both)
-P2G_GROUP = 2
-P2G_COMBINE = True
+# K1's live chunks per block (chip_smoke.py times the alternatives)
+P2G_GROUP = 1
 
 
 def _lib():
     lib = build.load("mpm_transfer")
     lib.gsmpm_p2g_tiled.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _F, _F, _F, _VP]
+        _F, _F, _F, _VP]
     lib.gsmpm_p2g_tiled.restype = ctypes.c_int
     lib.gsmpm_g2p_tiled.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _F, _VP]
@@ -84,14 +83,13 @@ def p2g_max_groups(tc: TileConfig, group: int) -> int:
 
 
 def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
-              tc: TileConfig, dt: float, *, group: int = P2G_GROUP,
-              combine: bool = P2G_COMBINE) -> torch.Tensor:
+              tc: TileConfig, dt: float, *,
+              group: int = P2G_GROUP) -> torch.Tensor:
     """q (QROWS,NP) + stress (16,NP) -> octant windows (ntiles, 256, 64).
 
     On CUDA, one block accumulates each group of ``group`` consecutive
-    live chunks of a tile; ``combine`` sums the lanes of a warp that share
-    a base cell before the shared atomics (csrc/mpm_transfer.cu).  Both
-    change only how the kernel splits the work; chip_smoke.py times the
+    live chunks of a tile (csrc/mpm_transfer.cu); the group size changes
+    only how the kernel splits the work, and chip_smoke.py times the
     alternatives."""
     if ts.q.device.type == "cpu":
         return p2g_tiled_ref(ts, sig, grid, tc, dt)
@@ -109,7 +107,7 @@ def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
     err = lib.gsmpm_p2g_tiled(
         ts.q.data_ptr(), sig.data_ptr(), ts.chunk_tile.data_ptr(),
         ts.chunk_live.data_ptr(), out.data_ptr(), partials.data_ptr(),
-        work.data_ptr(), ng, group, int(combine), tc.np_rows, tc.nchunk,
+        work.data_ptr(), ng, group, tc.np_rows, tc.nchunk,
         tc.ntiles, tc.nt, tc.S, tc.n_grid, grid.dx, grid.inv_dx, dt,
         torch.cuda.current_stream(dev).cuda_stream,
     )

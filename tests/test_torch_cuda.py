@@ -6,10 +6,10 @@ GPU it runs without the JAX conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Inputs are small (a few hundred particles, n_grid 16-24, 64^2-256^2, blend
-windows up to K 20,480, streams up to ~10^5 slots) and made with numpy
-from seeds; chip_smoke.py repeats the comparisons at the main paths'
-shapes.
+Inputs are small (a few hundred particles, or 26,100 in three dense
+tiles for K1's chunk groups; n_grid 16-24, 64^2-256^2, blend windows up
+to K 20,480, streams up to ~10^5 slots) and made with numpy from seeds;
+chip_smoke.py repeats the comparisons at the main paths' shapes.
 """
 
 import dataclasses
@@ -98,8 +98,7 @@ def test_p2g_kernel_matches_twin(cuda, tmp_path):
     assert float((err / scale).max()) <= 1e-5
 
 
-@pytest.mark.parametrize("combine", [False, True])
-def test_p2g_kernel_dense_groups(cuda, combine):
+def test_p2g_kernel_dense_groups(cuda):
     """K1 on tests/test_torch_cull_groups.py's dense case (~740 particles
     a cell in tile 0, a tile of one chunk, a dead chunk inside a tile's
     range, dead slack chunks, five empty tiles) for chunk groups of 1, 2
@@ -117,8 +116,7 @@ def test_p2g_kernel_dense_groups(cuda, combine):
     assert int(empty.sum()) == 5
     for group in (1, 2, 3, tc.nchunk):
         before = cuda_mpm.p2g_tiled.launches
-        got = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt, group=group,
-                                 combine=combine)
+        got = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt, group=group)
         assert cuda_mpm.p2g_tiled.launches == before + 1
         err = _components(got - want).abs().amax(dim=1)
         assert float((err / scale).max()) <= 1e-5, (group, err / scale)
@@ -220,6 +218,70 @@ def test_stream_kernels_on_crafted_splats(cuda, block):
         assert scale > 0
         err = float((got[rows] - dsp[rows]).abs().max())
         assert err <= 1e-4 * scale, (rows, err, scale)
+
+
+def _sequential_walk(splanes, bounds, nbx, B, t_min, alpha_min):
+    """K3's blend with no cull, in plain torch on the card: the segments
+    (of equal length) walked slot by slot, every pixel evaluating every
+    slot with the kernel's expressions in the kernel's order (each torch
+    op rounds on its own, as the kernel's file does under --fmad=false).
+    Returns rgb, T, done, last as K3's rows 0..5."""
+    nf = bounds.numel() - 1
+    lo = bounds[:-1].to(torch.int64)
+    n = int(bounds[1] - bounds[0])
+    assert bool(((bounds[1:] - bounds[:-1]) == n).all())
+    bid = torch.arange(nf, device=splanes.device)
+    x0 = ((bid % nbx) * B).float()[:, None]
+    y0 = ((bid // nbx) * B).float()[:, None]
+    px, py, pxx, pyy, pxy = sr._pixel_coords(B, splanes.device)
+    P = B * B
+    T = torch.ones((nf, P), device=splanes.device)
+    rgb = torch.zeros((3, nf, P), device=splanes.device)
+    last = torch.zeros((nf, P), device=splanes.device)
+    done = torch.zeros((nf, P), dtype=torch.bool, device=splanes.device)
+    for j in range(n):
+        p = splanes[:, lo + j][..., None]                    # (9, nf, 1)
+        gx, gy = p[0] - x0, p[1] - y0
+        a, bb, c, logo = p[2], p[3], p[4], p[5]
+        F2 = -0.5 * (a * gx * gx + c * gy * gy) - bb * gx * gy
+        power = (-0.5 * a) * pxx
+        power = power + (a * gx + bb * gy) * px
+        power = power + F2
+        power = power + (-0.5 * c) * pyy
+        power = power + (c * gy + bb * gx) * py
+        power = power + (-bb) * pxy
+        power = power + logo
+        alpha = torch.clamp_max(torch.exp(power), 0.99)
+        gate = (power <= logo) & (alpha >= alpha_min) & ~done
+        T_after = T * (1.0 - alpha)
+        stop = gate & (T_after < t_min)
+        upd = gate & ~stop
+        w = T * alpha
+        rgb = torch.where(upd, rgb + p[6:9] * w, rgb)
+        T = torch.where(upd, T_after, T)
+        last = torch.where(upd, (lo[:, None] + j + 1).float(), last)
+        done = done | stop
+    return rgb, T, done, last
+
+
+def test_stream_kernel_culls_no_contributor(cuda):
+    """K3 on the crafted stream against the walk without any cull: the
+    cull skips only (slot, pixel) pairs the gate rejects, so every pixel
+    meets the same contributors in the same order with the same
+    expressions: done and last are equal, rgb and T to 1e-6."""
+    from test_torch_cull_groups import crafted_stream
+
+    splanes, bounds, nbx, B = crafted_stream(B=64, per_block=1500,
+                                             device=cuda)
+    cfg = tr.RasterConfig(block=B)
+    out = sr.stream_blend(splanes, bounds, nbx, B, cfg.t_min, cfg.alpha_min)
+    rgb, T, done, last = _sequential_walk(splanes, bounds, nbx, B,
+                                          cfg.t_min, cfg.alpha_min)
+    assert torch.equal(out[:, 4] > 0, done)
+    assert torch.equal(out[:, 5], last)
+    assert float((out[:, 0:3] - rgb.transpose(0, 1)).abs().max()) <= 1e-6
+    assert float((out[:, 3] - T).abs().max()) <= 1e-6
+    assert 0.05 < float(done.float().mean()) < 1.0
 
 
 # the clamp and gate edges of K7 only show in large streams: a small and a
