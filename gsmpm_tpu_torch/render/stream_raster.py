@@ -453,7 +453,7 @@ def _check_stream(splanes: torch.Tensor, bounds: torch.Tensor, B: int):
         return dev
     if dev.type != "cuda":
         raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
-    # one thread per pixel of 16x16 sub-tiles (K3)
+    # K3's warps take 16 x 8 pixel groups
     if B % 16 != 0:
         raise ValueError(f"block size {B} must be a multiple of 16")
     if splanes.dtype != torch.float32 or splanes.dim() != 2 or \
