@@ -52,7 +52,7 @@
 //       Summing the lanes of a warp that share a base cell by shuffles
 //       before the atomics (one atomic per node and component) was
 //       measured and dropped: it cost 3-21% at both shapes, the particles
-//       of a tile being in random order (PERF.md, PR 4).
+//       of a tile being in random order (PERF.md, section 6).
 //       The cross-block sum runs in a fixed order, but the shared atomics
 //       inside a block add in a run-dependent order, so the kernel is NOT
 //       deterministic: results agree with the twin to ~1e-6 of the
