@@ -11,17 +11,16 @@
    n_grid 50, 800x800; the transfers on a state given seeded motion, the
    blend on frame 0), runs the port on the GPU and on the CPU at a small
    size, drives ``apps.simulate.simulate`` for 4 frames x 100 substeps and
-   profiles 2 more frames.  K1 is timed for every grid in K1_VARIANTS
-   (live chunks per block), each held against the twin; K3's cull share
-   of (slot, pixel group) pairs is printed.
+   profiles 2 more frames.  K1's block count and K3's cull share of
+   (slot, pixel group) pairs are printed.
 4. Identification path (slice 2): ``apps.identify.identify`` at the bench
    configuration (245,760-gaussian blob, 512x512, 30 substeps per frame,
    E 1e4 -> 3e3; frame-0 appearance step, ground truth, 2 fit frames),
    then a timed steady-state loop of fit frames whose launches per frame
    are asserted exactly, a profile of one fit frame, K4 / K5 against their
    twins on the fit frame's real candidates (tier 1 and tier 2), K6 on the
-   fit state, K1 and its variants on the fit state (the blob's dense
-   tiles), and one small fit frame on the GPU and on the CPU.
+   fit state, K1 on the fit state (the blob's dense tiles), and one
+   small fit frame on the GPU and on the CPU.
 5. Stream-rendered fit (slice 3, path A): a SystemIdentifier on the same
    blob with ``RasterConfig(stream=True)`` (ground truth at E 3e3, 2 fit
    frames, then steady fit frames with exact launches, one profiled), K7
@@ -82,10 +81,9 @@ FIT_SUBSTEPS = 30
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # a kernel row's numbers beyond the required keys, copied into the kernels
-# line: K1 at the fit's shapes and its grid, K3's cull, K4/K5 per tier
-ROW_EXTRAS = ("per_tier", "group", "blocks", "fit_ms",
-              "fit_plain_ms", "fit_bound_ms", "fit_bound_by", "fit_blocks",
-              "culled_share", "variants", "fit_variants")
+# line: K1 at the fit's shapes and its blocks, K3's cull, K4/K5 per tier
+ROW_EXTRAS = ("per_tier", "blocks", "fit_ms", "fit_plain_ms",
+              "fit_bound_ms", "fit_bound_by", "fit_blocks", "culled_share")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -151,15 +149,9 @@ def window_components(win):
     return win.reshape(-1, 8, 4, 8, 64).transpose(0, 2).reshape(4, -1)
 
 
-# K1's grids timed at both shapes: live chunks per block (G; "tile" is one
-# block per tile, the grid of the first design)
-K1_VARIANTS = (1, 2, 4, "tile")
-
-
 def p2g_phase(ts, sig, grid, tc, dt, label):
-    """K1 against its twin on one tiled state (the wrapper's defaults), the
-    time of every K1_VARIANTS entry, each also held against the twin, and
-    the bound.  Returns (K1's windows, its kernels-table row)."""
+    """K1 against its twin on one tiled state, its time and its bound.
+    Returns (K1's windows, its kernels-table row)."""
     from gsmpm_tpu_torch.sim import cuda_mpm, tiles
 
     win_k = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt)
@@ -197,18 +189,6 @@ def p2g_phase(ts, sig, grid, tc, dt, label):
     live = ts.chunk_live == 1
     per_tile = torch.bincount(ts.chunk_tile[live].to(torch.int64),
                               minlength=tc.ntiles)
-    variants = {}
-    for G in K1_VARIANTS:
-        g = tc.nchunk if G == "tile" else G
-        w = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt, group=g)
-        rel = float((window_components(w - win_r).abs().amax(dim=1)
-                     / comp_scale).max())
-        check(rel <= 1e-5, f"K1 p2g ({label}) G {G}: relative err {rel}")
-        variants[f"G={G}"] = dict(
-            ms=cuda_ms(lambda: cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt,
-                                                  group=g), 10),
-            blocks=int(((per_tile + g - 1) // g).sum()),
-            launched=cuda_mpm.p2g_max_groups(tc, g), rel_err=rel)
     ms1 = cuda_ms(lambda: cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt), 20)
     pms1 = cuda_ms(lambda: cuda_mpm.p2g_tiled_ref(ts, sig, grid, tc, dt), 3, 1)
     n_live = int(live.sum()) * tc.S
@@ -216,22 +196,20 @@ def p2g_phase(ts, sig, grid, tc, dt, label):
     # must read x, v, C, mass, vol (17 rows) and 9 stress rows of the live
     # slots, write the windows; ~1260 flops per real particle
     b1 = bound_ms(n_live * 26 * 4 + win_k.numel() * 4, n_real * 1260.0)
-    G0 = cuda_mpm.P2G_GROUP
+    # one block per chunk: the live chunks' blocks work, the dead return
     print(f"K1 p2g ({label}): {n_real} particles in {int(live.sum())} live "
           f"chunks of {int((per_tile > 0).sum())} tiles (densest "
-          f"{int(per_tile.max())} chunks); wrapper G {G0}: {ms1:.4f} ms "
-          f"(plain {pms1:.3f}, bound {b1[0]:.4f} {b1[1]}); "
-          "variants " + ", ".join(
-              f"{k}: {v['ms']:.4f} ms / {v['blocks']} blocks ({v['launched']}"
-              f" launched)" for k, v in variants.items()), flush=True)
+          f"{int(per_tile.max())} chunks); {int(live.sum())} working blocks "
+          f"of {tc.nchunk} launched, 1 chunk each: {ms1:.4f} ms "
+          f"(plain {pms1:.3f}, bound {b1[0]:.4f} {b1[1]})", flush=True)
     return win_k, dict(
         name="p2g_tiled", route="cuda",
         source="gsmpm_tpu_torch/csrc/mpm_transfer.cu",
         replaces="gsmpm_tpu/sim/pallas_mpm.py:160",
         max_abs_err=err1, rel_err=rel1, tol="1e-5 x max per component",
         ms=ms1, plain_ms=pms1, bound_ms=b1[0], bound_by=b1[1],
-        library_ms=None, wrapper=cuda_mpm.p2g_tiled, group=G0,
-        variants=variants, blocks=variants[f"G={G0}"]["blocks"])
+        library_ms=None, wrapper=cuda_mpm.p2g_tiled,
+        blocks=int(live.sum()))
 
 
 def kernel_phases(dev):
@@ -655,8 +633,7 @@ def fit_profile(dev, ident, first, steady):
           f"{100 * busy_ms / frame_ms:.1f}%", flush=True)
     top = []
     # the largest entries, then the port's own kernels further down
-    ours = ("p2g_kernel", "p2g_groups_kernel", "p2g_reduce_kernel",
-            "g2p_kernel", "sored_kernel", "blend_fwd_kernel",
+    ours = ("p2g_kernel", "g2p_kernel", "sored_kernel", "blend_fwd_kernel",
             "blend_bwd_kernel", "stream_fwd_kernel", "stream_bwd_kernel")
     for i, e in enumerate(kernels):
         if i >= PROFILE_TOP and not any(k in e.key for k in ours):
@@ -1346,8 +1323,7 @@ def main() -> int:
     # K1 at the fit's shapes, beside its row at simulate's
     k1_fit = p2g_fit_phase(dev, ident, first)
     rows[0].update({f"fit_{k}": k1_fit[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "rel_err", "blocks",
-        "variants")})
+        "ms", "plain_ms", "bound_ms", "bound_by", "rel_err", "blocks")})
     fit["small_parity"] = small_fit_parity(dev)
     del ident, first
     torch.cuda.empty_cache()

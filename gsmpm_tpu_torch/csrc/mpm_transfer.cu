@@ -34,30 +34,22 @@
 // pair-table matmuls because the TPU has no scatter; a GPU has fast
 // shared-memory atomics, so here each thread owns one particle and touches
 // only its 27 stencil nodes.
-//   K1: the TPU grid has one program per chunk; here the chunks of a tile
-//       are split into groups of G consecutive live chunks, one block per
-//       group, so a dense tile spreads over many SMs.  Three launches:
-//       (1) one block builds the group table from chunk_tile / chunk_live
-//           on the device (block-wide prefix sums, no host sync): the first
-//           chunk of every group and each tile's range of groups; the grid
-//           of (2) is the host's upper bound on the group count, and blocks
-//           past the real count return at once;
-//       (2) each group's block accumulates a private 4 x 16^3 window (64
-//           KB of dynamic shared memory, 3 blocks per SM) with shared
-//           atomicAdd, then writes it coalesced in the octant layout: into
-//           the tile's output window when the tile has one group, else into
-//           a scratch partial (ngroups x 64 KB, allocated by the wrapper);
-//       (3) per tile, the partials are summed in group order into the
-//           output window; tiles without chunks get zeros.
+//   K1: the TPU grid has one program per chunk, and so does this one:
+//       one block per chunk (dead chunks return at once), so a dense tile
+//       spreads over many SMs.  The launcher zeroes the windows; each live
+//       chunk's block accumulates a private 4 x 16^3 window (64 KB of
+//       dynamic shared memory, 3 blocks per SM) with shared atomicAdd,
+//       then adds it into its tile's output window with float4 global
+//       atomics (sm_90), skipping float4s that no particle reached.
+//       Tiles without live chunks keep the zeros.
 //       Summing the lanes of a warp that share a base cell by shuffles
 //       before the atomics (one atomic per node and component) was
 //       measured and dropped: it cost 3-21% at both shapes, the particles
 //       of a tile being in random order (PERF.md, section 6).
-//       The cross-block sum runs in a fixed order, but the shared atomics
-//       inside a block add in a run-dependent order, so the kernel is NOT
-//       deterministic: results agree with the twin to ~1e-6 of the
-//       window's largest entry, not bitwise, and may differ in the last
-//       bits between runs.
+//       Both the shared and the global atomics add in a run-dependent
+//       order, so the kernel is NOT deterministic: results agree with the
+//       twin to ~1e-6 of the window's largest entry, not bitwise, and may
+//       differ in the last bits between runs.
 //   K2: one block per chunk stages its tile's (192, 64) block (48 KB) in
 //       shared memory; one thread per particle gathers its 27 nodes, then
 //       writes every q row (advected x, v, C, F_trial, drift flag; other
@@ -77,8 +69,6 @@ constexpr int LOCAL_MIN = 0, LOCAL_MAX = 13, SAFE_MIN = 1, SAFE_MAX = 12;
 constexpr int WIN_FLOATS = 256 * 64;   // P2G window: 4 comps x 16^3
 constexpr int EXT_FLOATS = 192 * 64;   // G2P block: 3 comps x 16^3
 constexpr int THREADS = 256;
-constexpr int TABLE_THREADS = 1024;  // the group-table block
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Axis {
   int slot[3];     // folded window slot of stencil node k
@@ -122,195 +112,89 @@ __device__ __forceinline__ int ext_index(int i, int j, int k, int comp) {
   return ((oct * 24 + comp * 8 + (i & 7)) << 6) + ((j & 7) << 3) + (k & 7);
 }
 
-// ---- K1 (1): the chunk-group table ------------------------------------
-
-__device__ int lower_bound(const int* __restrict__ a, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// Exclusive prefix sum of flag(c), c in [0, n), into out[0..n] (out[n] =
-// total), by the one TABLE_THREADS-thread block; out is visible to the
-// whole block on return.
-template <class Flag>
-__device__ void block_scan(int n, Flag flag, int* __restrict__ out,
-                           int* s_warp) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int carry = 0;
-  for (int base = 0; base < n; base += TABLE_THREADS) {
-    const int c = base + threadIdx.x;
-    const int v = c < n ? flag(c) : 0;
-    int x = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(FULL, x, off);
-      if (lane >= off) x += y;
-    }
-    if (lane == 31) s_warp[wid] = x;
-    __syncthreads();
-    if (wid == 0) {
-      int w = s_warp[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(FULL, w, off);
-        if (lane >= off) w += y;
-      }
-      s_warp[lane] = w;
-    }
-    __syncthreads();
-    if (c < n) out[c] = carry + (wid ? s_warp[wid - 1] : 0) + x - v;
-    carry += s_warp[31];
-    __syncthreads();  // s_warp is rewritten by the next piece
-  }
-  if (threadIdx.x == 0) out[n] = carry;
-  __syncthreads();
-}
-
-// Groups of G consecutive live chunks of one tile, in chunk order.  Writes
-// group_chunk[k] (the first chunk of group k) and tile_group[0..ntiles]
-// (tile t owns groups [tile_group[t], tile_group[t+1]); tile_group[ntiles]
-// is the group count).  live_before / start_before are (nchunk+1,) scratch.
-__global__ void __launch_bounds__(TABLE_THREADS)
-p2g_groups_kernel(const int* __restrict__ chunk_tile,
-                  const int* __restrict__ chunk_live, int nchunk, int ntiles,
-                  int G, int* __restrict__ group_chunk,
-                  int* __restrict__ tile_group, int* live_before,
-                  int* start_before) {
-  __shared__ int s_warp[32];
-  block_scan(nchunk, [&](int c) { return chunk_live[c] == 1 ? 1 : 0; },
-             live_before, s_warp);
-  // a live chunk starts a group when its rank among its tile's live chunks
-  // is a multiple of G
-  block_scan(nchunk, [&](int c) {
-    if (chunk_live[c] != 1) return 0;
-    const int first = lower_bound(chunk_tile, nchunk, chunk_tile[c]);
-    return (live_before[c] - live_before[first]) % G == 0 ? 1 : 0;
-  }, start_before, s_warp);
-  for (int c = threadIdx.x; c < nchunk; c += TABLE_THREADS)
-    if (start_before[c + 1] != start_before[c])
-      group_chunk[start_before[c]] = c;
-  for (int t = threadIdx.x; t <= ntiles; t += TABLE_THREADS)
-    tile_group[t] = start_before[lower_bound(chunk_tile, nchunk, t)];
-}
-
-// ---- K1 (2): one block per chunk group ----------------------------------
+// ---- K1: one block per live chunk ---------------------------------------
 
 __global__ void __launch_bounds__(THREADS, 3)
 p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
            const int* __restrict__ chunk_tile,
-           const int* __restrict__ chunk_live,
-           const int* __restrict__ group_chunk,
-           const int* __restrict__ tile_group, float* __restrict__ partials,
-           float* __restrict__ windows, int NP, int nchunk, int ntiles,
-           int nt, int S, int G, int g, float dx, float inv_dx, float dt) {
+           const int* __restrict__ chunk_live, float* __restrict__ windows,
+           int NP, int nt, int S, int g, float dx, float inv_dx, float dt) {
   extern __shared__ float win[];
-  const int grp = blockIdx.x;
-  if (grp >= tile_group[ntiles]) return;  // past the real group count
-  const int c0 = group_chunk[grp];
-  const int t = chunk_tile[c0];
-  // a tile of one group writes its output window itself
-  float* dst = tile_group[t + 1] - tile_group[t] == 1
-                   ? windows + (size_t)t * WIN_FLOATS
-                   : partials + (size_t)grp * WIN_FLOATS;
+  const int c = blockIdx.x;
+  if (chunk_live[c] != 1) return;  // dead chunk: adds nothing
+  const int t = chunk_tile[c];
   for (int i = threadIdx.x; i < WIN_FLOATS; i += THREADS) win[i] = 0.0f;
   const int tx = (t / (nt * nt)) * T_TILE;
   const int ty = ((t / nt) % nt) * T_TILE;
   const int tz = (t % nt) * T_TILE;
   __syncthreads();
 
-  int taken = 0;
-  for (int c = c0; c < nchunk && taken < G && chunk_tile[c] == t; ++c) {
-    if (chunk_live[c] != 1) continue;
-    ++taken;
-    for (int s = threadIdx.x; s < S; s += THREADS) {
-      const int p = c * S + s;
-      const float m = q[RMASS * NP + p];
-      const float vol = q[RVOL * NP + p];
-      if (m == 0.0f && vol == 0.0f) continue;  // padding slot: adds zeros
-      Axis ax, ay, az;
-      axis_stencil(q[(RX + 0) * NP + p], tx, inv_dx, g, ax);
-      axis_stencil(q[(RX + 1) * NP + p], ty, inv_dx, g, ay);
-      axis_stencil(q[(RX + 2) * NP + p], tz, inv_dx, g, az);
-      const float mdx = m * dx;
-      const float ndtv = -dt * vol;
-      // per-axis factors of the three momentum terms: xr (the x-side factor
-      // of the wy*wz group), yr of wx*wz, zr of wx*wy; per component r
-      float xr[3][3], yr[3][3], zr[3][3];
+  for (int s = threadIdx.x; s < S; s += THREADS) {
+    const int p = c * S + s;
+    const float m = q[RMASS * NP + p];
+    const float vol = q[RVOL * NP + p];
+    if (m == 0.0f && vol == 0.0f) continue;  // padding slot: adds zeros
+    Axis ax, ay, az;
+    axis_stencil(q[(RX + 0) * NP + p], tx, inv_dx, g, ax);
+    axis_stencil(q[(RX + 1) * NP + p], ty, inv_dx, g, ay);
+    axis_stencil(q[(RX + 2) * NP + p], tz, inv_dx, g, az);
+    const float mdx = m * dx;
+    const float ndtv = -dt * vol;
+    // per-axis factors of the three momentum terms: xr (the x-side factor
+    // of the wy*wz group), yr of wx*wz, zr of wx*wy; per component r
+    float xr[3][3], yr[3][3], zr[3][3];
 #pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        const float cv = m * q[(RV + r) * NP + p];
-        float cc[3], cs[3];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          cc[k] = mdx * q[(RC + 3 * r + k) * NP + p];
-          cs[k] = ndtv * sig[(3 * r + k) * NP + p];
-        }
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          xr[r][k] = cv * ax.w[k] + cc[0] * ax.u[k] + cs[0] * ax.dw[k];
-          yr[r][k] = cc[1] * ay.u[k] + cs[1] * ay.dw[k];
-          zr[r][k] = cc[2] * az.u[k] + cs[2] * az.dw[k];
-        }
-      }
-      int ix[3], iy[3], iz[3];
+    for (int r = 0; r < 3; ++r) {
+      const float cv = m * q[(RV + r) * NP + p];
+      float cc[3], cs[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        ix[k] = win_x(ax.slot[k]);
-        iy[k] = win_y(ay.slot[k]);
-        iz[k] = win_z(az.slot[k]);
+        cc[k] = mdx * q[(RC + 3 * r + k) * NP + p];
+        cs[k] = ndtv * sig[(3 * r + k) * NP + p];
       }
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
+      for (int k = 0; k < 3; ++k) {
+        xr[r][k] = cv * ax.w[k] + cc[0] * ax.u[k] + cs[0] * ax.dw[k];
+        yr[r][k] = cc[1] * ay.u[k] + cs[1] * ay.dw[k];
+        zr[r][k] = cc[2] * az.u[k] + cs[2] * az.dw[k];
+      }
+    }
+    int ix[3], iy[3], iz[3];
 #pragma unroll
-        for (int b = 0; b < 3; ++b) {
+    for (int k = 0; k < 3; ++k) {
+      ix[k] = win_x(ax.slot[k]);
+      iy[k] = win_y(ay.slot[k]);
+      iz[k] = win_z(az.slot[k]);
+    }
 #pragma unroll
-          for (int cz = 0; cz < 3; ++cz) {
-            const float wyz = ay.w[b] * az.w[cz];
-            const float wxz = ax.w[a] * az.w[cz];
-            const float wxy = ax.w[a] * ay.w[b];
-            const int base = ix[a] + iy[b] + iz[cz];
-            atomicAdd(&win[base], m * (ax.w[a] * wyz));
+    for (int a = 0; a < 3; ++a) {
 #pragma unroll
-            for (int r = 0; r < 3; ++r)
-              atomicAdd(&win[base + (r + 1) * 8 * 64],
-                        wyz * xr[r][a] + wxz * yr[r][b] + wxy * zr[r][cz]);
-          }
+      for (int b = 0; b < 3; ++b) {
+#pragma unroll
+        for (int cz = 0; cz < 3; ++cz) {
+          const float wyz = ay.w[b] * az.w[cz];
+          const float wxz = ax.w[a] * az.w[cz];
+          const float wxy = ax.w[a] * ay.w[b];
+          const int base = ix[a] + iy[b] + iz[cz];
+          atomicAdd(&win[base], m * (ax.w[a] * wyz));
+#pragma unroll
+          for (int r = 0; r < 3; ++r)
+            atomicAdd(&win[base + (r + 1) * 8 * 64],
+                      wyz * xr[r][a] + wxz * yr[r][b] + wxy * zr[r][cz]);
         }
       }
     }
   }
   __syncthreads();
-  float4* out = reinterpret_cast<float4*>(dst);
+  // add the window into the tile's output (zeroed by the launcher); a
+  // float4 of zeros, where no particle of the chunk reached, is skipped
+  float4* out = reinterpret_cast<float4*>(windows + (size_t)t * WIN_FLOATS);
   const float4* src = reinterpret_cast<const float4*>(win);
-  for (int i = threadIdx.x; i < WIN_FLOATS / 4; i += THREADS) out[i] = src[i];
-}
-
-// ---- K1 (3): each tile's partials summed in group order ------------------
-
-__global__ void __launch_bounds__(THREADS)
-p2g_reduce_kernel(const float* __restrict__ partials,
-                  const int* __restrict__ tile_group,
-                  float* __restrict__ windows) {
-  const int t = blockIdx.x;
-  const int g0 = tile_group[t], n = tile_group[t + 1] - g0;
-  if (n == 1) return;  // written by its group's block
-  constexpr int W4 = WIN_FLOATS / 4;
-  const int i = blockIdx.y * THREADS + threadIdx.x;
-  const float4* src = reinterpret_cast<const float4*>(partials)
-                      + (size_t)g0 * W4 + i;
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int k = 0; k < n; ++k) {
-    const float4 v = src[(size_t)k * W4];
-    acc.x += v.x;
-    acc.y += v.y;
-    acc.z += v.z;
-    acc.w += v.w;
+  for (int i = threadIdx.x; i < WIN_FLOATS / 4; i += THREADS) {
+    const float4 v = src[i];
+    if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+      atomicAdd(out + i, v);
   }
-  reinterpret_cast<float4*>(windows)[(size_t)t * W4 + i] = acc;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -419,25 +303,16 @@ const char* gsmpm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// partials: (max_groups, 256, 64) float scratch; work: int32 scratch of
-// max_groups + (ntiles + 1) + 2 (nchunk + 1) entries.  max_groups bounds
-// the group count from above (cuda_mpm.p2g_max_groups).
+// windows: (ntiles, 256, 64), zeroed here, then each live chunk's block
+// adds its window into its tile's.
 int gsmpm_p2g_tiled(const float* q, const float* sig, const int* chunk_tile,
-                    const int* chunk_live, float* windows, float* partials,
-                    int* work, int max_groups, int G, int NP,
+                    const int* chunk_live, float* windows, int NP,
                     int nchunk, int ntiles, int nt, int S, int g, float dx,
                     float inv_dx, float dt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* group_chunk = work;
-  int* tile_group = group_chunk + max_groups;
-  int* live_before = tile_group + ntiles + 1;
-  int* start_before = live_before + nchunk + 1;
-  p2g_groups_kernel<<<1, TABLE_THREADS, 0, st>>>(
-      chunk_tile, chunk_live, nchunk, ntiles, G, group_chunk, tile_group,
-      live_before, start_before);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(
+      windows, 0, (size_t)ntiles * WIN_FLOATS * sizeof(float), st);
   if (err != cudaSuccess) return err;
-
   const int smem = WIN_FLOATS * sizeof(float);
   err = cudaFuncSetAttribute(
       p2g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -446,14 +321,8 @@ int gsmpm_p2g_tiled(const float* q, const float* sig, const int* chunk_tile,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  p2g_kernel<<<max_groups, THREADS, smem, st>>>(
-      q, sig, chunk_tile, chunk_live, group_chunk, tile_group, partials,
-      windows, NP, nchunk, ntiles, nt, S, G, g, dx, inv_dx, dt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  p2g_reduce_kernel<<<dim3(ntiles, WIN_FLOATS / 4 / THREADS), THREADS, 0,
-                      st>>>(partials, tile_group, windows);
+  p2g_kernel<<<nchunk, THREADS, smem, st>>>(
+      q, sig, chunk_tile, chunk_live, windows, NP, nt, S, g, dx, inv_dx, dt);
   return cudaGetLastError();
 }
 

@@ -36,15 +36,11 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# K1's live chunks per block (chip_smoke.py times the alternatives)
-P2G_GROUP = 1
-
 
 def _lib():
     lib = build.load("mpm_transfer")
     lib.gsmpm_p2g_tiled.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
-        _F, _F, _F, _VP]
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _F, _F, _VP]
     lib.gsmpm_p2g_tiled.restype = ctypes.c_int
     lib.gsmpm_g2p_tiled.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _F, _VP]
@@ -72,44 +68,21 @@ def _check_tables(ts: TiledState, tc: TileConfig) -> None:
         _need(getattr(ts, name), name, (tc.nchunk,), torch.int32, dev)
 
 
-def p2g_max_groups(tc: TileConfig, group: int) -> int:
-    """Upper bound on K1's chunk groups (groups of ``group`` consecutive
-    live chunks of one tile), known without reading the chunk tables: a
-    tile with l live chunks has ceil(l / group) <= (l + group - 1) / group
-    groups, at most min(ntiles, nchunk) tiles hold chunks, and every group
-    holds a chunk."""
-    occ = min(tc.ntiles, tc.nchunk)
-    return max(1, min(tc.nchunk, (tc.nchunk + (group - 1) * occ) // group))
-
-
 def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
-              tc: TileConfig, dt: float, *,
-              group: int = P2G_GROUP) -> torch.Tensor:
-    """q (QROWS,NP) + stress (16,NP) -> octant windows (ntiles, 256, 64).
-
-    On CUDA, one block accumulates each group of ``group`` consecutive
-    live chunks of a tile (csrc/mpm_transfer.cu); the group size changes
-    only how the kernel splits the work, and chip_smoke.py times the
-    alternatives."""
+              tc: TileConfig, dt: float) -> torch.Tensor:
+    """q (QROWS,NP) + stress (16,NP) -> octant windows (ntiles, 256, 64)."""
     if ts.q.device.type == "cpu":
         return p2g_tiled_ref(ts, sig, grid, tc, dt)
     _check_tables(ts, tc)
     _need(sig, "sig", (16, tc.np_rows), torch.float32, ts.q.device)
-    dev = ts.q.device
     out = torch.empty((tc.ntiles, 8 * 4 * T_TILE, T_TILE * T_TILE),
-                      dtype=torch.float32, device=dev)
-    ng = p2g_max_groups(tc, group)
-    partials = torch.empty((ng,) + out.shape[1:], dtype=torch.float32,
-                           device=dev)
-    work = torch.empty((ng + tc.ntiles + 1 + 2 * (tc.nchunk + 1),),
-                       dtype=torch.int32, device=dev)
+                      dtype=torch.float32, device=ts.q.device)
     lib = _lib()
     err = lib.gsmpm_p2g_tiled(
         ts.q.data_ptr(), sig.data_ptr(), ts.chunk_tile.data_ptr(),
-        ts.chunk_live.data_ptr(), out.data_ptr(), partials.data_ptr(),
-        work.data_ptr(), ng, group, tc.np_rows, tc.nchunk,
+        ts.chunk_live.data_ptr(), out.data_ptr(), tc.np_rows, tc.nchunk,
         tc.ntiles, tc.nt, tc.S, tc.n_grid, grid.dx, grid.inv_dx, dt,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(ts.q.device).cuda_stream,
     )
     build.check(lib, err, "p2g_tiled")
     p2g_tiled.launches += 1

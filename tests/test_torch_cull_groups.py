@@ -3,12 +3,13 @@
 K3 (csrc/stream_raster.cu) skips a staged slot for a warp's 16 x 8 pixel
 group when the slot's box, ``stream_raster.cull_boxes``, misses the group:
 every (slot, pixel) pair that passes the blend gate must lie inside the
-box, or the kernel would drop a contributor.  K1 (csrc/mpm_transfer.cu)
-launches ``cuda_mpm.p2g_max_groups`` blocks, one per group of consecutive
-live chunks of a tile, and needs that bound to hold for any chunk table.
-Both are checked here against plain evaluations; the kernels themselves
+box, or the kernel would drop a contributor; checked here against a
+plain evaluation of the gate.  K1 (csrc/mpm_transfer.cu) runs one block
+per chunk, all of a dense tile's blocks adding into one window; its dense
+case is built here and checked through the twin.  The kernels themselves
 are held against their twins in tests/test_torch_cuda.py.  No JAX: the
-functions under test have no counterpart in gsmpm_tpu.
+cull box has no counterpart in gsmpm_tpu (tests/test_torch_tiles.py holds
+the dense case's twin against gsmpm_tpu's).
 """
 
 import dataclasses
@@ -18,7 +19,6 @@ import pytest
 import torch
 
 from gsmpm_tpu_torch.render import stream_raster as sr
-from gsmpm_tpu_torch.sim.cuda_mpm import p2g_max_groups
 from gsmpm_tpu_torch.sim.tiles import TileConfig
 
 ALPHA_MIN = 1.0 / 255.0
@@ -66,7 +66,8 @@ def crafted_stream(nbx=2, nby=2, B=64, per_block=400, seed=0, device="cpu"):
             torch.from_numpy(bounds).to(device), nbx, B)
 
 
-@pytest.mark.parametrize("seed,B", [(0, 64), (1, 80), (2, 32)])
+@pytest.mark.parametrize("seed,B", [(0, 64), (1, 80), (2, 32), (3, 16),
+                                    (4, 48)])
 def test_cull_box_holds_every_gated_pair(seed, B):
     splanes, bounds, nbx, _ = crafted_stream(B=B, seed=seed)
     nf = bounds.numel() - 1
@@ -95,13 +96,14 @@ def test_cull_box_holds_every_gated_pair(seed, B):
     assert bool(loose.any()) and bool((xl[loose] == -np.inf).all())
 
 
-def dense_tiled_state(device="cpu", seed=0):
+def dense_tiled_state(device="cpu", seed=0, dead_chunk=40):
     """K1's dense case, bucketed by tiles.rebucket: (ts, sig, grid, tc,
     dt).  n_grid 16 (8 tiles); 20,000 particles packed into 3 x 3 x 3 cells
     of tile 0 (~740 a cell), 100 in tile 3 (a tile of one chunk), 6,000
     spread over tile 7; seeded velocity, APIC C, mass, volume and stress.
-    One live chunk inside tile 0's range is marked dead, and the slack
-    chunks at the end are dead, so groups skip dead chunks."""
+    The slack chunks at the end are dead, and so is ``dead_chunk`` (inside
+    tile 0's 79 chunks; None keeps every chunk that holds particles
+    live), so the kernel skips dead chunks among live ones."""
     from gsmpm_tpu_torch.sim import tiles
     from gsmpm_tpu_torch.sim.state import GridConfig
 
@@ -135,9 +137,10 @@ def dense_tiled_state(device="cpu", seed=0):
         need_rebucket=torch.zeros((), dtype=torch.bool, device=dev),
         ok=torch.ones((), dtype=torch.bool, device=dev))
     ts = tiles.rebucket(ts0, grid, tc)
-    live = ts.chunk_live.clone()
-    live[40] = 0  # inside tile 0's 79 chunks
-    ts = dataclasses.replace(ts, chunk_live=live)
+    if dead_chunk is not None:
+        live = ts.chunk_live.clone()
+        live[dead_chunk] = 0
+        ts = dataclasses.replace(ts, chunk_live=live)
     sig = torch.from_numpy(rng.normal(0.0, 1e4, (16, tc.np_rows)).astype(
         np.float32)).to(dev)
     return ts, sig, grid, tc, 1e-4
@@ -160,49 +163,3 @@ def test_p2g_twin_on_the_dense_case():
     torch.testing.assert_close(mass.sum(), m, rtol=1e-5, atol=0.0)
     assert float(win[per_tile == 0].abs().max()) == 0.0
     assert float(mass[3]) > 0.0
-
-
-def _groups_by_loop(chunk_tile, chunk_live, G):
-    """Plain loop: groups of G consecutive live chunks of one tile, as
-    lists of chunk indices in chunk order."""
-    groups, cur, cur_tile = [], [], None
-    for c, (t, live) in enumerate(zip(chunk_tile, chunk_live)):
-        if t != cur_tile:
-            if cur:
-                groups.append(cur)
-            cur, cur_tile = [], t
-        if live != 1:
-            continue
-        cur.append(c)
-        if len(cur) == G:
-            groups.append(cur)
-            cur = []
-    if cur:
-        groups.append(cur)
-    return groups
-
-
-@pytest.mark.parametrize("seed", range(4))
-def test_p2g_group_bound_covers_every_table(seed):
-    rng = np.random.default_rng(seed)
-    n_grid = int(rng.integers(8, 60))
-    tc = TileConfig(n_grid, int(rng.integers(1, 20_000)),
-                    S=int(rng.choice([32, 256])),
-                    n_occ_cap=int(rng.integers(0, 40)))
-    ntiles, nchunk = tc.ntiles, tc.nchunk
-    # a few dense tiles, live chunks first, dead ones interleaved and at
-    # the end (they carry the last used tile)
-    occ = np.sort(rng.choice(ntiles, size=min(ntiles, int(rng.integers(1, 8))),
-                             replace=False))
-    chunk_tile = np.sort(rng.choice(occ, size=nchunk))
-    chunk_live = (rng.uniform(size=nchunk) < 0.8).astype(np.int32)
-    chunk_live[-nchunk // 4:] = 0
-    for G in (1, 2, 3, 4, nchunk):
-        groups = _groups_by_loop(chunk_tile.tolist(), chunk_live.tolist(), G)
-        covered = sorted(c for g in groups for c in g)
-        assert covered == np.flatnonzero(chunk_live == 1).tolist()
-        assert all(len({int(chunk_tile[c]) for c in g}) == 1 for g in groups)
-        assert all(1 <= len(g) <= G for g in groups)
-        assert len(groups) <= p2g_max_groups(tc, G)
-    # the bound is tight when every chunk is live and its own tile's
-    assert p2g_max_groups(tc, 1) == nchunk

@@ -124,6 +124,30 @@ def test_p2g_twin_matches_jax_ref():
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-6)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_p2g_twin_matches_jax_ref_dense(seed):
+    """K1's dense case (tests/test_torch_cull_groups.py: ~740 particles a
+    cell, 79 chunks adding into one tile's window, a tile of one chunk,
+    five empty tiles) through both packages' P2G references."""
+    from test_torch_cull_groups import dense_tiled_state
+
+    ts, sig, grid, tc, dt = dense_tiled_state(seed=seed, dead_chunk=None)
+    j_ts = jt.TiledState(**{k: jnp.asarray(getattr(ts, k).numpy())
+                            for k in TILED_FIELDS})
+    want = np.asarray(jt.p2g_tiled_ref(
+        j_ts, jnp.asarray(sig.numpy()), GridConfig(*grid),
+        jt.TileConfig(*tc), dt))
+    got = cuda_mpm.p2g_tiled(ts, sig, grid, tc, dt).numpy()
+    # f32 sums in another contraction order, per component's largest entry
+    def comp(w):  # windows -> (4, -1): mass, momentum x, y, z
+        return w.reshape(-1, 8, 4, 8, 64).swapaxes(0, 2).reshape(4, -1)
+
+    scale = np.abs(comp(want)).max(axis=1)
+    assert (scale > 0).all()
+    err = np.abs(comp(got - want)).max(axis=1)
+    assert (err / scale).max() <= 2e-6, err / scale
+
+
 def test_g2p_twin_matches_jax_ref():
     cfg, ts, grid, tc, _ = _jax_tiled(seed=7)
     rng = np.random.default_rng(1)
