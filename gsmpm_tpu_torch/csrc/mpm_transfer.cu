@@ -41,7 +41,10 @@
 //       dynamic shared memory, 3 blocks per SM) with shared atomicAdd,
 //       then adds it into its tile's output window with float4 global
 //       atomics (sm_90), skipping float4s that no particle reached.
-//       Tiles without live chunks keep the zeros.
+//       Tiles without live chunks keep the zeros.  Writing per-chunk
+//       partials to scratch and summing them per tile in chunk order in a
+//       second pass was measured and dropped: 0.25 against 0.17 ms a
+//       launch at the fit's shapes (PERF.md, section 6).
 //       Summing the lanes of a warp that share a base cell by shuffles
 //       before the atomics (one atomic per node and component) was
 //       measured and dropped: it cost 3-21% at both shapes, the particles
