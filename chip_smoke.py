@@ -81,9 +81,11 @@ FIT_SUBSTEPS = 30
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # a kernel row's numbers beyond the required keys, copied into the kernels
-# line: K1 at the fit's shapes and its blocks, K3's cull, K4/K5 per tier
+# line: K1 at the fit's shapes and its blocks, K3's cull, K4/K5 per tier,
+# the reverse walks' blocks, cull, all-walked bound, variants and rerun
 ROW_EXTRAS = ("per_tier", "blocks", "fit_ms", "fit_plain_ms",
-              "fit_bound_ms", "fit_bound_by", "fit_blocks", "culled_share")
+              "fit_bound_ms", "fit_bound_by", "fit_blocks", "culled_share",
+              "bound_all_walked_ms", "variants_ms", "bit_equal")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -389,6 +391,131 @@ def k3_bound(splanes, bounds, out, cull):
     stream, the bounds and the blend state."""
     return bound_ms(splanes.numel() * 4 + bounds.numel() * 4
                     + out.numel() * 4, cull["kept_pairs"] * 20.0)
+
+
+# warps per CUDA block of the reverse walks (K5, K7, K9;
+# csrc/reverse_walk.cuh), each timed on the walks' real inputs: 32 puts a
+# 64-pixel block in one CUDA block (the cull alone), 8 and 4 spread it
+# over a cluster of 4 and 8 blocks
+REVERSE_VARIANTS = (32, 8, 4)
+
+
+def reverse_variants(fn, reps: int = 10) -> dict:
+    """fn's device time with each REVERSE_VARIANTS warps per CUDA block of
+    the reverse walks; the port's default is restored after."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+
+    keep = cb.REVERSE_WARPS
+    ms = {}
+    try:
+        for nw in REVERSE_VARIANTS:
+            cb.REVERSE_WARPS = nw
+            ms[nw] = cuda_ms(fn, reps)
+    finally:
+        cb.REVERSE_WARPS = keep
+    return ms
+
+
+def _group_rects(B, dev):
+    """The origins (x, y) of a block's 16 x 8 pixel groups, in the
+    kernels' order."""
+    gxn = B // 16
+    r = torch.arange(gxn * (B // 8), device=dev)
+    return ((r % gxn) * 16).float(), ((r // gxn) * 8).float()
+
+
+def _group_max(v, B):
+    """(n, B*B) per-pixel values -> (n, groups) the max of each group."""
+    n = v.shape[0]
+    return v.reshape(n, B // 8, 8, B // 16, 16).amax(dim=(2, 4)).reshape(
+        n, -1)
+
+
+def _box_hits(xl, xh, yl, yh, rx, ry, px, py):
+    """Boxes (n,) against the groups (G,) and the pixels (P,): (meets
+    (n, G), inside (n, P))."""
+    meets = ((xl[:, None] <= rx + 15) & (xh[:, None] >= rx)
+             & (yl[:, None] <= ry + 7) & (yh[:, None] >= ry))
+    inside = ((xl[:, None] <= px) & (px <= xh[:, None])
+              & (yl[:, None] <= py) & (py <= yh[:, None]))
+    return meets, inside
+
+
+def window_cull(F, out, meta, chunk=64):
+    """The reverse walk of windows F (nblocks, 16, K) with blend state out
+    (K5 / K9) on this data: the share of the walked (candidate, 16 x 8
+    pixel group) pairs that no warp lists (the candidate's box,
+    cuda_blend.window_boxes, misses the group, or the candidate lies past
+    the group's last contributor), the (candidate, pixel) pairs of the
+    unculled walk (each pixel back from its last contributor) and the ones
+    among them whose pixel lies in the box (the pairs the kernel
+    evaluates)."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+
+    dev, B = F.device, meta.B
+    last = out[:, 5]
+    top = last.amax(dim=1)
+    gtop = _group_max(last, B)
+    rx, ry = _group_rects(B, dev)
+    pix = torch.arange(B * B, device=dev)
+    px, py = (pix % B).float(), (pix // B).float()
+    walked = listed = kept = 0
+    for c0 in range(0, int(top.max()), chunk):
+        Fc = F[:, :, c0:c0 + chunk]
+        nb, c = Fc.shape[0], Fc.shape[2]
+        box = [v.reshape(-1) for v in cb.window_boxes(Fc, B, meta.alpha_min)]
+        meets, inside = _box_hits(*box, rx, ry, px, py)
+        idx1 = torch.arange(c0 + 1, c0 + 1 + c, device=dev).float()
+        walked += int((idx1[None, :] <= top[:, None]).sum()) * rx.numel()
+        listed += int((meets.reshape(nb, c, -1)
+                       & (idx1[None, :, None] <= gtop[:, None, :])).sum())
+        kept += int((inside.reshape(nb, c, -1)
+                     & (idx1[None, :, None] <= last[:, None, :])).sum())
+    return dict(culled_share=1.0 - listed / max(walked, 1),
+                pairs=float(last.to(torch.float64).sum()),
+                kept_pairs=float(kept))
+
+
+def k7_cull(splanes, bounds, out, nbx, B, alpha_min, chunk=2048):
+    """K7's reverse walk on this data: the share of the walked (slot, 16 x
+    8 pixel group) pairs that no warp lists (the slot's box,
+    stream_raster.cull_boxes, misses the group, or the slot lies past the
+    group's last contributor), the (slot, pixel) pairs of the unculled
+    walk (each pixel back from its last contributor to its segment's
+    start) and the ones among them whose pixel lies in the box."""
+    from gsmpm_tpu_torch.render import stream_raster as sr
+
+    dev = splanes.device
+    nf = bounds.numel() - 1
+    lo = bounds[:-1].to(torch.int64)
+    hi = bounds[1:].to(torch.int64)
+    last = out[:, 5]
+    top = torch.minimum(last.amax(dim=1).to(torch.int64), hi)
+    gtop = _group_max(last, B)
+    s0, s1 = int(bounds[0]), int(bounds[-1])
+    blk_all = torch.repeat_interleave(torch.arange(nf, device=dev), hi - lo)
+    px, py = sr._pixel_coords(B, dev)[:2]
+    rx, ry = _group_rects(B, dev)
+    walked = listed = kept = 0
+    for c0 in range(s0, s1, chunk):
+        ids = torch.arange(c0, min(c0 + chunk, s1), device=dev)
+        blk = blk_all[ids - s0]
+        w = ids < top[blk]
+        ids, blk = ids[w], blk[w]
+        if ids.numel() == 0:
+            continue
+        p = splanes[:, ids]
+        box = sr.cull_boxes(p[0] - ((blk % nbx) * B).float(),
+                            p[1] - ((blk // nbx) * B).float(), p, alpha_min)
+        meets, inside = _box_hits(*box, rx, ry, px, py)
+        idx1 = (ids + 1).float()[:, None]
+        walked += ids.numel() * rx.numel()
+        listed += int((meets & (idx1 <= gtop[blk])).sum())
+        kept += int((inside & (idx1 <= last[blk])).sum())
+    return dict(culled_share=1.0 - listed / max(walked, 1),
+                pairs=float((last.to(torch.float64) - lo[:, None])
+                            .clamp_min(0).sum()),
+                kept_pairs=float(kept))
 
 
 def small_parity(dev):
@@ -739,6 +866,8 @@ def blend_phases(dev, ident, first):
             np.float32)).to(dev)
         dF_k = cb.blend_bwd(F, out_k, g, meta)
         dF_r = cb.blend_core_bwd_ref(F, out_k, g, meta)
+        # the sums run in a fixed order: a second launch gives the bits
+        bits5 = torch.equal(dF_k, cb.blend_bwd(F, out_k, g, meta))
         torch.cuda.synchronize()
         rel5 = {}
         for gname, rows in (("quad", slice(0, 6)), ("logo", slice(6, 7)),
@@ -757,11 +886,14 @@ def blend_phases(dev, ident, first):
         check(last_diff <= 1e-4, f"K4 {tier}: last index differs {last_diff}")
         check(max(rel5.values()) <= 1e-4, f"K5 {tier}: rel err {rel5}")
         check(pad_rows == 0.0, f"K5 {tier}: unused dF rows {pad_rows}")
+        check(bits5, f"K5 {tier}: two launches differ")
         ms4 = cuda_ms(lambda: cb.blend_fwd(counts, F, meta), 20)
         pms4 = cuda_ms(lambda: cb.blend_core_ref(counts, F, meta), 1, 1)
         ms5 = cuda_ms(lambda: cb.blend_bwd(F, out_k, g, meta), 20)
         pms5 = cuda_ms(lambda: cb.blend_core_bwd_ref(F, out_k, g, meta), 1,
                        1)
+        var5 = reverse_variants(lambda: cb.blend_bwd(F, out_k, g, meta))
+        cull5 = window_cull(F, out_k, meta)
         # (candidate, pixel) pairs this data needs: forward, each pixel up
         # to its stop (its last contributor when done, else its block's
         # count); backward, each pixel back from its last contributor
@@ -773,15 +905,21 @@ def blend_phases(dev, ident, first):
         live_cols = float(counts.sum())
         # bytes: the 10 used F rows of the live candidates, the outputs
         # (K4) / inputs and dF (K5); >= 20 fp32 operations per forward pair,
-        # the backward's as GATE_OPS / BWD_CONTRIB_OPS say
+        # the backward's as GATE_OPS / BWD_CONTRIB_OPS say, the gate charged
+        # to the walked pairs inside the box (and, as before PR 5, to all)
         b4 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs4 * 20.0)
-        b5 = bound_ms(live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4,
-                      pairs5 * GATE_OPS + contrib5 * BWD_CONTRIB_OPS)
+        bytes5 = live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4
+        b5 = bound_ms(bytes5, cull5["kept_pairs"] * GATE_OPS
+                      + contrib5 * BWD_CONTRIB_OPS)
+        b5_all = bound_ms(bytes5, pairs5 * GATE_OPS
+                          + contrib5 * BWD_CONTRIB_OPS)
         tiers[tier] = dict(nblocks=nb, K=K, live=live_cols, err4=err4,
                            done_diff=done_diff, last_diff=last_diff,
                            rel5=rel5, ms4=ms4, pms4=pms4, ms5=ms5, pms5=pms5,
-                           b4=b4, b5=b5, pairs4=pairs4, pairs5=pairs5,
-                           contrib5=contrib5)
+                           b4=b4, b5=b5, b5_all=b5_all, pairs4=pairs4,
+                           pairs5=pairs5, contrib5=contrib5, var5=var5,
+                           blocks5=cb.reverse_blocks(nb, meta.B),
+                           bits5=bits5, **cull5)
         print(f"K4/K5 {tier}: {nb} blocks x K {K} ({live_cols:.0f} live "
               f"candidates): K4 max err {err4:.3g}, done differ "
               f"{done_diff:.3g}, last differ {last_diff:.3g}, "
@@ -789,10 +927,16 @@ def blend_phases(dev, ident, first):
               f"{pairs4:.4g} pairs); K5 rel err "
               + ", ".join(f"{k} {v:.3g}" for k, v in rel5.items())
               + f", {ms5:.4f} ms (plain {pms5:.2f}, bound {b5[0]:.4f} "
-              f"{b5[1]}, {pairs5:.4g} pairs, {contrib5:.4g} contributing)",
+              f"{b5[1]}, all-walked bound {b5_all[0]:.4f}; {pairs5:.4g} "
+              f"pairs, {cull5['kept_pairs']:.4g} in the box, {contrib5:.4g} "
+              f"contributing; {tiers[tier]['blocks5']} CUDA blocks, "
+              f"{cull5['culled_share']:.4f} of the (candidate, group) pairs "
+              f"culled, rerun bit-equal {bits5}; by warps per block "
+              + ", ".join(f"{k}: {v:.4f} ms" for k, v in var5.items()) + ")",
               flush=True)
 
-    def row(name, wrapper, err, ms, pms, b, pairs, replaces, tol):
+    def row(name, wrapper, err, ms, pms, b, pairs, replaces, tol,
+            extra=()):
         bound = sum(tiers[t][b][0] for t in tiers)
         by = max(tiers.values(), key=lambda v: v[b][0])[b][1]
         return dict(
@@ -805,7 +949,8 @@ def blend_phases(dev, ident, first):
             bound_ms=bound, bound_by=by,
             per_tier={t: dict(K=v["K"], nblocks=v["nblocks"], ms=v[ms],
                               plain_ms=v[pms], bound_ms=v[b][0],
-                              bound_by=v[b][1], pairs=v[pairs])
+                              bound_by=v[b][1], pairs=v[pairs],
+                              **{k: v[k] for k in extra})
                       for t, v in tiers.items()})
 
     r4 = row("blend_fwd", cb.blend_fwd,
@@ -815,7 +960,14 @@ def blend_phases(dev, ident, first):
     r5 = row("blend_bwd", cb.blend_bwd,
              max(max(v["rel5"].values()) for v in tiers.values()), "ms5",
              "pms5", "b5", "pairs5", "gsmpm_tpu/render/pallas_blend.py:212",
-             "1e-4 x max per dF row group")
+             "1e-4 x max per dF row group",
+             extra=("blocks5", "culled_share", "kept_pairs", "b5_all",
+                    "var5", "bits5"))
+    r5.update(blocks=sum(v["blocks5"] for v in tiers.values()),
+              bound_all_walked_ms=sum(v["b5_all"][0] for v in tiers.values()),
+              variants_ms={nw: sum(v["var5"][nw] for v in tiers.values())
+                           for nw in REVERSE_VARIANTS},
+              bit_equal=all(v["bits5"] for v in tiers.values()))
     return [r4, r5], tiers
 
 
@@ -996,6 +1148,7 @@ def _fit_stream(ident, state, cam):
 def stream_bwd_phase(dev, ident, first):
     """K7 against its twin on the steady stream-fit frame's real stream and
     blend state, with a seeded cotangent; K3 timed on the same stream."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
     from gsmpm_tpu_torch.render import stream_raster as sr
 
     state, cam = first[0], first[1]
@@ -1011,6 +1164,9 @@ def stream_bwd_phase(dev, ident, first):
                                  .astype(np.float32)).to(dev)
     got = sr.stream_blend_bwd(splanes, bounds, out, g, *args)
     want = sr.stream_blend_bwd_ref(splanes, bounds, out, g, *args)
+    # the sums run in a fixed order: a second launch gives the bits
+    bits7 = torch.equal(got, sr.stream_blend_bwd(splanes, bounds, out, g,
+                                                 *args))
     torch.cuda.synchronize()
     rel = {}
     for gname, rows in (("position", slice(0, 2)), ("conic", slice(2, 5)),
@@ -1022,8 +1178,11 @@ def stream_bwd_phase(dev, ident, first):
     # the reverse walk recovers T by division, sequentially here and per
     # chunk in the twin: 1e-4 of each row group's largest entry
     check(max(rel.values()) <= 1e-4, f"K7 stream bwd: rel err {rel}")
+    check(bits7, "K7 stream bwd: two launches differ")
     ms7 = cuda_ms(lambda: sr.stream_blend_bwd(splanes, bounds, out, g, *args),
                   20)
+    var7 = reverse_variants(lambda: sr.stream_blend_bwd(splanes, bounds, out,
+                                                        g, *args))
     pms7 = cuda_ms(lambda: sr.stream_blend_bwd_ref(splanes, bounds, out, g,
                                                    *args), 1, 1)
     ms3 = cuda_ms(lambda: sr.stream_blend(splanes, bounds, lv.nbx, cfg.block,
@@ -1044,24 +1203,34 @@ def stream_bwd_phase(dev, ident, first):
           f"{cull['kept_pairs']:.4g}; {ms3:.4f} ms, bound {b3[0]:.4f} "
           f"{b3[1]}", flush=True)
     # (slot, pixel) pairs this data needs: each pixel from its last
-    # contributor back to its segment's start, gated; the contributing
-    # ones among them (GATE_OPS / BWD_CONTRIB_OPS)
+    # contributor back to its segment's start, gated where the pixel lies
+    # in the slot's box (and, as before PR 5, everywhere); the
+    # contributing ones among them (GATE_OPS / BWD_CONTRIB_OPS)
     lo = bounds[:-1].to(torch.float64)
     last = out[:, 5].to(torch.float64)
-    pairs = float((last - lo[:, None]).clamp_min(0).sum())
+    cull7 = k7_cull(splanes, bounds, out, *args)
+    pairs = cull7["pairs"]
     contrib = _contrib_pairs_stream(splanes, bounds, out, *args)
     walked = float((last.amax(dim=1) - lo).clamp_min(0).sum())
     # bytes: the walked slots' 9 planes, the state and cotangent rows read
     # (T, last, rgb, T), d(splanes) written whole
-    b7 = bound_ms(walked * 9 * 4 + out.shape[0] * 6 * out.shape[2] * 4
-                  + splanes.numel() * 4,
-                  pairs * GATE_OPS + contrib * BWD_CONTRIB_OPS)
-    print(f"K7 stream bwd: {lv.nf} blocks, {splanes.shape[1]} slots "
-          f"({walked:.0f} walked, {pairs:.4g} pairs, {contrib:.4g} "
-          f"contributing): rel err "
+    bytes7 = (walked * 9 * 4 + out.shape[0] * 6 * out.shape[2] * 4
+              + splanes.numel() * 4)
+    b7 = bound_ms(bytes7, cull7["kept_pairs"] * GATE_OPS
+                  + contrib * BWD_CONTRIB_OPS)
+    b7_all = bound_ms(bytes7, pairs * GATE_OPS + contrib * BWD_CONTRIB_OPS)
+    blocks7 = cb.reverse_blocks(lv.nf, cfg.block)
+    print(f"K7 stream bwd: {lv.nf} display blocks in {blocks7} CUDA blocks, "
+          f"{splanes.shape[1]} slots ({walked:.0f} walked, {pairs:.4g} "
+          f"pairs, {cull7['kept_pairs']:.4g} in the box, {contrib:.4g} "
+          f"contributing; {cull7['culled_share']:.4f} of the (slot, group) "
+          f"pairs culled): rel err "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
-          + f"; {ms7:.4f} ms (plain {pms7:.2f} ms, bound {b7[0]:.4f} "
-          f"{b7[1]}); K3 on the same stream {ms3:.4f} ms", flush=True)
+          + f"; rerun bit-equal {bits7}; {ms7:.4f} ms (plain {pms7:.2f} ms, "
+          f"bound {b7[0]:.4f} {b7[1]}, all-walked bound {b7_all[0]:.4f}); "
+          "by warps per block "
+          + ", ".join(f"{k}: {v:.4f} ms" for k, v in var7.items())
+          + f"; K3 on the same stream {ms3:.4f} ms", flush=True)
     return dict(
         name="stream_blend_bwd", route="cuda",
         source="gsmpm_tpu_torch/csrc/stream_raster.cu",
@@ -1069,7 +1238,9 @@ def stream_bwd_phase(dev, ident, first):
         rel_err=max(rel.values()), tol="1e-4 x max per row group", ms=ms7,
         plain_ms=pms7, bound_ms=b7[0], bound_by=b7[1], library_ms=None,
         wrapper=sr.stream_blend_bwd, pairs=pairs, contrib_pairs=contrib,
-        walked_slots=walked,
+        walked_slots=walked, blocks=blocks7,
+        culled_share=cull7["culled_share"], kept_pairs=cull7["kept_pairs"],
+        bound_all_walked_ms=b7_all[0], variants_ms=var7, bit_equal=bits7,
         L=int(splanes.shape[1]),
         k3_fit=dict(ms=ms3, max_abs_err=err3, done_differ=done3,
                     bound_ms=b3[0], bound_by=b3[1], **cull))
@@ -1155,6 +1326,15 @@ def packed_phase(dev, ident, first, wrappers):
         np.float32)).to(dev)
     dF_k = cb.blend_packed_bwd(cnt, offs, F, out_k, g, meta)
     dF_r = cb.blend_packed_bwd_ref(cnt, offs, F, out_k, g, meta)
+    # the sums run in a fixed order: a second launch gives the bits, and
+    # K5 on the same windows gathered into the padded layout gives them too
+    bits9 = torch.equal(dF_k, cb.blend_packed_bwd(cnt, offs, F, out_k, g,
+                                                  meta))
+    cols, walked_cols = cb._packed_windows(cnt, offs, F.shape[1], meta)
+    Fw = F[:, cols].transpose(0, 1).contiguous()
+    dF5 = cb.blend_bwd(Fw, out_k, g, meta)
+    k9_is_k5 = torch.equal(dF_k[:, cols[walked_cols]],
+                           dF5.transpose(0, 1)[:, walked_cols])
     torch.cuda.synchronize()
     rel9 = {}
     for gname, rows in (("quad", slice(0, 6)), ("logo", slice(6, 7)),
@@ -1169,23 +1349,30 @@ def packed_phase(dev, ident, first, wrappers):
     check(last_diff <= 1e-4, f"K8: last index differs {last_diff}")
     check(max(rel9.values()) <= 1e-4, f"K9: rel err {rel9}")
     check(pad_rows == 0.0, f"K9: unused dF rows {pad_rows}")
+    check(bits9, "K9: two launches differ")
+    check(k9_is_k5, "K9: not K5's bits on the same windows")
     ms8 = cuda_ms(lambda: cb.blend_packed_fwd(cnt, offs, F, meta), 20)
     pms8 = cuda_ms(lambda: cb.blend_packed_ref(cnt, offs, F, meta), 1, 1)
     ms9 = cuda_ms(lambda: cb.blend_packed_bwd(cnt, offs, F, out_k, g, meta),
                   20)
     pms9 = cuda_ms(lambda: cb.blend_packed_bwd_ref(cnt, offs, F, out_k, g,
                                                    meta), 1, 1)
+    var9 = reverse_variants(lambda: cb.blend_packed_bwd(cnt, offs, F, out_k,
+                                                        g, meta))
+    cull9 = window_cull(Fw, out_k, meta)
     # pairs and bytes as K4 / K5's (blend_phases)
     cntf = cnt.to(torch.float64)[:, None]
     last = out_k[:, 5].to(torch.float64)
     pairs8 = float(torch.where(out_k[:, 4] > 0, last, cntf).sum())
     pairs9 = float(last.sum())
-    cols, _ = cb._packed_windows(cnt, offs, F.shape[1], meta)
-    contrib9 = _contrib_pairs_windows(F[:, cols].transpose(0, 1), out_k, meta)
+    contrib9 = _contrib_pairs_windows(Fw, out_k, meta)
     live_cols = float(cnt.sum())
     b8 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs8 * 20.0)
-    b9 = bound_ms(live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4,
-                  pairs9 * GATE_OPS + contrib9 * BWD_CONTRIB_OPS)
+    bytes9 = live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4
+    b9 = bound_ms(bytes9, cull9["kept_pairs"] * GATE_OPS
+                  + contrib9 * BWD_CONTRIB_OPS)
+    b9_all = bound_ms(bytes9, pairs9 * GATE_OPS + contrib9 * BWD_CONTRIB_OPS)
+    blocks9 = cb.reverse_blocks(nb, meta.B)
     print(f"packed path: caps k_tile {cfg.k_tile} k_coarse {cfg.k_coarse} "
           f"k_global {cfg.k_global}, t_cap {cfg.t_cap} ({live_cols:.0f} live "
           f"candidates in {nb} blocks); render + backward {s_p:.3f} s packed, "
@@ -1197,7 +1384,13 @@ def packed_phase(dev, ident, first, wrappers):
           f"bound {b8[0]:.4f} {b8[1]}, {pairs8:.4g} pairs); K9 rel err "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel9.items())
           + f", {ms9:.4f} ms (plain {pms9:.2f}, bound {b9[0]:.4f} {b9[1]}, "
-          f"{pairs9:.4g} pairs, {contrib9:.4g} contributing)", flush=True)
+          f"all-walked bound {b9_all[0]:.4f}; {pairs9:.4g} pairs, "
+          f"{cull9['kept_pairs']:.4g} in the box, {contrib9:.4g} "
+          f"contributing; {blocks9} CUDA blocks, "
+          f"{cull9['culled_share']:.4f} of the (candidate, group) pairs "
+          f"culled; rerun bit-equal {bits9}, K5's bits {k9_is_k5}; by warps "
+          "per block " + ", ".join(f"{k}: {v:.4f} ms" for k, v in var9.items())
+          + ")", flush=True)
     common = dict(route="cuda", source="gsmpm_tpu_torch/csrc/tile_blend.cu",
                   library_ms=None)
     rows = [
@@ -1211,7 +1404,10 @@ def packed_phase(dev, ident, first, wrappers):
              max_abs_err=float((dF_k - dF_r).abs().max()),
              tol="1e-4 x max per dF row group", ms=ms9, plain_ms=pms9,
              bound_ms=b9[0], bound_by=b9[1], pairs=pairs9,
-             contrib_pairs=contrib9, **common),
+             contrib_pairs=contrib9, blocks=blocks9,
+             culled_share=cull9["culled_share"],
+             kept_pairs=cull9["kept_pairs"], bound_all_walked_ms=b9_all[0],
+             variants_ms=var9, bit_equal=bits9 and k9_is_k5, **common),
     ]
     return counts_p, dict(
         caps=dict(k_tile=cfg.k_tile, k_coarse=cfg.k_coarse,

@@ -91,15 +91,16 @@
 
 #include <cuda_runtime.h>
 
+#include "reverse_walk.cuh"
+
 namespace {
+
 
 constexpr int FWD_WARPS = 32;      // K3: one 16 x 8 pixel group per warp
 constexpr int FWD_THREADS = FWD_WARPS * 32;
 constexpr int FWD_PPT = 4;         // pixels per K3 lane
 constexpr int CH = 256;            // slots staged per step (K3's lists
                                    // hold slot indices in a byte)
-constexpr int BWD_THREADS = 1024;  // K7
-constexpr int MAX_PPT = 4;         // pixels per K7 thread (B <= 64)
 constexpr unsigned FULL = 0xffffffffu;
 
 // The quadratic form's coefficients of the block-local pixel monomials
@@ -115,18 +116,31 @@ __device__ __forceinline__ void conic_rows(float gx, float gy, float a,
   F[5] = -bb;
 }
 
-// log alpha of one (slot, pixel) pair, summed in the twins' order
-__device__ __forceinline__ float power_of(float F0, float F1, float F2,
-                                          float F3, float F4, float F5,
-                                          float logo, float pxx, float px,
-                                          float pyy, float py, float pxy) {
-  float power = F0 * pxx;
-  power = power + F1 * px;
-  power = power + F2;
-  power = power + F3 * pyy;
-  power = power + F4 * py;
-  power = power + F5 * pxy;
-  return power + logo;
+using rwalk::power_of;  // log alpha of a (slot, pixel) pair
+
+// The box, in block-local pixels, outside which a splat at block offset
+// (gx, gy) with conic (a, b, c) and log opacity logo cannot pass the gate
+// (stream_raster.cull_boxes in plain torch).  power = log opacity - q / 2,
+// q = a dx^2 + 2 b dx dy + c dy^2, so the gate needs q <= 2 k with k = log
+// opacity - ln(alpha_min) (log_amin carries 1e-3 of slack for expf): none
+// when k < 0, else |dx| <= sqrt(2 k c / det), |dy| <= sqrt(2 k a / det),
+// widened by 0.1% and one pixel against the rounding of the F form.  A
+// conic that is not positive definite is never culled by its box.
+__device__ __forceinline__ void slot_box(float gx, float gy, float a,
+                                         float bb, float c, float logo,
+                                         float log_amin, float* box) {
+  const float k = logo - log_amin;
+  const float det = a * c - bb * bb;
+  const float inf = __int_as_float(0x7f800000);
+  float xl = -inf, xh = inf, yl = -inf, yh = inf;
+  if (!(k >= 0.0f)) {
+    xl = inf;  // culled everywhere (NaN planes too)
+  } else if (a > 0.0f && c > 0.0f && det > 0.0f) {
+    const float ex = sqrtf(2.0f * k * c / det) * 1.001f + 1.0f;
+    const float ey = sqrtf(2.0f * k * a / det) * 1.001f + 1.0f;
+    xl = gx - ex; xh = gx + ex; yl = gy - ey; yh = gy + ey;
+  }
+  box[0] = xl; box[1] = xh; box[2] = yl; box[3] = yh;
 }
 
 __global__ void __launch_bounds__(FWD_THREADS)
@@ -187,23 +201,10 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
       sF[6][j] = logo;
 #pragma unroll
       for (int r = 0; r < 3; ++r) sF[7 + r][j] = splanes[(6 + r) * (size_t)L + i];
-      // power = log opacity - q / 2, q = a dx^2 + 2 b dx dy + c dy^2, so
-      // the gate needs q <= 2 k with k = log opacity - ln(alpha_min): none
-      // when k < 0, else |dx| <= sqrt(2 k c / det), |dy| <= sqrt(2 k a /
-      // det), widened by one pixel against the rounding of the F form.  A
-      // conic that is not positive definite is never culled by its box.
-      const float k = logo - log_amin;
-      const float det = a * c - bb * bb;
-      const float inf = __int_as_float(0x7f800000);
-      float xl = -inf, xh = inf, yl = -inf, yh = inf;
-      if (!(k >= 0.0f)) {
-        xl = inf;  // culled everywhere (NaN planes too)
-      } else if (a > 0.0f && c > 0.0f && det > 0.0f) {
-        const float ex = sqrtf(2.0f * k * c / det) * 1.001f + 1.0f;
-        const float ey = sqrtf(2.0f * k * a / det) * 1.001f + 1.0f;
-        xl = gx - ex; xh = gx + ex; yl = gy - ey; yh = gy + ey;
-      }
-      box[0][j] = xl; box[1][j] = xh; box[2][j] = yl; box[3][j] = yh;
+      float bx[4];
+      slot_box(gx, gy, a, bb, c, logo, log_amin, bx);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) box[r][j] = bx[r];
     }
     __syncthreads();
     // this warp's list: the staged slots whose box meets its rectangle, in
@@ -265,136 +266,138 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
   }
 }
 
-__global__ void __launch_bounds__(BWD_THREADS)
+// staged rows of a slot: conic rows F0..F5 (0..5), log opacity (6), rgb
+// (7..9), the splat's block offset gx, gy (10, 11), its conic a, b, c
+// (12..14) and its box (15..18)
+constexpr int BWD_NS = 19;
+
+template <int NW>
+__global__ void __launch_bounds__(NW * 32, 32 / NW)
 stream_bwd_kernel(const float* __restrict__ splanes, int L,
                   const int* __restrict__ bounds,
                   const float* __restrict__ out, const float* __restrict__ g,
                   float* __restrict__ dsp, int nbx, int B, float alpha_min) {
-  __shared__ float sp[9][CH];   // raw planes of the staged slots
-  __shared__ float sF[6][CH];   // their conic rows
-  __shared__ float acc[9][CH];  // per-slot sums over the block's pixels
-  __shared__ int s_top;
-  const int b = blockIdx.x;
+  using Sh = rwalk::Shared<NW, BWD_NS>;
+  constexpr int CHB = rwalk::CH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Sh& sh = *reinterpret_cast<Sh*>(smem);
+  cooperative_groups::cluster_group cl =
+      cooperative_groups::this_cluster();
+  const int nranks = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int b = blockIdx.x / nranks;
   const int P = B * B;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float x0 = (float)((b % nbx) * B), y0 = (float)((b / nbx) * B);
   const int lo = bounds[b], hi = bounds[b + 1];
-  const float* ob = out + (size_t)b * 8 * P;
-  const float* gb = g + (size_t)b * 8 * P;
 
-  float px[MAX_PPT], py[MAX_PPT], T[MAX_PPT], S[MAX_PPT];
-  float gr[MAX_PPT], gg[MAX_PPT], gbl[MAX_PPT];
-  int last[MAX_PPT];
-  int my_top = 0;
-#pragma unroll
-  for (int k = 0; k < MAX_PPT; ++k) {
-    const int p = threadIdx.x + k * BWD_THREADS;
-    const bool ok = p < P;
-    px[k] = (float)(p % B);
-    py[k] = (float)(p / B);
-    T[k] = ok ? ob[3 * P + p] : 1.0f;
-    S[k] = ok ? T[k] * gb[3 * P + p] : 0.0f;
-    gr[k] = ok ? gb[0 * P + p] : 0.0f;
-    gg[k] = ok ? gb[1 * P + p] : 0.0f;
-    gbl[k] = ok ? gb[2 * P + p] : 0.0f;
-    last[k] = ok ? (int)ob[5 * P + p] : 0;
-    my_top = max(my_top, last[k]);
-  }
-  if (threadIdx.x == 0) s_top = 0;
-  __syncthreads();
-  atomicMax(&s_top, my_top);
-  __syncthreads();
+  rwalk::Lane ln;
+  rwalk::load_lane(ln, rank * NW + warp, B, out + (size_t)b * 8 * P,
+                   g + (size_t)b * 8 * P, lane);
   // slots [lo, top) hold every contributor of the block
-  const int top = min(s_top, hi);
-  const int steps = top > lo ? (top - lo + CH - 1) / CH : 0;
+  const int top = min(rwalk::cluster_top(cl, sh, ln, lane), hi);
+  const int steps = top > lo ? (top - lo + CHB - 1) / CHB : 0;
+  const float log_amin = logf(alpha_min) - 1e-3f;
 
   for (int step = steps - 1; step >= 0; --step) {
-    const int base = lo + step * CH;
-    const int n = min(CH, hi - base);
-    for (int i = threadIdx.x; i < 9 * CH; i += BWD_THREADS) {
-      const int r = i / CH, j = i % CH;
-      sp[r][j] = j < n ? splanes[(size_t)r * L + base + j] : 0.0f;
-      (&acc[0][0])[i] = 0.0f;
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += BWD_THREADS) {
-      float F[6];
-      conic_rows(sp[0][j] - x0, sp[1][j] - y0, sp[2][j], sp[3][j], sp[4][j],
-                 F);
+    const int base = lo + step * CHB;
+    const int n = min(CHB, hi - base);
+    // stage each slot once: its conic rows (K3's expressions) and box
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const size_t i = (size_t)base + j;
+      const float gx = splanes[i] - x0, gy = splanes[L + i] - y0;
+      const float a = splanes[2 * (size_t)L + i];
+      const float bb = splanes[3 * (size_t)L + i];
+      const float c = splanes[4 * (size_t)L + i];
+      const float logo = splanes[5 * (size_t)L + i];
+      float F[6], box[4];
+      conic_rows(gx, gy, a, bb, c, F);
+      slot_box(gx, gy, a, bb, c, logo, log_amin, box);
 #pragma unroll
-      for (int r = 0; r < 6; ++r) sF[r][j] = F[r];
+      for (int r = 0; r < 6; ++r) sh.st[r][j] = F[r];
+      sh.st[6][j] = logo;
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        sh.st[7 + r][j] = splanes[(6 + r) * (size_t)L + i];
+      sh.st[10][j] = gx;
+      sh.st[11][j] = gy;
+      sh.st[12][j] = a;
+      sh.st[13][j] = bb;
+      sh.st[14][j] = c;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sh.st[15 + r][j] = box[r];
     }
+    rwalk::clear_mask(sh, warp, lane);
     __syncthreads();
-    for (int j = n - 1; j >= 0; --j) {
+    const int count = rwalk::warp_list(sh.st[15], sh.st[16], sh.st[17],
+                                       sh.st[18], min(n, ln.top - base), ln,
+                                       sh.list[warp], lane);
+    for (int e = count - 1; e >= 0; --e) {
+      const int j = sh.list[warp][e];
       const int idx1 = base + j + 1;
-      const float gxs = sp[0][j] - x0, gys = sp[1][j] - y0;
-      float v[9];
+      float v[rwalk::NSUM];
 #pragma unroll
-      for (int r = 0; r < 9; ++r) v[r] = 0.0f;
+      for (int r = 0; r < rwalk::NSUM; ++r) v[r] = 0.0f;
       bool any = false;
+      if (ln.px >= sh.st[15][j] && ln.px <= sh.st[16][j]) {
+        const float yl = sh.st[17][j], yh = sh.st[18][j];
+        const float F0 = sh.st[0][j], F1 = sh.st[1][j], F2 = sh.st[2][j];
+        const float F3 = sh.st[3][j], F4 = sh.st[4][j], F5 = sh.st[5][j];
+        const float logo = sh.st[6][j];
+        const float c0 = sh.st[7][j], c1 = sh.st[8][j], c2 = sh.st[9][j];
+        const float gxs = sh.st[10][j], gys = sh.st[11][j];
 #pragma unroll
-      for (int k = 0; k < MAX_PPT; ++k) {
-        if (idx1 > last[k]) continue;
-        const float pxx = px[k] * px[k], pyy = py[k] * py[k];
-        const float pxy = px[k] * py[k];
-        const float logo = sp[5][j];
-        const float power = power_of(sF[0][j], sF[1][j], sF[2][j], sF[3][j],
-                                     sF[4][j], sF[5][j], logo, pxx, px[k],
-                                     pyy, py[k], pxy);
-        const float expp = expf(power);
-        const float alpha = fminf(0.99f, expp);
-        if (!(power <= logo && alpha >= alpha_min)) continue;
-        const float one_minus = 1.0f - alpha;
-        const float T_before = T[k] / one_minus;
-        const float w = T_before * alpha;
-        const float cdot = sp[6][j] * gr[k] + sp[7][j] * gg[k]
-                           + sp[8][j] * gbl[k];
-        const float dA = T_before * cdot - S[k] / one_minus;
-        const float dP = expp < 0.99f ? dA * alpha : 0.0f;
-        S[k] += w * cdot;
-        T[k] = T_before;
-        // the power's monomials centred on the splat: no cancellation
-        const float dx = px[k] - gxs, dy = py[k] - gys;
-        v[0] += dx * dx * dP;
-        v[1] += dx * dy * dP;
-        v[2] += dy * dy * dP;
-        v[3] += dx * dP;
-        v[4] += dy * dP;
-        v[5] += dP;
-        v[6] += gr[k] * w;
-        v[7] += gg[k] * w;
-        v[8] += gbl[k] * w;
-        any = true;
-      }
-      if (__any_sync(FULL, any)) {
-#pragma unroll
-        for (int r = 0; r < 9; ++r) {
-          float x = v[r];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            x += __shfl_xor_sync(FULL, x, off);
-          if (lane == 0 && x != 0.0f) atomicAdd(&acc[r][j], x);
+        for (int k = 0; k < rwalk::PPT; ++k) {
+          const float py = ln.py[k];
+          if (idx1 > ln.last[k] || py < yl || py > yh) continue;
+          const float pyy = py * py, pxy = ln.px * py;
+          const float power = power_of(F0, F1, F2, F3, F4, F5, logo, ln.pxx,
+                                       ln.px, pyy, py, pxy);
+          float w, dP;
+          if (!rwalk::pair_grad(power, logo, c0, c1, c2, alpha_min, ln.T[k],
+                                ln.S[k], ln.gr[k], ln.gg[k], ln.gb[k], w,
+                                dP))
+            continue;
+          // the power's monomials centred on the splat: no cancellation
+          const float dx = ln.px - gxs, dy = py - gys;
+          v[0] += dx * dx * dP;
+          v[1] += dx * dy * dP;
+          v[2] += dy * dy * dP;
+          v[3] += dx * dP;
+          v[4] += dy * dP;
+          v[5] += dP;
+          v[6] += ln.gr[k] * w;
+          v[7] += ln.gg[k] * w;
+          v[8] += ln.gb[k] * w;
+          any = true;
         }
       }
+      rwalk::warp_emit(sh, warp, lane, j, v, any);
     }
     __syncthreads();
-    // the F build's transpose to the 9 raw rows, one thread per slot:
-    // power = -0.5 a dx^2 - b dx dy - 0.5 c dy^2 + log opacity
-    for (int j = threadIdx.x; j < n; j += BWD_THREADS) {
-      const float a = sp[2][j], bb = sp[3][j], c = sp[4][j];
-      const float sx = acc[3][j], sy = acc[4][j];
+    rwalk::block_sum(sh, n);
+    cl.sync();
+    // this block's slice of the step's slots, totalled over the cluster,
+    // through the F build's transpose to the 9 raw rows: power = -0.5 a
+    // dx^2 - b dx dy - 0.5 c dy^2 + log opacity.  A slot no pixel reached
+    // keeps the wrapper's zeros.
+    int j0, j1;
+    rwalk::slice_of(cl, n, j0, j1);
+    for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
+      float t[rwalk::NSUM];
+      if (!rwalk::cluster_total(cl, sh, j, t)) continue;
+      const float a = sh.st[12][j], bb = sh.st[13][j], c = sh.st[14][j];
       float* o = dsp + base + j;
-      o[0 * (size_t)L] = a * sx + bb * sy;
-      o[1 * (size_t)L] = bb * sx + c * sy;
-      o[2 * (size_t)L] = -0.5f * acc[0][j];
-      o[3 * (size_t)L] = -acc[1][j];
-      o[4 * (size_t)L] = -0.5f * acc[2][j];
-      o[5 * (size_t)L] = acc[5][j];
-      o[6 * (size_t)L] = acc[6][j];
-      o[7 * (size_t)L] = acc[7][j];
-      o[8 * (size_t)L] = acc[8][j];
+      o[0 * (size_t)L] = a * t[3] + bb * t[4];
+      o[1 * (size_t)L] = bb * t[3] + c * t[4];
+      o[2 * (size_t)L] = -0.5f * t[0];
+      o[3 * (size_t)L] = -t[1];
+      o[4 * (size_t)L] = -0.5f * t[2];
+      o[5 * (size_t)L] = t[5];
+      o[6 * (size_t)L] = t[6];
+      o[7 * (size_t)L] = t[7];
+      o[8 * (size_t)L] = t[8];
     }
-    __syncthreads();  // the next step overwrites sp, sF and acc
+    cl.sync();  // the next step overwrites the staged rows and partials
   }
 }
 
@@ -422,12 +425,23 @@ int gsmpm_stream_fwd(const float* splanes, int L, const int* bounds,
 
 int gsmpm_stream_bwd(const float* splanes, int L, const int* bounds,
                      const float* out, const float* g, float* dsp, int nf,
-                     int nbx, int B, float alpha_min, void* stream) {
+                     int nbx, int B, float alpha_min, int warps,
+                     void* stream) {
   if (nf <= 0) return cudaSuccess;
-  stream_bwd_kernel<<<nf, BWD_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      splanes, L, bounds, out, g, dsp, nbx, B, alpha_min);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (warps) {
+#define GSMPM_BWD(NW)                                                     \
+  case NW:                                                                \
+    return rwalk::launch<NW, BWD_NS>(stream_bwd_kernel<NW>, nf, B, st,    \
+                                     splanes, L, bounds, out, g, dsp, nbx, \
+                                     B, alpha_min);
+    GSMPM_BWD(4)
+    GSMPM_BWD(8)
+    GSMPM_BWD(32)
+#undef GSMPM_BWD
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

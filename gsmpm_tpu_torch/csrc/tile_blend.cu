@@ -72,16 +72,14 @@
 
 #include <cuda_runtime.h>
 
+#include "reverse_walk.cuh"
+
 namespace {
 
+
 constexpr int FWD_THREADS = 256;   // 16 x 16 pixels
-constexpr int BWD_THREADS = 1024;
-constexpr int MAX_PPT = 4;         // pixels per backward thread (B <= 64)
-constexpr int CH = 256;            // candidates staged per step
-constexpr int JS = 32;             // candidates per backward partial sum
-constexpr int NWARP = BWD_THREADS / 32;
+constexpr int CH = 256;            // candidates staged per forward step
 constexpr int NROW = 10;           // staged F rows: 0..6 and 8..10
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int frow(int r) { return r < 7 ? r : r + 1; }
 
@@ -181,16 +179,67 @@ blend_fwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   o[7 * P] = 0.0f;
 }
 
-template <bool PACKED>
-__global__ void __launch_bounds__(BWD_THREADS)
+// The box, in block-local pixels, outside which the candidate of F rows
+// F[0..6] cannot pass the gate (power <= F6, alpha >= alpha_min), with the
+// expressions of cuda_blend.window_boxes.  The conic is a = -2 F0, c = -2
+// F3, b = -F5 (exact); the centre g solves M g = (F1, F4); the power's
+// peak is the form evaluated at g (first-order insensitive to the solve's
+// rounding), and the gate needs q(p - g) <= 2 k, k = peak - ln(alpha_min):
+// half-extents sqrt(2 k c / det), sqrt(2 k a / det).  k is widened by 1e-3
+// (expf) and 4e-6 of the magnitude of the power's terms over the block
+// and at g (the rounding of F2 and of the sums), the extents by 0.1% and
+// a pixel (the centre's rounding).  Empty for a dead column, a log opacity
+// below ln(alpha_min) or k < 0; infinite for a conic that is not positive
+// definite or is near-singular (det <= 1e-3 a c).
+__device__ __forceinline__ void window_box(const float* F, int B,
+                                           float log_amin, float* box) {
+  const float inf = __int_as_float(0x7f800000);
+  float xl = -inf, xh = inf, yl = -inf, yh = inf;
+  const float a = -2.0f * F[0], c = -2.0f * F[3], bb = -F[5];
+  const float det = a * c - bb * bb;
+  if (!(F[6] - log_amin >= 0.0f)) {
+    xl = inf;  // never passes (dead columns, NaN too)
+  } else if (a > 0.0f && c > 0.0f && det > 1e-3f * (a * c)) {
+    const float gx = (c * F[1] - bb * F[4]) / det;
+    const float gy = (a * F[4] - bb * F[1]) / det;
+    const float peak = rwalk::power_of(F[0], F[1], F[2], F[3], F[4], F[5],
+                                       F[6], gx * gx, gx, gy * gy, gy,
+                                       gx * gy);
+    const float fb = (float)B;
+    const float mag = fabsf(F[0] * (gx * gx)) + fabsf(F[1] * gx)
+                      + fabsf(F[2]) + fabsf(F[3] * (gy * gy))
+                      + fabsf(F[4] * gy) + fabsf(F[5] * (gx * gy))
+                      + (fabsf(F[0]) + fabsf(F[3]) + fabsf(F[5])) * (fb * fb)
+                      + (fabsf(F[1]) + fabsf(F[4])) * fb;
+    const float k = peak - log_amin + 4e-6f * mag;
+    if (!(k >= 0.0f)) {
+      xl = inf;
+    } else {
+      const float ex = sqrtf(2.0f * k * c / det) * 1.001f + 1.0f;
+      const float ey = sqrtf(2.0f * k * a / det) * 1.001f + 1.0f;
+      xl = gx - ex; xh = gx + ex; yl = gy - ey; yh = gy + ey;
+    }
+  }
+  box[0] = xl; box[1] = xh; box[2] = yl; box[3] = yh;
+}
+
+// staged rows of a candidate: F rows 0..6, colors (7..9), box (10..13)
+constexpr int BWD_NS = 14;
+
+template <bool PACKED, int NW>
+__global__ void __launch_bounds__(NW * 32, 32 / NW)
 blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                  const float* __restrict__ F, const float* __restrict__ out,
                  const float* __restrict__ g, float* __restrict__ dF, int K,
                  int C, int n_chunks, int B, float alpha_min) {
-  __shared__ float sF[NROW][CH];
-  __shared__ float part[NWARP][9][JS];  // per-warp sums of JS candidates
-  __shared__ int s_top;
-  const int b = blockIdx.x;
+  using Sh = rwalk::Shared<NW, BWD_NS>;
+  constexpr int CH = rwalk::CH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Sh& sh = *reinterpret_cast<Sh*>(smem);
+  cooperative_groups::cluster_group cl =
+      cooperative_groups::this_cluster();
+  const int nranks = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int b = blockIdx.x / nranks;
   const int P = B * B;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const Window win = window_of<PACKED>(b, counts, offs, K, C, n_chunks);
@@ -198,112 +247,125 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   const size_t ld = win.ld;
   const float* Fb = F + win.col0;
   float* dFb = dF + win.col0;
-  const float* ob = out + (size_t)b * 8 * P;
-  const float* gb = g + (size_t)b * 8 * P;
 
-  float px[MAX_PPT], py[MAX_PPT], T[MAX_PPT], S[MAX_PPT];
-  float gr[MAX_PPT], gg[MAX_PPT], gbl[MAX_PPT];
-  int last[MAX_PPT];
-  int my_top = 0;
-#pragma unroll
-  for (int k = 0; k < MAX_PPT; ++k) {
-    const int p = threadIdx.x + k * BWD_THREADS;
-    const bool ok = p < P;
-    px[k] = (float)(p % B);
-    py[k] = (float)(p / B);
-    T[k] = ok ? ob[3 * P + p] : 1.0f;
-    S[k] = ok ? T[k] * gb[3 * P + p] : 0.0f;
-    gr[k] = ok ? gb[0 * P + p] : 0.0f;
-    gg[k] = ok ? gb[1 * P + p] : 0.0f;
-    gbl[k] = ok ? gb[2 * P + p] : 0.0f;
-    last[k] = ok ? (int)ob[5 * P + p] : 0;
-    my_top = max(my_top, last[k]);
-  }
-  if (threadIdx.x == 0) s_top = 0;
-  __syncthreads();
-  atomicMax(&s_top, my_top);
-  __syncthreads();
-  // candidates [0, top) hold every contributor of the block; the steps
-  // past them only get zeros
-  const int steps = (s_top + CH - 1) / CH;
-  for (int i = min(W, steps * CH) + threadIdx.x; i < W; i += BWD_THREADS)
+  rwalk::Lane ln;
+  rwalk::load_lane(ln, rank * NW + warp, B, out + (size_t)b * 8 * P,
+                   g + (size_t)b * 8 * P, lane);
+  // candidates [0, top) hold every contributor of the block; the columns
+  // past the steps walked only get zeros, each block of the cluster a share
+  const int top = rwalk::cluster_top(cl, sh, ln, lane);
+  const int steps = (top + CH - 1) / CH;
+  for (int i = min(W, steps * CH) + rank * blockDim.x + threadIdx.x; i < W;
+       i += nranks * blockDim.x)
     for (int r = 0; r < 16; ++r) dFb[r * ld + i] = 0.0f;
+  const float log_amin = logf(alpha_min) - 1e-3f;
 
   for (int step = steps - 1; step >= 0; --step) {
     const int base = step * CH;
     const int n = min(CH, W - base);
-    for (int i = threadIdx.x; i < NROW * CH; i += BWD_THREADS) {
-      const int r = i / CH, j = i % CH;
-      sF[r][j] = j < n ? Fb[frow(r) * ld + base + j] : 0.0f;
+    // stage each candidate's rows and box
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      float f[NROW];
+#pragma unroll
+      for (int r = 0; r < NROW; ++r) f[r] = Fb[frow(r) * ld + base + j];
+      float box[4];
+      window_box(f, B, log_amin, box);
+#pragma unroll
+      for (int r = 0; r < NROW; ++r) sh.st[r][j] = f[r];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sh.st[NROW + r][j] = box[r];
     }
+    rwalk::clear_mask(sh, warp, lane);
     __syncthreads();
-    for (int j0 = (n - 1) / JS * JS; j0 >= 0; j0 -= JS) {
-      const int jn = min(JS, n - j0);
-      for (int jj = jn - 1; jj >= 0; --jj) {
-        const int j = j0 + jj;
-        const int idx1 = base + j + 1;
-        float v[9];
+    const int count = rwalk::warp_list(sh.st[10], sh.st[11], sh.st[12],
+                                       sh.st[13], min(n, ln.top - base), ln,
+                                       sh.list[warp], lane);
+    for (int e = count - 1; e >= 0; --e) {
+      const int j = sh.list[warp][e];
+      const int idx1 = base + j + 1;
+      float v[rwalk::NSUM];
 #pragma unroll
-        for (int r = 0; r < 9; ++r) v[r] = 0.0f;
-        bool any = false;
+      for (int r = 0; r < rwalk::NSUM; ++r) v[r] = 0.0f;
+      bool any = false;
+      if (ln.px >= sh.st[10][j] && ln.px <= sh.st[11][j]) {
+        const float yl = sh.st[12][j], yh = sh.st[13][j];
+        const float F0 = sh.st[0][j], F1 = sh.st[1][j], F2 = sh.st[2][j];
+        const float F3 = sh.st[3][j], F4 = sh.st[4][j], F5 = sh.st[5][j];
+        const float F6 = sh.st[6][j];
+        const float c0 = sh.st[7][j], c1 = sh.st[8][j], c2 = sh.st[9][j];
 #pragma unroll
-        for (int k = 0; k < MAX_PPT; ++k) {
-          if (idx1 > last[k]) continue;
-          const float pxx = px[k] * px[k], pyy = py[k] * py[k];
-          const float pxy = px[k] * py[k];
-          const float power = power_of(sF, j, pxx, px[k], pyy, py[k], pxy);
-          const float expp = expf(power);
-          const float alpha = fminf(0.99f, expp);
-          if (!(power <= sF[6][j] && alpha >= alpha_min)) continue;
-          const float one_minus = 1.0f - alpha;
-          const float T_before = T[k] / one_minus;
-          const float w = T_before * alpha;
-          const float cdot = sF[7][j] * gr[k] + sF[8][j] * gg[k]
-                             + sF[9][j] * gbl[k];
-          const float dA = T_before * cdot - S[k] / one_minus;
-          const float dP = expp < 0.99f ? dA * alpha : 0.0f;
-          S[k] += w * cdot;
-          T[k] = T_before;
-          v[0] += pxx * dP;
-          v[1] += px[k] * dP;
+        for (int k = 0; k < rwalk::PPT; ++k) {
+          const float py = ln.py[k];
+          if (idx1 > ln.last[k] || py < yl || py > yh) continue;
+          const float pyy = py * py, pxy = ln.px * py;
+          const float power = rwalk::power_of(F0, F1, F2, F3, F4, F5, F6,
+                                              ln.pxx, ln.px, pyy, py, pxy);
+          float w, dP;
+          if (!rwalk::pair_grad(power, F6, c0, c1, c2, alpha_min, ln.T[k],
+                                ln.S[k], ln.gr[k], ln.gg[k], ln.gb[k], w,
+                                dP))
+            continue;
+          v[0] += ln.pxx * dP;
+          v[1] += ln.px * dP;
           v[2] += dP;
           v[3] += pyy * dP;
-          v[4] += py[k] * dP;
+          v[4] += py * dP;
           v[5] += pxy * dP;
-          v[6] += gr[k] * w;
-          v[7] += gg[k] * w;
-          v[8] += gbl[k] * w;
+          v[6] += ln.gr[k] * w;
+          v[7] += ln.gg[k] * w;
+          v[8] += ln.gb[k] * w;
           any = true;
         }
-        const bool warp_any = __any_sync(FULL, any);
-#pragma unroll
-        for (int r = 0; r < 9; ++r) {
-          float x = v[r];
-          if (warp_any) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              x += __shfl_xor_sync(FULL, x, off);
-          }
-          if (lane == 0) part[warp][r][jj] = x;
-        }
       }
-      __syncthreads();
-      // the warps' partials summed in warp order: dF rows 0..5 the monomial
-      // sums, 6 the log opacity (= row 2's sum of dP), 8..10 the colors
-      for (int i = threadIdx.x; i < 16 * JS; i += BWD_THREADS) {
-        const int r = i / JS, jj = i % JS;
-        if (jj >= jn) continue;
-        int src = -1;
-        if (r <= 5) src = r;
-        else if (r == 6) src = 2;
-        else if (r >= 8 && r <= 10) src = r - 2;
-        float x = 0.0f;
-        if (src >= 0)
-          for (int w = 0; w < NWARP; ++w) x += part[w][src][jj];
-        dFb[r * ld + base + j0 + jj] = x;
-      }
-      __syncthreads();  // the next JS candidates overwrite part
+      rwalk::warp_emit(sh, warp, lane, j, v, any);
     }
+    __syncthreads();
+    rwalk::block_sum(sh, n);
+    cl.sync();
+    // this block's slice of the step's columns, totalled over the cluster:
+    // dF rows 0..5 the monomial sums, 6 the log opacity (= row 2's sum of
+    // dpower), 8..10 the colors; 7 and 11..15 zero
+    int j0, j1;
+    rwalk::slice_of(cl, n, j0, j1);
+    for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
+      float t[rwalk::NSUM];
+      rwalk::cluster_total(cl, sh, j, t);
+      float* o = dFb + base + j;
+      o[0 * ld] = t[0];
+      o[1 * ld] = t[1];
+      o[2 * ld] = t[2];
+      o[3 * ld] = t[3];
+      o[4 * ld] = t[4];
+      o[5 * ld] = t[5];
+      o[6 * ld] = t[2];
+      o[7 * ld] = 0.0f;
+      o[8 * ld] = t[6];
+      o[9 * ld] = t[7];
+      o[10 * ld] = t[8];
+      for (int r = 11; r < 16; ++r) o[r * ld] = 0.0f;
+    }
+    cl.sync();  // the next step overwrites the staged rows and partials
+  }
+}
+
+// K5 / K9 with NW warps per CUDA block
+template <bool PACKED>
+cudaError_t launch_bwd(int warps, int nb, int B, cudaStream_t st,
+                       const int* counts, const int* offs, const float* F,
+                       const float* out, const float* g, float* dF, int K,
+                       int C, int n_chunks, float alpha_min) {
+  switch (warps) {
+#define GSMPM_BWD(NW)                                                       \
+  case NW:                                                                  \
+    return rwalk::launch<NW, BWD_NS>(blend_bwd_kernel<PACKED, NW>, nb, B,   \
+                                     st, counts, offs, F, out, g, dF, K, C, \
+                                     n_chunks, B, alpha_min);
+    GSMPM_BWD(4)
+    GSMPM_BWD(8)
+    GSMPM_BWD(32)
+#undef GSMPM_BWD
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -327,12 +389,11 @@ int gsmpm_blend_fwd(const int* counts, const float* F, float* out, int nb,
 
 int gsmpm_blend_bwd(const float* F, const float* out, const float* g,
                     float* dF, int nb, int K, int B, float alpha_min,
-                    void* stream) {
+                    int warps, void* stream) {
   if (nb <= 0) return cudaSuccess;
-  blend_bwd_kernel<false>
-      <<<nb, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          nullptr, nullptr, F, out, g, dF, K, 1, 0, B, alpha_min);
-  return cudaGetLastError();
+  return launch_bwd<false>(warps, nb, B, static_cast<cudaStream_t>(stream),
+                           nullptr, nullptr, F, out, g, dF, K, 1, 0,
+                           alpha_min);
 }
 
 int gsmpm_blend_packed_fwd(const int* counts, const int* offs, const float* F,
@@ -350,12 +411,11 @@ int gsmpm_blend_packed_fwd(const int* counts, const int* offs, const float* F,
 int gsmpm_blend_packed_bwd(const int* counts, const int* offs, const float* F,
                            const float* out, const float* g, float* dF,
                            int nb, int T, int C, int n_chunks, int B,
-                           float alpha_min, void* stream) {
+                           float alpha_min, int warps, void* stream) {
   if (nb <= 0) return cudaSuccess;
-  blend_bwd_kernel<true>
-      <<<nb, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          counts, offs, F, out, g, dF, T, C, n_chunks, B, alpha_min);
-  return cudaGetLastError();
+  return launch_bwd<true>(warps, nb, B, static_cast<cudaStream_t>(stream),
+                          counts, offs, F, out, g, dF, T, C, n_chunks,
+                          alpha_min);
 }
 
 }  // extern "C"

@@ -89,6 +89,57 @@ def _build_F(cand_raw: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     return torch.stack(rows, dim=-2)
 
 
+def window_boxes(F: torch.Tensor, B: int, alpha_min: float):
+    """Kernels K5 / K9's cull, in plain torch: for F rows (..., 16, K) the
+    box (x lo, x hi, y lo, y hi), each (..., K), in block-local pixel
+    coordinates outside which a candidate cannot pass the blend gate
+    (power <= F6, alpha >= alpha_min).
+
+    The conic is a = -2 F0, c = -2 F3, b = -F5 (exact); the centre g
+    solves [[a, b], [b, c]] g = (F1, F4); the power's peak is the form
+    evaluated at g, in the kernels' order (first-order insensitive to the
+    rounding of the solve).  With power = peak - q(p - g) / 2 the gate
+    needs q <= 2 k, k = peak - ln(alpha_min): half-extents sqrt(2 k c /
+    det), sqrt(2 k a / det).  k is widened by 1e-3 (expf) and by 4e-6 of
+    the magnitude of the power's terms over the block and at g (the
+    rounding of F2, ~1e-3 at the fit's 64-pixel blocks, and of the sums),
+    the extents by 0.1% and one pixel (the centre's rounding).  A dead
+    column (F6 = -1e30), a log opacity below ln(alpha_min) or k < 0 give
+    an empty box (x lo = +inf); a conic that is not positive definite or
+    is near-singular (det <= 1e-3 a c) an infinite one.  The expressions
+    are the kernels' (csrc/tile_blend.cu window_box), in float32."""
+    F0, F1, F2, F3, F4, F5, F6 = (F[..., r, :] for r in range(7))
+    log_amin = (torch.log(torch.tensor(alpha_min, dtype=torch.float32))
+                - 1e-3).to(F.device)
+    a, c, b = -2.0 * F0, -2.0 * F3, -F5
+    det = a * c - b * b
+    finite = (a > 0) & (c > 0) & (det > 1e-3 * (a * c))
+    gx = (c * F1 - b * F4) / det
+    gy = (a * F4 - b * F1) / det
+    peak = F0 * (gx * gx)
+    peak = peak + F1 * gx
+    peak = peak + F2
+    peak = peak + F3 * (gy * gy)
+    peak = peak + F4 * gy
+    peak = peak + F5 * (gx * gy)
+    peak = peak + F6
+    fb = float(B)
+    mag = ((F0 * (gx * gx)).abs() + (F1 * gx).abs() + F2.abs()
+           + (F3 * (gy * gy)).abs() + (F4 * gy).abs() + (F5 * (gx * gy)).abs()
+           + (F0.abs() + F3.abs() + F5.abs()) * (fb * fb)
+           + (F1.abs() + F4.abs()) * fb)
+    k = peak - log_amin + 4e-6 * mag
+    ex = torch.sqrt(2.0 * k * c / det) * 1.001 + 1.0
+    ey = torch.sqrt(2.0 * k * a / det) * 1.001 + 1.0
+    inf = torch.full_like(F0, float("inf"))
+    empty = ~(F6 - log_amin >= 0) | (finite & ~(k >= 0))
+    xl = torch.where(finite, gx - ex, -inf)
+    xh = torch.where(finite, gx + ex, inf)
+    yl = torch.where(finite, gy - ey, -inf)
+    yh = torch.where(finite, gy + ey, inf)
+    return torch.where(empty, inf, xl), xh, yl, yh
+
+
 def _monomials(B: int, device):
     """Block-local pixel monomials (px^2, px, py^2, py, px py), each (P,)."""
     pix = torch.arange(B * B, device=device)
@@ -230,19 +281,32 @@ def blend_core_bwd_ref(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# warps per CUDA block of the reverse walks (K5, K9 and K7, whose launches
+# take ceil(pixel groups / REVERSE_WARPS) blocks per pixel block as one
+# cluster; csrc/reverse_walk.cuh)
+REVERSE_WARPS = 8
+
+
+def reverse_blocks(nblocks: int, B: int) -> int:
+    """CUDA blocks of one reverse-walk launch over nblocks pixel blocks of
+    edge B: one cluster of ceil(groups / REVERSE_WARPS) per pixel block,
+    a group being 16 x 8 pixels."""
+    groups = (B // 16) * (B // 8)
+    return nblocks * -(-groups // REVERSE_WARPS)
 
 
 def _lib():
     lib = build.load("tile_blend")
     lib.gsmpm_blend_fwd.argtypes = [_VP, _VP, _VP, _I, _I, _I, _F, _F, _VP]
     lib.gsmpm_blend_fwd.restype = ctypes.c_int
-    lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP]
+    lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I,
+                                    _VP]
     lib.gsmpm_blend_bwd.restype = ctypes.c_int
     lib.gsmpm_blend_packed_fwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                            _I, _F, _F, _VP]
     lib.gsmpm_blend_packed_fwd.restype = ctypes.c_int
     lib.gsmpm_blend_packed_bwd.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I,
-                                           _I, _I, _I, _I, _F, _VP]
+                                           _I, _I, _I, _I, _F, _I, _VP]
     lib.gsmpm_blend_packed_bwd.restype = ctypes.c_int
     return lib
 
@@ -256,8 +320,8 @@ def _check(t: torch.Tensor, name: str, shape, dtype, dev) -> None:
 
 
 def _check_block(B: int) -> None:
-    # one thread per pixel in 16x16 sub-tiles (K4), at most 4 pixels per
-    # thread of a 1024-thread block (K5)
+    # one thread per pixel in 16x16 sub-tiles (K4); K5's 16x8 pixel groups
+    # spread over one cluster of at most 8 CUDA blocks (32 groups at 64)
     if B % 16 != 0 or B * B > 4096:
         raise ValueError(f"block {B}: the kernels take multiples of 16 up "
                          "to 64")
@@ -305,6 +369,7 @@ def blend_bwd(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     err = lib.gsmpm_blend_bwd(F.data_ptr(), out.data_ptr(), g.data_ptr(),
                               dF.data_ptr(), nb, K, meta.B, meta.alpha_min,
+                              REVERSE_WARPS,
                               torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "blend_bwd")
     blend_bwd.launches += 1
@@ -468,7 +533,8 @@ def blend_packed_bwd(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
     err = lib.gsmpm_blend_packed_bwd(
         counts.data_ptr(), offs.data_ptr(), F.data_ptr(), out.data_ptr(),
         g.data_ptr(), dF.data_ptr(), nb, T, meta.C, meta.n_chunks, meta.B,
-        meta.alpha_min, torch.cuda.current_stream(dev).cuda_stream)
+        meta.alpha_min, REVERSE_WARPS,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "blend_packed_bwd")
     blend_packed_bwd.launches += 1
     return dF

@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from gsmpm_tpu_torch.render import cuda_blend
 from gsmpm_tpu_torch.render.renderer import (
     Preprocessed,
     _raw_planes_nosentinel,
@@ -437,7 +438,7 @@ def _lib():
     lib.gsmpm_stream_fwd.argtypes = [_VP, _I, _VP, _VP, _I, _I, _I, _F, _F, _VP]
     lib.gsmpm_stream_fwd.restype = ctypes.c_int
     lib.gsmpm_stream_bwd.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                     _F, _VP]
+                                     _F, _I, _VP]
     lib.gsmpm_stream_bwd.restype = ctypes.c_int
     return lib
 
@@ -495,7 +496,8 @@ def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
     if dev.type == "cpu":
         return stream_blend_bwd_ref(splanes, bounds, out, g, nbx, B,
                                     alpha_min)
-    # at most 4 pixels per thread of a 1024-thread block
+    # the 16 x 8 pixel groups of a block spread over one cluster of at most
+    # 8 CUDA blocks (32 groups at 64)
     if B * B > 4096:
         raise ValueError(f"block {B}: the backward kernel takes blocks up "
                          "to 64")
@@ -511,7 +513,7 @@ def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
     err = lib.gsmpm_stream_bwd(
         splanes.data_ptr(), splanes.shape[1], bounds.data_ptr(),
         out.data_ptr(), g.data_ptr(), dsp.data_ptr(), nf, nbx, B, alpha_min,
-        torch.cuda.current_stream(dev).cuda_stream,
+        cuda_blend.REVERSE_WARPS, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "stream_blend_bwd")
     stream_blend_bwd.launches += 1

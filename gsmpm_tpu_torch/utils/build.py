@@ -3,7 +3,8 @@
 Each source under gsmpm_tpu_torch/csrc/ exposes a plain C interface and is
 compiled on its own into ``build/lib<name>-<hash>.so`` at the repository
 root (``-gencode arch=compute_90a,code=sm_90a``), then loaded with ctypes.
-The hash covers the source and the flags, so an edited source rebuilds.
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds.
 ``build_all`` starts one nvcc per source at once and waits for all of them.
 Nothing here runs at import time; a machine without nvcc only fails when a
 kernel is actually launched.
@@ -58,7 +59,8 @@ def _flags(name: str) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

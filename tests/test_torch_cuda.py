@@ -151,13 +151,13 @@ def test_wrappers_reject_bad_inputs(cuda, tmp_path):
                            su.grid, su.tc, 1e-3)
 
 
-def _stream_case(dev, n=800, res=128, seed=9, block=64):
+def _stream_case(dev, n=800, res=128, seed=9, block=64, scale=0.05):
     """A dense cluster's sorted stream: (splanes, bounds, nbx, B, t_min,
-    alpha_min)."""
+    alpha_min); ``scale`` sets the splats' size."""
     rng = np.random.default_rng(seed)
     means = (0.08 * rng.normal(size=(n, 3))).astype(np.float32)
     means[:, 2] += 3.5
-    A = 0.05 * rng.normal(size=(n, 3, 3)).astype(np.float32)
+    A = scale * rng.normal(size=(n, 3, 3)).astype(np.float32)
     cov = A @ A.transpose(0, 2, 1) + 1e-4 * np.eye(3, dtype=np.float32)
     cov6 = cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
     opacity = rng.uniform(0.15, 0.95, size=n).astype(np.float32)
@@ -288,10 +288,14 @@ def test_stream_kernel_culls_no_contributor(cuda):
 
 
 # the clamp and gate edges of K7 only show in large streams: a small and a
-# medium one (~10^5 slots, pixels saturating deep into their segments)
-@pytest.mark.parametrize("n,res", [(800, 128), (40000, 256)])
-def test_stream_bwd_kernel_matches_twin(cuda, n, res):
-    args = _stream_case(cuda, n, res)
+# medium one (~10^5 slots, pixels saturating deep into their segments);
+# the cull matters with splats larger than a 16 x 8 pixel group at blocks
+# of 16 and 32 (one and two CUDA blocks per cluster) and 64 (four)
+@pytest.mark.parametrize("n,res,block,scale", [
+    (800, 128, 64, 0.05), (40000, 256, 64, 0.05), (3000, 128, 32, 0.2),
+    (3000, 64, 16, 0.2), (3000, 256, 64, 0.3)])
+def test_stream_bwd_kernel_matches_twin(cuda, n, res, block, scale):
+    args = _stream_case(cuda, n, res, block=block, scale=scale)
     splanes = args[0]
     out = sr.stream_blend(*args)
     rng = np.random.default_rng(3)
@@ -316,6 +320,9 @@ def test_stream_bwd_kernel_matches_twin(cuda, n, res):
     dead = (want == 0).all(dim=0)
     assert bool(dead[int(args[1][-1]):].all())
     assert float(got[:, dead].abs().max()) == 0.0
+    # the sums run in a fixed order: a rerun gives the bits
+    assert torch.equal(got, sr.stream_blend_bwd(splanes, args[1], out, g,
+                                                *bwd_args))
 
 
 def test_simulate_gpu_matches_cpu(cuda, tmp_path):
@@ -355,9 +362,12 @@ def _blend_case(dev, counts, K, B=64, seed=0):
     return torch.tensor(counts, dtype=torch.int32, device=dev), F, meta
 
 
-@pytest.mark.parametrize("K", [768, 20480])  # the TPU's resident / streamed
-def test_blend_kernels_match_twins(cuda, K):
-    counts, F, meta = _blend_case(cuda, [K, K // 2, 7, 0], K)
+# K: the TPU's resident / streamed windows; B 32 and 16 take splats larger
+# than a 16 x 8 pixel group, in clusters of one CUDA block
+@pytest.mark.parametrize("K,B", [(768, 64), (20480, 64), (768, 32),
+                                 (768, 16)])
+def test_blend_kernels_match_twins(cuda, K, B):
+    counts, F, meta = _blend_case(cuda, [K, K // 2, 7, 0], K, B=B)
     before = (cb.blend_fwd.launches, cb.blend_bwd.launches)
     out = cb.blend_fwd(counts, F, meta)
     want = cb.blend_core_ref(counts, F, meta)
@@ -389,23 +399,29 @@ def test_blend_kernels_match_twins(cuda, K):
     assert torch.equal(dF, cb.blend_bwd(F, out, g, meta))
 
 
-def _packed_case(dev, counts, K, seed=0):
-    """The windows of _blend_case stored back to back at chunk-aligned
-    offsets, plus C unowned tail slots: (counts, offs, F (16, T), padded F,
-    meta)."""
-    counts_t, Fpad, meta = _blend_case(dev, counts, K, seed=seed)
-    C = meta.C
+def _pack(Fpad, counts, C):
+    """Padded windows Fpad (nb, 16, K) stored back to back at chunk-aligned
+    offsets, plus C unowned tail slots: (offs, F (16, T))."""
     aligned = [-(-c // C) * C for c in counts]
     offs = np.concatenate([[0], np.cumsum(aligned)[:-1]]).astype(np.int32)
-    F = torch.zeros((16, sum(aligned) + C), device=dev)
+    F = torch.zeros((16, sum(aligned) + C), device=Fpad.device)
     for b, (o, a) in enumerate(zip(offs, aligned)):
         F[:, o:o + a] = Fpad[b, :, :a]
-    return counts_t, torch.from_numpy(offs).to(dev), F, Fpad, meta
+    return torch.from_numpy(offs).to(Fpad.device), F
 
 
-@pytest.mark.parametrize("K", [768, 20480])
-def test_packed_blend_kernels_match_twins(cuda, K):
-    counts, offs, F, Fpad, meta = _packed_case(cuda, [K, K // 2, 7, 0], K)
+def _packed_case(dev, counts, K, seed=0, B=64):
+    """The windows of _blend_case packed (_pack): (counts, offs, F (16, T),
+    padded F, meta)."""
+    counts_t, Fpad, meta = _blend_case(dev, counts, K, B=B, seed=seed)
+    offs, F = _pack(Fpad, counts, meta.C)
+    return counts_t, offs, F, Fpad, meta
+
+
+@pytest.mark.parametrize("K,B", [(768, 64), (20480, 64), (768, 32)])
+def test_packed_blend_kernels_match_twins(cuda, K, B):
+    counts, offs, F, Fpad, meta = _packed_case(cuda, [K, K // 2, 7, 0], K,
+                                               B=B)
     before = (cb.blend_packed_fwd.launches, cb.blend_packed_bwd.launches)
     out = cb.blend_packed_fwd(counts, offs, F, meta)
     want = cb.blend_packed_ref(counts, offs, F, meta)
@@ -438,6 +454,46 @@ def test_packed_blend_kernels_match_twins(cuda, K):
     for b, o in enumerate(offs.tolist()):
         a = -(-int(counts[b]) // meta.C) * meta.C
         assert torch.equal(dF[:, o:o + a], dF_pad[b, :, :a])
+
+
+@pytest.mark.parametrize("B", [16, 32, 64])
+def test_blend_bwd_on_crafted_windows(cuda, B):
+    """K5 and K9 on tests/test_torch_cull_windows.py's crafted windows
+    (splats of 0.3 to 40 pixels, larger than a pixel group and centred
+    outside the block, conics not positive definite or near-singular,
+    opacities from below alpha_min to 0.9999, dead columns) against the
+    twins; two K5 launches give the same bits, and so does K9 on the same
+    windows."""
+    from test_torch_cull_windows import crafted_windows
+
+    Fpad, _ = crafted_windows(B, nb=4, K=512, seed=B)
+    counts_l = [512, 384, 100, 0]
+    for b, c in enumerate(counts_l):
+        Fpad[b, 6, c:] = cb.NEG  # past a window's count: dead, as built
+    Fpad = Fpad.to(cuda).contiguous()
+    counts = torch.tensor(counts_l, dtype=torch.int32, device=cuda)
+    meta = cb.BlendMeta(64, B, 1e-4, 1.0 / 255.0, 512 // 64)
+    out = cb.blend_fwd(counts, Fpad, meta)
+    assert float(out[:, 5].max()) > 100  # the blend went past a step
+    rng = np.random.default_rng(2)
+    g = torch.zeros_like(out)
+    g[:, 0:4] = torch.from_numpy(rng.normal(size=(4, 4, meta.P))
+                                 .astype(np.float32)).to(cuda)
+    dF = cb.blend_bwd(Fpad, out, g, meta)
+    want = cb.blend_core_bwd_ref(Fpad, out, g, meta)
+    for rows in (slice(0, 6), slice(6, 7), slice(8, 11)):
+        scale = float(want[:, rows].abs().max())
+        assert scale > 0
+        err = float((dF[:, rows] - want[:, rows]).abs().max())
+        assert err <= 1e-4 * scale, (rows, err, scale)
+    assert float(dF[:, 11:].abs().max()) == 0.0
+    assert float(dF[:, 7].abs().max()) == 0.0
+    assert torch.equal(dF, cb.blend_bwd(Fpad, out, g, meta))
+    offs, F = _pack(Fpad, counts_l, meta.C)
+    dF9 = cb.blend_packed_bwd(counts, offs, F, out, g, meta)
+    for b, o in enumerate(offs.tolist()):
+        a = -(-counts_l[b] // meta.C) * meta.C
+        assert torch.equal(dF9[:, o:o + a], dF[b, :, :a])
 
 
 def test_packed_window_outside_array_asserts(cuda):
