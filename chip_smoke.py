@@ -393,26 +393,21 @@ def k3_bound(splanes, bounds, out, cull):
                     + out.numel() * 4, cull["kept_pairs"] * 20.0)
 
 
-# warps per CUDA block of the reverse walks (K5, K7, K9;
-# csrc/reverse_walk.cuh), each timed on the walks' real inputs: 32 puts a
-# 64-pixel block in one CUDA block (the cull alone), 8 and 4 spread it
-# over a cluster of 4 and 8 blocks
-REVERSE_VARIANTS = (32, 8, 4)
-
-
 def reverse_variants(fn, reps: int = 10) -> dict:
-    """fn's device time with each REVERSE_VARIANTS warps per CUDA block of
-    the reverse walks; the port's default is restored after."""
+    """fn's device time in each variant of the reverse walks (K5, K7, K9;
+    cuda_blend.REVERSE_VARIANTS: warps per CUDA block, slots per step,
+    branch-free pixels), keyed "warps/slots/ilp"; the port's default is
+    restored after."""
     from gsmpm_tpu_torch.render import cuda_blend as cb
 
-    keep = cb.REVERSE_WARPS
+    keep = cb.REVERSE_VARIANT
     ms = {}
     try:
-        for nw in REVERSE_VARIANTS:
-            cb.REVERSE_WARPS = nw
-            ms[nw] = cuda_ms(fn, reps)
+        for i, (nw, ch, ilp) in enumerate(cb.REVERSE_VARIANTS):
+            cb.REVERSE_VARIANT = i
+            ms[f"{nw}/{ch}/{int(ilp)}"] = cuda_ms(fn, reps)
     finally:
-        cb.REVERSE_WARPS = keep
+        cb.REVERSE_VARIANT = keep
     return ms
 
 
@@ -473,7 +468,8 @@ def window_cull(F, out, meta, chunk=64):
                      & (idx1[None, :, None] <= last[:, None, :])).sum())
     return dict(culled_share=1.0 - listed / max(walked, 1),
                 pairs=float(last.to(torch.float64).sum()),
-                kept_pairs=float(kept))
+                kept_pairs=float(kept), depth_max=float(top.max()),
+                depth_mean=float(top.mean()))
 
 
 def k7_cull(splanes, bounds, out, nbx, B, alpha_min, chunk=2048):
@@ -512,10 +508,12 @@ def k7_cull(splanes, bounds, out, nbx, B, alpha_min, chunk=2048):
         walked += ids.numel() * rx.numel()
         listed += int((meets & (idx1 <= gtop[blk])).sum())
         kept += int((inside & (idx1 <= last[blk])).sum())
+    depth = (top - lo).clamp_min(0).to(torch.float64)
     return dict(culled_share=1.0 - listed / max(walked, 1),
                 pairs=float((last.to(torch.float64) - lo[:, None])
                             .clamp_min(0).sum()),
-                kept_pairs=float(kept))
+                kept_pairs=float(kept), depth_max=float(depth.max()),
+                depth_mean=float(depth.mean()))
 
 
 def small_parity(dev):
@@ -931,7 +929,8 @@ def blend_phases(dev, ident, first):
               f"pairs, {cull5['kept_pairs']:.4g} in the box, {contrib5:.4g} "
               f"contributing; {tiers[tier]['blocks5']} CUDA blocks, "
               f"{cull5['culled_share']:.4f} of the (candidate, group) pairs "
-              f"culled, rerun bit-equal {bits5}; by warps per block "
+              f"culled, walk depth max {cull5['depth_max']:.0f} mean "
+              f"{cull5['depth_mean']:.0f}, rerun bit-equal {bits5}; by variant "
               + ", ".join(f"{k}: {v:.4f} ms" for k, v in var5.items()) + ")",
               flush=True)
 
@@ -965,8 +964,8 @@ def blend_phases(dev, ident, first):
                     "var5", "bits5"))
     r5.update(blocks=sum(v["blocks5"] for v in tiers.values()),
               bound_all_walked_ms=sum(v["b5_all"][0] for v in tiers.values()),
-              variants_ms={nw: sum(v["var5"][nw] for v in tiers.values())
-                           for nw in REVERSE_VARIANTS},
+              variants_ms={k: sum(v["var5"][k] for v in tiers.values())
+                           for k in tiers["tier1"]["var5"]},
               bit_equal=all(v["bits5"] for v in tiers.values()))
     return [r4, r5], tiers
 
@@ -1224,11 +1223,12 @@ def stream_bwd_phase(dev, ident, first):
           f"{splanes.shape[1]} slots ({walked:.0f} walked, {pairs:.4g} "
           f"pairs, {cull7['kept_pairs']:.4g} in the box, {contrib:.4g} "
           f"contributing; {cull7['culled_share']:.4f} of the (slot, group) "
-          f"pairs culled): rel err "
+          f"pairs culled, walk depth max {cull7['depth_max']:.0f} mean "
+          f"{cull7['depth_mean']:.0f}): rel err "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
           + f"; rerun bit-equal {bits7}; {ms7:.4f} ms (plain {pms7:.2f} ms, "
           f"bound {b7[0]:.4f} {b7[1]}, all-walked bound {b7_all[0]:.4f}); "
-          "by warps per block "
+          "by variant "
           + ", ".join(f"{k}: {v:.4f} ms" for k, v in var7.items())
           + f"; K3 on the same stream {ms3:.4f} ms", flush=True)
     return dict(
@@ -1388,8 +1388,8 @@ def packed_phase(dev, ident, first, wrappers):
           f"{cull9['kept_pairs']:.4g} in the box, {contrib9:.4g} "
           f"contributing; {blocks9} CUDA blocks, "
           f"{cull9['culled_share']:.4f} of the (candidate, group) pairs "
-          f"culled; rerun bit-equal {bits9}, K5's bits {k9_is_k5}; by warps "
-          "per block " + ", ".join(f"{k}: {v:.4f} ms" for k, v in var9.items())
+          f"culled, walk depth max {cull9['depth_max']:.0f}; rerun bit-equal {bits9}, K5's bits {k9_is_k5}; by "
+          "variant " + ", ".join(f"{k}: {v:.4f} ms" for k, v in var9.items())
           + ")", flush=True)
     common = dict(route="cuda", source="gsmpm_tpu_torch/csrc/tile_blend.cu",
                   library_ms=None)

@@ -42,20 +42,21 @@ namespace rwalk {
 
 namespace cg = cooperative_groups;
 
-constexpr int CH = 128;                // slots staged per step
-constexpr int MASK_WORDS = CH / 32;
 constexpr int PPT = 4;                 // pixels per lane
 constexpr int NSUM = 9;                // sums per slot
 constexpr unsigned FULL = 0xffffffffu;
 
-// A block's shared memory, for NS staged rows per slot.
-template <int NW, int NS>
+// A block's shared memory, for NW warps, NS staged rows per slot and CH
+// slots per step.  The block's sums are double-buffered by step parity, so
+// one cluster barrier per step keeps them until every block has read them.
+template <int NW, int NS, int CH>
 struct Shared {
+  static constexpr int WORDS = CH / 32;
   float st[NS][CH];                    // the kernel's staged rows
   float part[NW][NSUM][CH];            // each warp's sums of the slots it reached
-  float bpart[NSUM][CH];               // the block's sums, warps in order
-  unsigned wmask[NW][MASK_WORDS];      // the slots each warp stored
-  unsigned bmask[MASK_WORDS];          // the slots any warp of the block stored
+  float bpart[2][NSUM][CH];            // the block's sums, warps in order
+  unsigned wmask[NW][WORDS];           // the slots each warp stored
+  unsigned bmask[2][WORDS];            // the slots any warp of the block stored
   unsigned char list[NW][CH];          // each warp's culled slot list
   int top;                             // the block's largest last contributor
 };
@@ -114,10 +115,9 @@ __device__ __forceinline__ void load_lane(Lane& ln, int rect, int B,
 
 // The largest last contributor over the cluster's warps.  Ends with a
 // cluster barrier: a block whose walk is empty may then exit.
-template <int NW, int NS>
-__device__ __forceinline__ int cluster_top(cg::cluster_group& cl,
-                                           Shared<NW, NS>& sh, const Lane& ln,
-                                           int lane) {
+template <class Sh>
+__device__ __forceinline__ int cluster_top(cg::cluster_group& cl, Sh& sh,
+                                           const Lane& ln, int lane) {
   if (threadIdx.x == 0) sh.top = 0;
   __syncthreads();
   if (lane == 0 && ln.top > 0) atomicMax(&sh.top, ln.top);
@@ -143,27 +143,77 @@ __device__ __forceinline__ float power_of(float F0, float F1, float F2,
   return power + F6;
 }
 
-// One pair of the reverse walk: false where the forward's gate rejects it
-// (power <= log opacity, alpha >= alpha_min); else T becomes T_before
-// (by division), S takes w (c . g_rgb), and w, dpower are returned (dpower
-// 0 where exp(power) reaches the 0.99 clamp).
-__device__ __forceinline__ bool pair_grad(float power, float logo, float c0,
-                                          float c1, float c2, float alpha_min,
-                                          float& T, float& S, float gr,
-                                          float gg, float gb, float& w,
-                                          float& dP) {
-  const float expp = expf(power);
-  const float alpha = fminf(0.99f, expp);
-  if (!(power <= logo && alpha >= alpha_min)) return false;
-  const float one_minus = 1.0f - alpha;
-  const float T_before = T / one_minus;
-  w = T_before * alpha;
-  const float cdot = c0 * gr + c1 * gg + c2 * gb;
-  const float dA = T_before * cdot - S / one_minus;
-  dP = expp < 0.99f ? dA * alpha : 0.0f;
-  S += w * cdot;
-  T = T_before;
-  return true;
+// A staged slot as a lane's walk reads it
+struct Slot {
+  float F[7];                          // F0..F5 and the log opacity
+  float c[3];                          // colors
+  float gx, gy;                        // the splat's centre (K7's sums)
+  float yl, yh;                        // the box's rows
+};
+
+// The lane's pixels of one slot, back to front: for each pixel at or
+// before its last contributor and inside the box's rows, the forward's
+// gate (power <= log opacity, alpha >= alpha_min); where it passes, T
+// becomes T_before (by division), S takes w (c . g_rgb), and the 9 sums v
+// take dpower times the pixel's monomials (CENTRED: those of its offset
+// from the splat's centre, dx^2, dx dy, dy^2, dx, dy, 1; else the
+// block-local px^2, px, 1, py^2, py, px py) and g_rgb w.  dpower is 0
+// where exp(power) reaches the 0.99 clamp.  ILP evaluates the 4 pixels
+// without branches (a pixel outside the box fails the gate, and adds
+// exact zeros), so their latencies overlap; either way the same pairs
+// update T, S and v, in the same order, with the same expressions.
+// Returns whether any pixel passed.
+template <bool CENTRED, bool ILP>
+__device__ __forceinline__ bool walk_slot(Lane& ln, int idx1, const Slot& s,
+                                          float alpha_min,
+                                          float (&v)[NSUM]) {
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const float py = ln.py[k];
+    const bool in = idx1 <= ln.last[k] && py >= s.yl && py <= s.yh;
+    if (!ILP && !in) continue;
+    const float pyy = py * py, pxy = ln.px * py;
+    const float power = power_of(s.F[0], s.F[1], s.F[2], s.F[3], s.F[4],
+                                 s.F[5], s.F[6], ln.pxx, ln.px, pyy, py,
+                                 pxy);
+    const float expp = expf(power);
+    const float alpha = fminf(0.99f, expp);
+    const bool ok = in && power <= s.F[6] && alpha >= alpha_min;
+    if (!ILP && !ok) continue;
+    const float one_minus = 1.0f - alpha;
+    const float T_before = ln.T[k] / one_minus;
+    float w = T_before * alpha;
+    const float cdot = s.c[0] * ln.gr[k] + s.c[1] * ln.gg[k]
+                       + s.c[2] * ln.gb[k];
+    const float dA = T_before * cdot - ln.S[k] / one_minus;
+    float dP = expp < 0.99f ? dA * alpha : 0.0f;
+    const float S_new = ln.S[k] + w * cdot;
+    ln.S[k] = ok ? S_new : ln.S[k];
+    ln.T[k] = ok ? T_before : ln.T[k];
+    dP = ok ? dP : 0.0f;
+    w = ok ? w : 0.0f;
+    if (CENTRED) {
+      const float dx = ln.px - s.gx, dy = py - s.gy;
+      v[0] += dx * dx * dP;
+      v[1] += dx * dy * dP;
+      v[2] += dy * dy * dP;
+      v[3] += dx * dP;
+      v[4] += dy * dP;
+    } else {
+      v[0] += ln.pxx * dP;
+      v[1] += ln.px * dP;
+      v[2] += dP;
+      v[3] += pyy * dP;
+      v[4] += py * dP;
+    }
+    v[5] += CENTRED ? dP : pxy * dP;
+    v[6] += ln.gr[k] * w;
+    v[7] += ln.gg[k] * w;
+    v[8] += ln.gb[k] * w;
+    any = any || ok;
+  }
+  return any;
 }
 
 // The warp's list, in slot order, of the staged slots j < jmax whose box
@@ -187,17 +237,15 @@ __device__ __forceinline__ int warp_list(const float* xl, const float* xh,
 }
 
 // Clear the warp's mask before a step's walk.
-template <int NW, int NS>
-__device__ __forceinline__ void clear_mask(Shared<NW, NS>& sh, int warp,
-                                           int lane) {
-  if (lane < MASK_WORDS) sh.wmask[warp][lane] = 0u;
+template <class Sh>
+__device__ __forceinline__ void clear_mask(Sh& sh, int warp, int lane) {
+  if (lane < Sh::WORDS) sh.wmask[warp][lane] = 0u;
 }
 
 // The warp's sums v of slot j over its lanes, stored as its partial when
 // some lane reached the slot.
-template <int NW, int NS>
-__device__ __forceinline__ void warp_emit(Shared<NW, NS>& sh, int warp,
-                                          int lane, int j,
+template <class Sh>
+__device__ __forceinline__ void warp_emit(Sh& sh, int warp, int lane, int j,
                                           const float (&v)[NSUM], bool any) {
   if (!__any_sync(FULL, any)) return;
 #pragma unroll
@@ -211,14 +259,16 @@ __device__ __forceinline__ void warp_emit(Shared<NW, NS>& sh, int warp,
 }
 
 // After the walk and a __syncthreads: the block's sums of the n staged
-// slots, its warps' stored partials added in warp order.
-template <int NW, int NS>
-__device__ __forceinline__ void block_sum(Shared<NW, NS>& sh, int n) {
-  for (int t = threadIdx.x; t < MASK_WORDS; t += blockDim.x) {
+// slots into buffer q, its warps' stored partials added in warp order
+// (zero where no warp stored one).
+template <int NW, int NS, int CH>
+__device__ __forceinline__ void block_sum(Shared<NW, NS, CH>& sh, int n,
+                                          int q) {
+  for (int t = threadIdx.x; t < Shared<NW, NS, CH>::WORDS; t += blockDim.x) {
     unsigned m = 0u;
 #pragma unroll
     for (int w = 0; w < NW; ++w) m |= sh.wmask[w][t];
-    sh.bmask[t] = m;
+    sh.bmask[q][t] = m;
   }
   for (int i = threadIdx.x; i < NSUM * CH; i += blockDim.x) {
     const int r = i / CH, j = i % CH;
@@ -228,7 +278,7 @@ __device__ __forceinline__ void block_sum(Shared<NW, NS>& sh, int n) {
 #pragma unroll
     for (int w = 0; w < NW; ++w)
       if (sh.wmask[w][j >> 5] & bit) x += sh.part[w][r][j];
-    sh.bpart[r][j] = x;
+    sh.bpart[q][r][j] = x;
   }
 }
 
@@ -241,33 +291,31 @@ __device__ __forceinline__ void slice_of(cg::cluster_group& cl, int n,
   j1 = min(n, j0 + per);
 }
 
-// The total of slot j over the cluster's blocks, in rank order; false when
-// no warp of the cluster reached it (tot is then 0).
-template <int NW, int NS>
-__device__ __forceinline__ bool cluster_total(cg::cluster_group& cl,
-                                              Shared<NW, NS>& sh, int j,
+// The total of slot j over the cluster's blocks' sums in buffer q, in rank
+// order; false when no warp of the cluster reached it (tot is then 0).
+template <class Sh>
+__device__ __forceinline__ bool cluster_total(cg::cluster_group& cl, Sh& sh,
+                                              int j, int q,
                                               float (&tot)[NSUM]) {
 #pragma unroll
   for (int r = 0; r < NSUM; ++r) tot[r] = 0.0f;
-  bool any = false;
-  const unsigned bit = 1u << (j & 31);
+  unsigned any = 0u;
   for (unsigned s = 0; s < cl.num_blocks(); ++s) {
-    const Shared<NW, NS>* o = cl.map_shared_rank(&sh, s);
-    if (!(o->bmask[j >> 5] & bit)) continue;
-    any = true;
+    const Sh* o = cl.map_shared_rank(&sh, s);
+    any |= o->bmask[q][j >> 5];
 #pragma unroll
-    for (int r = 0; r < NSUM; ++r) tot[r] += o->bpart[r][j];
+    for (int r = 0; r < NSUM; ++r) tot[r] += o->bpart[q][r][j];
   }
-  return any;
+  return (any >> (j & 31)) & 1u;
 }
 
 // Launch `kernel` on nb pixel blocks of edge B, each a cluster of
 // blocks_per(B, NW) CUDA blocks of NW warps with the dynamic shared memory
-// of Shared<NW, NS>.
-template <int NW, int NS, typename... KArgs, typename... Args>
+// of Sh.
+template <int NW, class Sh, typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), int nb, int B,
                    cudaStream_t stream, Args... args) {
-  const size_t smem = sizeof(Shared<NW, NS>);
+  const size_t smem = sizeof(Sh);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -287,5 +335,15 @@ cudaError_t launch(void (*kernel)(KArgs...), int nb, int B,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
+
+// The variants timed on the card: (warps per block, slots per step,
+// pixels without branches); the launchers take an index into this table.
+#define GSMPM_RWALK_VARIANTS(X) \
+  X(0, 8, 128, false)           \
+  X(1, 8, 256, false)           \
+  X(2, 8, 128, true)            \
+  X(3, 8, 256, true)            \
+  X(4, 32, 128, true)           \
+  X(5, 4, 256, true)
 
 }  // namespace rwalk

@@ -21,8 +21,9 @@
 // contributor once it is done, else to the segment's end; in K7 each pixel
 // evaluates the slots from its last contributor back to the segment start.
 // K3's pixels skip the slots whose splat's box misses their warp's 16 x 8
-// group, then the pixel (below): a few compares instead of the gate, so its
-// bound counts the pairs of that walk whose pixel lies in the slot's box.
+// group, then the pixel (below): a few compares instead of the gate, so the
+// bound counts the pairs of the walk whose pixel lies in the slot's box;
+// K7 skips them the same way, backward.
 // Each (slot, pixel) pair takes at least 20 fp32 operations forward (6 mul
 // + 6 add for the power term, exp, clamp, two compares, the transmittance
 // and three color updates).  Backward, every pair evaluated takes the gate
@@ -63,27 +64,36 @@
 //       monotonically, so the chunked and the sequential forms agree up to
 //       rounding of the transmittance product).  The block leaves its
 //       segment as soon as every pixel of it is done.
-//   K7: one 1024-thread block per display block, up to 4 pixels per thread
-//       (K5's design in csrc/tile_blend.cu, over a segment of raw planes).
-//       The block finds its largest last contributor by one shared atomic
-//       max and walks its segment back to front from there, 256 slots
-//       staged per step with their F coefficients built once per slot.  Per
-//       pixel it keeps T (recovered by division, T_before = T_after /
-//       (1 - alpha)) and the suffix S of w (c . g_rgb) seeded with T_final
-//       g_T, the quantities of _stream_bwd_kernel.  Per slot 9 sums over
-//       the block's pixels reduce by warp shuffles (skipped when the warp
-//       has nothing) and one shared atomic per warp: dpower times the
-//       monomials dx^2, dx dy, dy^2, dx, dy, 1 of the pixel's offset (dx,
-//       dy) from the splat's centre, and g_rgb w for the colors.  Then one
-//       thread per slot applies the chain rule to the 9 raw rows and writes
-//       the slot's column once.  This is the transpose of the F build
-//       (gsmpm_tpu's in-kernel chain rule) in centred coordinates: the TPU
-//       kernel's sums over the block-local monomials px^2, px, 1, ...
-//       cancel for a splat of a pixel or two (d a = -0.5 sum (px - gx)^2
-//       dpower formed as a difference of terms ~gx^2 larger), which turns
-//       fp32 rounding into 1e-4 relative errors at the fit's shapes.  Every slot belongs to
-//       exactly one segment, so no block adds into another's output: the
-//       TPU kernel's straddled-window accumulation has no counterpart.
+//   K7: the reverse walk of csrc/reverse_walk.cuh over a segment of raw
+//       planes.  Each display block is a cluster of ceil(groups / 8) CUDA
+//       blocks of 8 warps, one warp per 16 x 8 pixel group (4 blocks at B =
+//       64: 256 CUDA blocks at the stream fit's 64 display blocks, where one
+//       1024-thread block per display block kept 64 of the 132 SMs busy).
+//       The cluster walks its segment back to front from its largest last
+//       contributor, 128 slots staged per step with K3's expressions: the
+//       conic rows and slot_box, K3's box.  A warp walks only the staged
+//       slots before its own last contributor whose box meets its group,
+//       and a lane only the pixels inside the box.  Per pixel it keeps T
+//       (recovered by division, T_before = T_after / (1 - alpha)) and the
+//       suffix S of w (c . g_rgb) seeded with T_final g_T, the quantities
+//       of _stream_bwd_kernel.  Per slot 9 sums over the block's pixels:
+//       dpower times the monomials dx^2, dx dy, dy^2, dx, dy, 1 of the
+//       pixel's offset (dx, dy) from the splat's centre, and g_rgb w for
+//       the colors, stored only by warps that reached the slot and summed
+//       in a fixed order (the lanes by butterfly, the warps in order, the
+//       cluster's blocks in rank order through distributed shared memory),
+//       so d(splanes) has the same bits in every run (the shared atomics
+//       of the first design did not).  Then one thread per slot applies
+//       the chain rule to the 9 raw rows and writes the slot's column once
+//       (a slot no pixel reached keeps the wrapper's zeros).  This is the
+//       transpose of the F build (gsmpm_tpu's in-kernel chain rule) in
+//       centred coordinates: the TPU kernel's sums over the block-local
+//       monomials px^2, px, 1, ... cancel for a splat of a pixel or two (d
+//       a = -0.5 sum (px - gx)^2 dpower formed as a difference of terms
+//       ~gx^2 larger), which turns fp32 rounding into 1e-4 relative errors
+//       at the fit's shapes.  Every slot belongs to exactly one segment, so
+//       no cluster writes into another's output: the TPU kernel's
+//       straddled-window accumulation has no counterpart.
 // The F coefficients and the power term are computed with the same
 // expressions in the same order in both kernels and the twins, and this
 // file is built with --fmad=false, so K7 reaches K3's gate decisions
@@ -271,14 +281,13 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
 // (12..14) and its box (15..18)
 constexpr int BWD_NS = 19;
 
-template <int NW>
-__global__ void __launch_bounds__(NW * 32, 32 / NW)
+template <int NW, int CHB, bool ILP>
+__global__ void __launch_bounds__(NW * 32, NW >= 16 ? 1 : 16 / NW)
 stream_bwd_kernel(const float* __restrict__ splanes, int L,
                   const int* __restrict__ bounds,
                   const float* __restrict__ out, const float* __restrict__ g,
                   float* __restrict__ dsp, int nbx, int B, float alpha_min) {
-  using Sh = rwalk::Shared<NW, BWD_NS>;
-  constexpr int CHB = rwalk::CH;
+  using Sh = rwalk::Shared<NW, BWD_NS, CHB>;
   extern __shared__ __align__(16) unsigned char smem[];
   Sh& sh = *reinterpret_cast<Sh*>(smem);
   cooperative_groups::cluster_group cl =
@@ -301,6 +310,7 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
   for (int step = steps - 1; step >= 0; --step) {
     const int base = lo + step * CHB;
     const int n = min(CHB, hi - base);
+    const int q = step & 1;  // this step's buffer of the block's sums
     // stage each slot once: its conic rows (K3's expressions) and box
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       const size_t i = (size_t)base + j;
@@ -333,48 +343,27 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
                                        sh.list[warp], lane);
     for (int e = count - 1; e >= 0; --e) {
       const int j = sh.list[warp][e];
-      const int idx1 = base + j + 1;
       float v[rwalk::NSUM];
 #pragma unroll
       for (int r = 0; r < rwalk::NSUM; ++r) v[r] = 0.0f;
       bool any = false;
       if (ln.px >= sh.st[15][j] && ln.px <= sh.st[16][j]) {
-        const float yl = sh.st[17][j], yh = sh.st[18][j];
-        const float F0 = sh.st[0][j], F1 = sh.st[1][j], F2 = sh.st[2][j];
-        const float F3 = sh.st[3][j], F4 = sh.st[4][j], F5 = sh.st[5][j];
-        const float logo = sh.st[6][j];
-        const float c0 = sh.st[7][j], c1 = sh.st[8][j], c2 = sh.st[9][j];
-        const float gxs = sh.st[10][j], gys = sh.st[11][j];
+        rwalk::Slot sl;
 #pragma unroll
-        for (int k = 0; k < rwalk::PPT; ++k) {
-          const float py = ln.py[k];
-          if (idx1 > ln.last[k] || py < yl || py > yh) continue;
-          const float pyy = py * py, pxy = ln.px * py;
-          const float power = power_of(F0, F1, F2, F3, F4, F5, logo, ln.pxx,
-                                       ln.px, pyy, py, pxy);
-          float w, dP;
-          if (!rwalk::pair_grad(power, logo, c0, c1, c2, alpha_min, ln.T[k],
-                                ln.S[k], ln.gr[k], ln.gg[k], ln.gb[k], w,
-                                dP))
-            continue;
-          // the power's monomials centred on the splat: no cancellation
-          const float dx = ln.px - gxs, dy = py - gys;
-          v[0] += dx * dx * dP;
-          v[1] += dx * dy * dP;
-          v[2] += dy * dy * dP;
-          v[3] += dx * dP;
-          v[4] += dy * dP;
-          v[5] += dP;
-          v[6] += ln.gr[k] * w;
-          v[7] += ln.gg[k] * w;
-          v[8] += ln.gb[k] * w;
-          any = true;
-        }
+        for (int r = 0; r < 7; ++r) sl.F[r] = sh.st[r][j];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) sl.c[r] = sh.st[7 + r][j];
+        sl.gx = sh.st[10][j];
+        sl.gy = sh.st[11][j];
+        sl.yl = sh.st[17][j];
+        sl.yh = sh.st[18][j];
+        any = rwalk::walk_slot<true, ILP>(ln, base + j + 1, sl, alpha_min,
+                                          v);
       }
       rwalk::warp_emit(sh, warp, lane, j, v, any);
     }
     __syncthreads();
-    rwalk::block_sum(sh, n);
+    rwalk::block_sum(sh, n, q);
     cl.sync();
     // this block's slice of the step's slots, totalled over the cluster,
     // through the F build's transpose to the 9 raw rows: power = -0.5 a
@@ -384,7 +373,7 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
     rwalk::slice_of(cl, n, j0, j1);
     for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
       float t[rwalk::NSUM];
-      if (!rwalk::cluster_total(cl, sh, j, t)) continue;
+      if (!rwalk::cluster_total(cl, sh, j, q, t)) continue;
       const float a = sh.st[12][j], bb = sh.st[13][j], c = sh.st[14][j];
       float* o = dsp + base + j;
       o[0 * (size_t)L] = a * t[3] + bb * t[4];
@@ -397,8 +386,9 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
       o[7 * (size_t)L] = t[7];
       o[8 * (size_t)L] = t[8];
     }
-    cl.sync();  // the next step overwrites the staged rows and partials
+    __syncthreads();  // the next step overwrites the staged rows
   }
+  cl.sync();  // every block has read this block's sums
 }
 
 }  // namespace
@@ -425,19 +415,17 @@ int gsmpm_stream_fwd(const float* splanes, int L, const int* bounds,
 
 int gsmpm_stream_bwd(const float* splanes, int L, const int* bounds,
                      const float* out, const float* g, float* dsp, int nf,
-                     int nbx, int B, float alpha_min, int warps,
+                     int nbx, int B, float alpha_min, int variant,
                      void* stream) {
   if (nf <= 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (warps) {
-#define GSMPM_BWD(NW)                                                     \
-  case NW:                                                                \
-    return rwalk::launch<NW, BWD_NS>(stream_bwd_kernel<NW>, nf, B, st,    \
-                                     splanes, L, bounds, out, g, dsp, nbx, \
-                                     B, alpha_min);
-    GSMPM_BWD(4)
-    GSMPM_BWD(8)
-    GSMPM_BWD(32)
+  switch (variant) {
+#define GSMPM_BWD(I, NW, CH, ILP)                                          \
+  case I:                                                                  \
+    return rwalk::launch<NW, rwalk::Shared<NW, BWD_NS, CH>>(               \
+        stream_bwd_kernel<NW, CH, ILP>, nf, B, st, splanes, L, bounds,     \
+        out, g, dsp, nbx, B, alpha_min);
+    GSMPM_RWALK_VARIANTS(GSMPM_BWD)
 #undef GSMPM_BWD
     default:
       return cudaErrorInvalidValue;

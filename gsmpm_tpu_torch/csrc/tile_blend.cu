@@ -37,7 +37,9 @@
 // evaluates candidates until it is done (forward) or back from its last
 // contributor (backward).  Each (candidate, pixel) pair is >= 20 fp32
 // operations forward; backward >= 16 (the gate) for every pair evaluated
-// and >= 33 more for a contributing one.  The bytes (F once, out / g / dF
+// and >= 33 more for a contributing one; K5 / K9 skip the pairs outside
+// the candidate's box (below) with a few compares, so their bound charges
+// the gate to the walked pairs inside it.  The bytes (F once, out / g / dF
 // once) are small, so both are bound by operations; chip_smoke.py counts
 // the pairs of each run from the kernels' own outputs, the contributing
 // ones by the forward's gates.
@@ -49,18 +51,26 @@
 //       __syncthreads_and(done).  This is the TPU kernel's stop rule (a
 //       pixel is done at the first candidate whose T_after falls below
 //       t_min) evaluated sequentially instead of with a chunked cumprod.
-//   K5: one 1024-thread block per pixel block, up to 4 pixels per thread,
-//       walking candidates back to front from the block's largest last
-//       contributor.  Per pixel it keeps T (recovered by division,
-//       T_before = T_after / (1 - alpha)) and the suffix S of
-//       w (c . g_rgb) seeded with T_final g_T, exactly the quantities of
-//       _blend_bwd_kernel.  Per candidate the 9 distinct sums over the
-//       block's pixels reduce by warp shuffles (skipped when the warp has
-//       nothing) into one shared-memory partial per warp; every JS
-//       candidates the partials are summed over the warps in a fixed order
-//       and written, so dF is deterministic (the same windows give the same
-//       bits in K5 and K9).  Each walked column of dF is written once, with
-//       no atomics.
+//   K5: the reverse walk of csrc/reverse_walk.cuh over a candidate
+//       window.  Each pixel block is a cluster of ceil(groups / 8) CUDA
+//       blocks of 8 warps, one warp per 16 x 8 pixel group (4 blocks at B =
+//       64: the fit's 40 tier-2 windows take 160 CUDA blocks, where one
+//       1024-thread block per window kept 40 of the 132 SMs busy).  The
+//       cluster walks back to front from its largest last contributor, 128
+//       candidates staged per step with the box window_box derives from
+//       their F rows; a warp walks only the staged candidates before its own
+//       last contributor whose box meets its group, a lane only the pixels
+//       inside the box (a culled pair is one the gate rejects).  Per pixel
+//       it keeps T (recovered by division, T_before = T_after / (1 -
+//       alpha)) and the suffix S of w (c . g_rgb) seeded with T_final g_T,
+//       exactly the quantities of _blend_bwd_kernel.  Per candidate the 9
+//       distinct sums over the block's pixels are stored only by warps that
+//       reached it, then summed in a fixed order (the lanes by butterfly,
+//       the warps in order, the cluster's blocks in rank order through
+//       distributed shared memory): no global scratch, no atomics, and dF
+//       is deterministic (the same windows give the same bits in K5 and
+//       K9).  Each walked column of dF is written once, by one block of the
+//       cluster; the columns past the walk get zeros, shared among them.
 //   K8 / K9: the same two kernels on the packed addressing (window_of):
 //       block b reads F columns offs[b] + j, walks n_live chunks of C like
 //       the TPU kernels, and keeps its last-contributor index local to its
@@ -226,14 +236,13 @@ __device__ __forceinline__ void window_box(const float* F, int B,
 // staged rows of a candidate: F rows 0..6, colors (7..9), box (10..13)
 constexpr int BWD_NS = 14;
 
-template <bool PACKED, int NW>
-__global__ void __launch_bounds__(NW * 32, 32 / NW)
+template <bool PACKED, int NW, int CH, bool ILP>
+__global__ void __launch_bounds__(NW * 32, NW >= 16 ? 1 : 16 / NW)
 blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                  const float* __restrict__ F, const float* __restrict__ out,
                  const float* __restrict__ g, float* __restrict__ dF, int K,
                  int C, int n_chunks, int B, float alpha_min) {
-  using Sh = rwalk::Shared<NW, BWD_NS>;
-  constexpr int CH = rwalk::CH;
+  using Sh = rwalk::Shared<NW, BWD_NS, CH>;
   extern __shared__ __align__(16) unsigned char smem[];
   Sh& sh = *reinterpret_cast<Sh*>(smem);
   cooperative_groups::cluster_group cl =
@@ -263,6 +272,7 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   for (int step = steps - 1; step >= 0; --step) {
     const int base = step * CH;
     const int n = min(CH, W - base);
+    const int q = step & 1;  // this step's buffer of the block's sums
     // stage each candidate's rows and box
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       float f[NROW];
@@ -282,45 +292,26 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                                        sh.list[warp], lane);
     for (int e = count - 1; e >= 0; --e) {
       const int j = sh.list[warp][e];
-      const int idx1 = base + j + 1;
       float v[rwalk::NSUM];
 #pragma unroll
       for (int r = 0; r < rwalk::NSUM; ++r) v[r] = 0.0f;
       bool any = false;
       if (ln.px >= sh.st[10][j] && ln.px <= sh.st[11][j]) {
-        const float yl = sh.st[12][j], yh = sh.st[13][j];
-        const float F0 = sh.st[0][j], F1 = sh.st[1][j], F2 = sh.st[2][j];
-        const float F3 = sh.st[3][j], F4 = sh.st[4][j], F5 = sh.st[5][j];
-        const float F6 = sh.st[6][j];
-        const float c0 = sh.st[7][j], c1 = sh.st[8][j], c2 = sh.st[9][j];
+        rwalk::Slot sl;
 #pragma unroll
-        for (int k = 0; k < rwalk::PPT; ++k) {
-          const float py = ln.py[k];
-          if (idx1 > ln.last[k] || py < yl || py > yh) continue;
-          const float pyy = py * py, pxy = ln.px * py;
-          const float power = rwalk::power_of(F0, F1, F2, F3, F4, F5, F6,
-                                              ln.pxx, ln.px, pyy, py, pxy);
-          float w, dP;
-          if (!rwalk::pair_grad(power, F6, c0, c1, c2, alpha_min, ln.T[k],
-                                ln.S[k], ln.gr[k], ln.gg[k], ln.gb[k], w,
-                                dP))
-            continue;
-          v[0] += ln.pxx * dP;
-          v[1] += ln.px * dP;
-          v[2] += dP;
-          v[3] += pyy * dP;
-          v[4] += py * dP;
-          v[5] += pxy * dP;
-          v[6] += ln.gr[k] * w;
-          v[7] += ln.gg[k] * w;
-          v[8] += ln.gb[k] * w;
-          any = true;
-        }
+        for (int r = 0; r < 7; ++r) sl.F[r] = sh.st[r][j];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) sl.c[r] = sh.st[7 + r][j];
+        sl.gx = sl.gy = 0.0f;
+        sl.yl = sh.st[12][j];
+        sl.yh = sh.st[13][j];
+        any = rwalk::walk_slot<false, ILP>(ln, base + j + 1, sl, alpha_min,
+                                           v);
       }
       rwalk::warp_emit(sh, warp, lane, j, v, any);
     }
     __syncthreads();
-    rwalk::block_sum(sh, n);
+    rwalk::block_sum(sh, n, q);
     cl.sync();
     // this block's slice of the step's columns, totalled over the cluster:
     // dF rows 0..5 the monomial sums, 6 the log opacity (= row 2's sum of
@@ -329,7 +320,7 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
     rwalk::slice_of(cl, n, j0, j1);
     for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
       float t[rwalk::NSUM];
-      rwalk::cluster_total(cl, sh, j, t);
+      rwalk::cluster_total(cl, sh, j, q, t);
       float* o = dFb + base + j;
       o[0 * ld] = t[0];
       o[1 * ld] = t[1];
@@ -344,25 +335,24 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
       o[10 * ld] = t[8];
       for (int r = 11; r < 16; ++r) o[r * ld] = 0.0f;
     }
-    cl.sync();  // the next step overwrites the staged rows and partials
+    __syncthreads();  // the next step overwrites the staged rows
   }
+  cl.sync();  // every block has read this block's sums
 }
 
-// K5 / K9 with NW warps per CUDA block
+// K5 / K9 in variant `variant` of GSMPM_RWALK_VARIANTS
 template <bool PACKED>
-cudaError_t launch_bwd(int warps, int nb, int B, cudaStream_t st,
+cudaError_t launch_bwd(int variant, int nb, int B, cudaStream_t st,
                        const int* counts, const int* offs, const float* F,
                        const float* out, const float* g, float* dF, int K,
                        int C, int n_chunks, float alpha_min) {
-  switch (warps) {
-#define GSMPM_BWD(NW)                                                       \
-  case NW:                                                                  \
-    return rwalk::launch<NW, BWD_NS>(blend_bwd_kernel<PACKED, NW>, nb, B,   \
-                                     st, counts, offs, F, out, g, dF, K, C, \
-                                     n_chunks, B, alpha_min);
-    GSMPM_BWD(4)
-    GSMPM_BWD(8)
-    GSMPM_BWD(32)
+  switch (variant) {
+#define GSMPM_BWD(I, NW, CH, ILP)                                        \
+  case I:                                                                \
+    return rwalk::launch<NW, rwalk::Shared<NW, BWD_NS, CH>>(             \
+        blend_bwd_kernel<PACKED, NW, CH, ILP>, nb, B, st, counts, offs,  \
+        F, out, g, dF, K, C, n_chunks, B, alpha_min);
+    GSMPM_RWALK_VARIANTS(GSMPM_BWD)
 #undef GSMPM_BWD
     default:
       return cudaErrorInvalidValue;
@@ -389,9 +379,9 @@ int gsmpm_blend_fwd(const int* counts, const float* F, float* out, int nb,
 
 int gsmpm_blend_bwd(const float* F, const float* out, const float* g,
                     float* dF, int nb, int K, int B, float alpha_min,
-                    int warps, void* stream) {
+                    int variant, void* stream) {
   if (nb <= 0) return cudaSuccess;
-  return launch_bwd<false>(warps, nb, B, static_cast<cudaStream_t>(stream),
+  return launch_bwd<false>(variant, nb, B, static_cast<cudaStream_t>(stream),
                            nullptr, nullptr, F, out, g, dF, K, 1, 0,
                            alpha_min);
 }
@@ -411,9 +401,9 @@ int gsmpm_blend_packed_fwd(const int* counts, const int* offs, const float* F,
 int gsmpm_blend_packed_bwd(const int* counts, const int* offs, const float* F,
                            const float* out, const float* g, float* dF,
                            int nb, int T, int C, int n_chunks, int B,
-                           float alpha_min, int warps, void* stream) {
+                           float alpha_min, int variant, void* stream) {
   if (nb <= 0) return cudaSuccess;
-  return launch_bwd<true>(warps, nb, B, static_cast<cudaStream_t>(stream),
+  return launch_bwd<true>(variant, nb, B, static_cast<cudaStream_t>(stream),
                           counts, offs, F, out, g, dF, T, C, n_chunks,
                           alpha_min);
 }

@@ -281,18 +281,21 @@ def blend_core_bwd_ref(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# warps per CUDA block of the reverse walks (K5, K9 and K7, whose launches
-# take ceil(pixel groups / REVERSE_WARPS) blocks per pixel block as one
-# cluster; csrc/reverse_walk.cuh)
-REVERSE_WARPS = 8
+# the reverse walks' variants (K5, K9 and K7; csrc/reverse_walk.cuh
+# GSMPM_RWALK_VARIANTS): (warps per CUDA block, slots staged per step,
+# pixels of a lane evaluated without branches).  A launch takes
+# ceil(pixel groups / warps) CUDA blocks per pixel block, as one cluster.
+REVERSE_VARIANTS = ((8, 128, False), (8, 256, False), (8, 128, True),
+                    (8, 256, True), (32, 128, True), (4, 256, True))
+REVERSE_VARIANT = 2
 
 
 def reverse_blocks(nblocks: int, B: int) -> int:
     """CUDA blocks of one reverse-walk launch over nblocks pixel blocks of
-    edge B: one cluster of ceil(groups / REVERSE_WARPS) per pixel block,
-    a group being 16 x 8 pixels."""
+    edge B: one cluster of ceil(groups / warps) per pixel block, a group
+    being 16 x 8 pixels."""
     groups = (B // 16) * (B // 8)
-    return nblocks * -(-groups // REVERSE_WARPS)
+    return nblocks * -(-groups // REVERSE_VARIANTS[REVERSE_VARIANT][0])
 
 
 def _lib():
@@ -369,7 +372,7 @@ def blend_bwd(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     err = lib.gsmpm_blend_bwd(F.data_ptr(), out.data_ptr(), g.data_ptr(),
                               dF.data_ptr(), nb, K, meta.B, meta.alpha_min,
-                              REVERSE_WARPS,
+                              REVERSE_VARIANT,
                               torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "blend_bwd")
     blend_bwd.launches += 1
@@ -533,7 +536,7 @@ def blend_packed_bwd(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
     err = lib.gsmpm_blend_packed_bwd(
         counts.data_ptr(), offs.data_ptr(), F.data_ptr(), out.data_ptr(),
         g.data_ptr(), dF.data_ptr(), nb, T, meta.C, meta.n_chunks, meta.B,
-        meta.alpha_min, REVERSE_WARPS,
+        meta.alpha_min, REVERSE_VARIANT,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "blend_packed_bwd")
     blend_packed_bwd.launches += 1

@@ -513,7 +513,7 @@ def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
     err = lib.gsmpm_stream_bwd(
         splanes.data_ptr(), splanes.shape[1], bounds.data_ptr(),
         out.data_ptr(), g.data_ptr(), dsp.data_ptr(), nf, nbx, B, alpha_min,
-        cuda_blend.REVERSE_WARPS, torch.cuda.current_stream(dev).cuda_stream,
+        cuda_blend.REVERSE_VARIANT, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "stream_blend_bwd")
     stream_blend_bwd.launches += 1
