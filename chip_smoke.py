@@ -396,16 +396,16 @@ def k3_bound(splanes, bounds, out, cull):
 def reverse_variants(fn, reps: int = 10) -> dict:
     """fn's device time in each variant of the reverse walks (K5, K7, K9;
     cuda_blend.REVERSE_VARIANTS: warps per CUDA block, slots per step,
-    branch-free pixels), keyed "warps/slots/ilp"; the port's default is
+    pixels per lane), keyed "warps/slots/ppt"; the port's default is
     restored after."""
     from gsmpm_tpu_torch.render import cuda_blend as cb
 
     keep = cb.REVERSE_VARIANT
     ms = {}
     try:
-        for i, (nw, ch, ilp) in enumerate(cb.REVERSE_VARIANTS):
+        for i, (nw, ch, ppt) in enumerate(cb.REVERSE_VARIANTS):
             cb.REVERSE_VARIANT = i
-            ms[f"{nw}/{ch}/{int(ilp)}"] = cuda_ms(fn, reps)
+            ms[f"{nw}/{ch}/{ppt}"] = cuda_ms(fn, reps)
     finally:
         cb.REVERSE_VARIANT = keep
     return ms

@@ -42,7 +42,6 @@ namespace rwalk {
 
 namespace cg = cooperative_groups;
 
-constexpr int PPT = 4;                 // pixels per lane
 constexpr int NSUM = 9;                // sums per slot
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -61,16 +60,18 @@ struct Shared {
   int top;                             // the block's largest last contributor
 };
 
-__host__ __device__ __forceinline__ int groups_of(int B) {
-  return (B / 16) * (B / 8);
+// A block's pixel groups of 16 x 2 PPT pixels (PPT pixels per lane)
+__host__ __device__ __forceinline__ int groups_of(int B, int ppt) {
+  return (B / 16) * (B / (2 * ppt));
 }
 
 // CUDA blocks (the cluster size) per pixel block
-__host__ __device__ __forceinline__ int blocks_per(int B, int nw) {
-  return (groups_of(B) + nw - 1) / nw;
+__host__ __device__ __forceinline__ int blocks_per(int B, int nw, int ppt) {
+  return (groups_of(B, ppt) + nw - 1) / nw;
 }
 
-// A lane's 4 pixels of its warp's group and their reverse-walk state.
+// A lane's PPT pixels of its warp's group and their reverse-walk state.
+template <int PPT>
 struct Lane {
   float px, pxx;
   float py[PPT], T[PPT], S[PPT], gr[PPT], gg[PPT], gb[PPT];
@@ -82,13 +83,14 @@ struct Lane {
 // Lane state of group `rect` from the blend state ob and its cotangent gb
 // (8, B*B) of the pixel block: T, S seeded with T_final g_T, g_rgb, and
 // the last contributor + 1.  A warp past the block's groups gets none.
-__device__ __forceinline__ void load_lane(Lane& ln, int rect, int B,
+template <int PPT>
+__device__ __forceinline__ void load_lane(Lane<PPT>& ln, int rect, int B,
                                           const float* ob, const float* gb,
                                           int lane) {
   const int P = B * B;
   const int rects_x = B / 16;
-  const bool live = rect < groups_of(B);
-  const int rx0 = (rect % rects_x) * 16, ry0 = (rect / rects_x) * 8;
+  const bool live = rect < groups_of(B, PPT);
+  const int rx0 = (rect % rects_x) * 16, ry0 = (rect / rects_x) * 2 * PPT;
   ln.rx0 = (float)rx0;
   ln.ry0 = (float)ry0;
   ln.px = (float)(rx0 + (lane & 15));
@@ -115,9 +117,9 @@ __device__ __forceinline__ void load_lane(Lane& ln, int rect, int B,
 
 // The largest last contributor over the cluster's warps.  Ends with a
 // cluster barrier: a block whose walk is empty may then exit.
-template <class Sh>
+template <class Sh, class Ln>
 __device__ __forceinline__ int cluster_top(cg::cluster_group& cl, Sh& sh,
-                                           const Lane& ln, int lane) {
+                                           const Ln& ln, int lane) {
   if (threadIdx.x == 0) sh.top = 0;
   __syncthreads();
   if (lane == 0 && ln.top > 0) atomicMax(&sh.top, ln.top);
@@ -151,48 +153,39 @@ struct Slot {
   float yl, yh;                        // the box's rows
 };
 
-// The lane's pixels of one slot, back to front: for each pixel at or
-// before its last contributor and inside the box's rows, the forward's
-// gate (power <= log opacity, alpha >= alpha_min); where it passes, T
-// becomes T_before (by division), S takes w (c . g_rgb), and the 9 sums v
-// take dpower times the pixel's monomials (CENTRED: those of its offset
-// from the splat's centre, dx^2, dx dy, dy^2, dx, dy, 1; else the
-// block-local px^2, px, 1, py^2, py, px py) and g_rgb w.  dpower is 0
-// where exp(power) reaches the 0.99 clamp.  ILP evaluates the 4 pixels
-// without branches (a pixel outside the box fails the gate, and adds
-// exact zeros), so their latencies overlap; either way the same pairs
-// update T, S and v, in the same order, with the same expressions.
-// Returns whether any pixel passed.
-template <bool CENTRED, bool ILP>
-__device__ __forceinline__ bool walk_slot(Lane& ln, int idx1, const Slot& s,
-                                          float alpha_min,
+// The lane's pixels of one slot, back to front: each pixel at or before
+// its last contributor and inside the box's rows takes the forward's gate
+// (power <= log opacity, alpha >= alpha_min); where it passes, T becomes
+// T_before (by division), S takes w (c . g_rgb), and the 9 sums v take
+// dpower times the pixel's monomials (CENTRED: those of its offset from
+// the splat's centre, dx^2, dx dy, dy^2, dx, dy, 1; else the block-local
+// px^2, px, 1, py^2, py, px py) and g_rgb w.  dpower is 0 where
+// exp(power) reaches the 0.99 clamp.  Returns whether any pixel passed.
+template <bool CENTRED, int PPT>
+__device__ __forceinline__ bool walk_slot(Lane<PPT>& ln, int idx1,
+                                          const Slot& s, float alpha_min,
                                           float (&v)[NSUM]) {
   bool any = false;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const float py = ln.py[k];
-    const bool in = idx1 <= ln.last[k] && py >= s.yl && py <= s.yh;
-    if (!ILP && !in) continue;
+    if (idx1 > ln.last[k] || py < s.yl || py > s.yh) continue;
     const float pyy = py * py, pxy = ln.px * py;
     const float power = power_of(s.F[0], s.F[1], s.F[2], s.F[3], s.F[4],
                                  s.F[5], s.F[6], ln.pxx, ln.px, pyy, py,
                                  pxy);
     const float expp = expf(power);
     const float alpha = fminf(0.99f, expp);
-    const bool ok = in && power <= s.F[6] && alpha >= alpha_min;
-    if (!ILP && !ok) continue;
+    if (!(power <= s.F[6] && alpha >= alpha_min)) continue;
     const float one_minus = 1.0f - alpha;
     const float T_before = ln.T[k] / one_minus;
-    float w = T_before * alpha;
+    const float w = T_before * alpha;
     const float cdot = s.c[0] * ln.gr[k] + s.c[1] * ln.gg[k]
                        + s.c[2] * ln.gb[k];
     const float dA = T_before * cdot - ln.S[k] / one_minus;
-    float dP = expp < 0.99f ? dA * alpha : 0.0f;
-    const float S_new = ln.S[k] + w * cdot;
-    ln.S[k] = ok ? S_new : ln.S[k];
-    ln.T[k] = ok ? T_before : ln.T[k];
-    dP = ok ? dP : 0.0f;
-    w = ok ? w : 0.0f;
+    const float dP = expp < 0.99f ? dA * alpha : 0.0f;
+    ln.S[k] += w * cdot;
+    ln.T[k] = T_before;
     if (CENTRED) {
       const float dx = ln.px - s.gx, dy = py - s.gy;
       v[0] += dx * dx * dP;
@@ -200,29 +193,31 @@ __device__ __forceinline__ bool walk_slot(Lane& ln, int idx1, const Slot& s,
       v[2] += dy * dy * dP;
       v[3] += dx * dP;
       v[4] += dy * dP;
+      v[5] += dP;
     } else {
       v[0] += ln.pxx * dP;
       v[1] += ln.px * dP;
       v[2] += dP;
       v[3] += pyy * dP;
       v[4] += py * dP;
+      v[5] += pxy * dP;
     }
-    v[5] += CENTRED ? dP : pxy * dP;
     v[6] += ln.gr[k] * w;
     v[7] += ln.gg[k] * w;
     v[8] += ln.gb[k] * w;
-    any = any || ok;
+    any = true;
   }
   return any;
 }
 
 // The warp's list, in slot order, of the staged slots j < jmax whose box
-// (x lo, x hi, y lo, y hi) meets its 16 x 8 group; returns its length.
+// (x lo, x hi, y lo, y hi) meets its group; returns its length.
+template <int PPT>
 __device__ __forceinline__ int warp_list(const float* xl, const float* xh,
                                          const float* yl, const float* yh,
-                                         int jmax, const Lane& ln,
+                                         int jmax, const Lane<PPT>& ln,
                                          unsigned char* list, int lane) {
-  const float rxhi = ln.rx0 + 15.0f, ryhi = ln.ry0 + 7.0f;
+  const float rxhi = ln.rx0 + 15.0f, ryhi = ln.ry0 + (2 * PPT - 1);
   int count = 0;
   for (int j0 = 0; j0 < jmax; j0 += 32) {
     const int j = j0 + lane;
@@ -312,14 +307,14 @@ __device__ __forceinline__ bool cluster_total(cg::cluster_group& cl, Sh& sh,
 // Launch `kernel` on nb pixel blocks of edge B, each a cluster of
 // blocks_per(B, NW) CUDA blocks of NW warps with the dynamic shared memory
 // of Sh.
-template <int NW, class Sh, typename... KArgs, typename... Args>
+template <int NW, int PPT, class Sh, typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), int nb, int B,
                    cudaStream_t stream, Args... args) {
   const size_t smem = sizeof(Sh);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int S = blocks_per(B, NW);
+  const int S = blocks_per(B, NW, PPT);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nb * S);
   cfg.blockDim = dim3(NW * 32);
@@ -337,13 +332,13 @@ cudaError_t launch(void (*kernel)(KArgs...), int nb, int B,
 }
 
 // The variants timed on the card: (warps per block, slots per step,
-// pixels without branches); the launchers take an index into this table.
+// pixels per lane: a group of 16 x 2 PPT pixels per warp); the launchers
+// take an index into this table.
 #define GSMPM_RWALK_VARIANTS(X) \
-  X(0, 8, 128, false)           \
-  X(1, 8, 256, false)           \
-  X(2, 8, 128, true)            \
-  X(3, 8, 256, true)            \
-  X(4, 32, 128, true)           \
-  X(5, 4, 256, true)
+  X(0, 8, 256, 4)               \
+  X(1, 16, 128, 2)              \
+  X(2, 8, 128, 2)               \
+  X(3, 32, 64, 1)               \
+  X(4, 8, 128, 4)
 
 }  // namespace rwalk

@@ -281,7 +281,7 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
 // (12..14) and its box (15..18)
 constexpr int BWD_NS = 19;
 
-template <int NW, int CHB, bool ILP>
+template <int NW, int CHB, int PPT>
 __global__ void __launch_bounds__(NW * 32, NW >= 16 ? 1 : 16 / NW)
 stream_bwd_kernel(const float* __restrict__ splanes, int L,
                   const int* __restrict__ bounds,
@@ -299,7 +299,7 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
   const float x0 = (float)((b % nbx) * B), y0 = (float)((b / nbx) * B);
   const int lo = bounds[b], hi = bounds[b + 1];
 
-  rwalk::Lane ln;
+  rwalk::Lane<PPT> ln;
   rwalk::load_lane(ln, rank * NW + warp, B, out + (size_t)b * 8 * P,
                    g + (size_t)b * 8 * P, lane);
   // slots [lo, top) hold every contributor of the block
@@ -357,7 +357,7 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
         sl.gy = sh.st[11][j];
         sl.yl = sh.st[17][j];
         sl.yh = sh.st[18][j];
-        any = rwalk::walk_slot<true, ILP>(ln, base + j + 1, sl, alpha_min,
+        any = rwalk::walk_slot<true, PPT>(ln, base + j + 1, sl, alpha_min,
                                           v);
       }
       rwalk::warp_emit(sh, warp, lane, j, v, any);
@@ -420,10 +420,10 @@ int gsmpm_stream_bwd(const float* splanes, int L, const int* bounds,
   if (nf <= 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (variant) {
-#define GSMPM_BWD(I, NW, CH, ILP)                                          \
+#define GSMPM_BWD(I, NW, CH, PPT)                                          \
   case I:                                                                  \
-    return rwalk::launch<NW, rwalk::Shared<NW, BWD_NS, CH>>(               \
-        stream_bwd_kernel<NW, CH, ILP>, nf, B, st, splanes, L, bounds,     \
+    return rwalk::launch<NW, PPT, rwalk::Shared<NW, BWD_NS, CH>>(          \
+        stream_bwd_kernel<NW, CH, PPT>, nf, B, st, splanes, L, bounds,     \
         out, g, dsp, nbx, B, alpha_min);
     GSMPM_RWALK_VARIANTS(GSMPM_BWD)
 #undef GSMPM_BWD

@@ -236,7 +236,7 @@ __device__ __forceinline__ void window_box(const float* F, int B,
 // staged rows of a candidate: F rows 0..6, colors (7..9), box (10..13)
 constexpr int BWD_NS = 14;
 
-template <bool PACKED, int NW, int CH, bool ILP>
+template <bool PACKED, int NW, int CH, int PPT>
 __global__ void __launch_bounds__(NW * 32, NW >= 16 ? 1 : 16 / NW)
 blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                  const float* __restrict__ F, const float* __restrict__ out,
@@ -257,7 +257,7 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   const float* Fb = F + win.col0;
   float* dFb = dF + win.col0;
 
-  rwalk::Lane ln;
+  rwalk::Lane<PPT> ln;
   rwalk::load_lane(ln, rank * NW + warp, B, out + (size_t)b * 8 * P,
                    g + (size_t)b * 8 * P, lane);
   // candidates [0, top) hold every contributor of the block; the columns
@@ -305,7 +305,7 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
         sl.gx = sl.gy = 0.0f;
         sl.yl = sh.st[12][j];
         sl.yh = sh.st[13][j];
-        any = rwalk::walk_slot<false, ILP>(ln, base + j + 1, sl, alpha_min,
+        any = rwalk::walk_slot<false, PPT>(ln, base + j + 1, sl, alpha_min,
                                            v);
       }
       rwalk::warp_emit(sh, warp, lane, j, v, any);
@@ -347,10 +347,10 @@ cudaError_t launch_bwd(int variant, int nb, int B, cudaStream_t st,
                        const float* out, const float* g, float* dF, int K,
                        int C, int n_chunks, float alpha_min) {
   switch (variant) {
-#define GSMPM_BWD(I, NW, CH, ILP)                                        \
+#define GSMPM_BWD(I, NW, CH, PPT)                                        \
   case I:                                                                \
-    return rwalk::launch<NW, rwalk::Shared<NW, BWD_NS, CH>>(             \
-        blend_bwd_kernel<PACKED, NW, CH, ILP>, nb, B, st, counts, offs,  \
+    return rwalk::launch<NW, PPT, rwalk::Shared<NW, BWD_NS, CH>>(        \
+        blend_bwd_kernel<PACKED, NW, CH, PPT>, nb, B, st, counts, offs,  \
         F, out, g, dF, K, C, n_chunks, B, alpha_min);
     GSMPM_RWALK_VARIANTS(GSMPM_BWD)
 #undef GSMPM_BWD

@@ -283,19 +283,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # the reverse walks' variants (K5, K9 and K7; csrc/reverse_walk.cuh
 # GSMPM_RWALK_VARIANTS): (warps per CUDA block, slots staged per step,
-# pixels of a lane evaluated without branches).  A launch takes
-# ceil(pixel groups / warps) CUDA blocks per pixel block, as one cluster.
-REVERSE_VARIANTS = ((8, 128, False), (8, 256, False), (8, 128, True),
-                    (8, 256, True), (32, 128, True), (4, 256, True))
-REVERSE_VARIANT = 2
+# pixels per lane, a warp's group being 16 x 2 ppt pixels).  A launch
+# takes ceil(groups / warps) CUDA blocks per pixel block, as one cluster.
+REVERSE_VARIANTS = ((8, 256, 4), (16, 128, 2), (8, 128, 2), (32, 64, 1),
+                    (8, 128, 4))
+REVERSE_VARIANT = 0
 
 
 def reverse_blocks(nblocks: int, B: int) -> int:
     """CUDA blocks of one reverse-walk launch over nblocks pixel blocks of
-    edge B: one cluster of ceil(groups / warps) per pixel block, a group
-    being 16 x 8 pixels."""
-    groups = (B // 16) * (B // 8)
-    return nblocks * -(-groups // REVERSE_VARIANTS[REVERSE_VARIANT][0])
+    edge B: one cluster of ceil(groups / warps) per pixel block."""
+    nw, _, ppt = REVERSE_VARIANTS[REVERSE_VARIANT]
+    groups = (B // 16) * (B // (2 * ppt))
+    return nblocks * -(-groups // nw)
 
 
 def _lib():
