@@ -82,10 +82,10 @@ PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # a kernel row's numbers beyond the required keys, copied into the kernels
 # line: K1 at the fit's shapes and its blocks, K3's cull, K4/K5 per tier,
-# the reverse walks' blocks, cull, all-walked bound, variants and rerun
+# the reverse walks' blocks, cull, all-walked bound, depth and rerun
 ROW_EXTRAS = ("per_tier", "blocks", "fit_ms", "fit_plain_ms",
               "fit_bound_ms", "fit_bound_by", "fit_blocks", "culled_share",
-              "bound_all_walked_ms", "variants_ms", "bit_equal")
+              "bound_all_walked_ms", "kept_pairs", "bit_equal", "depth_max")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -391,24 +391,6 @@ def k3_bound(splanes, bounds, out, cull):
     stream, the bounds and the blend state."""
     return bound_ms(splanes.numel() * 4 + bounds.numel() * 4
                     + out.numel() * 4, cull["kept_pairs"] * 20.0)
-
-
-def reverse_variants(fn, reps: int = 10) -> dict:
-    """fn's device time in each variant of the reverse walks (K5, K7, K9;
-    cuda_blend.REVERSE_VARIANTS: warps per CUDA block, slots per step,
-    pixels per lane), keyed "warps/slots/ppt"; the port's default is
-    restored after."""
-    from gsmpm_tpu_torch.render import cuda_blend as cb
-
-    keep = cb.REVERSE_VARIANT
-    ms = {}
-    try:
-        for i, (nw, ch, ppt) in enumerate(cb.REVERSE_VARIANTS):
-            cb.REVERSE_VARIANT = i
-            ms[f"{nw}/{ch}/{ppt}"] = cuda_ms(fn, reps)
-    finally:
-        cb.REVERSE_VARIANT = keep
-    return ms
 
 
 def _group_rects(B, dev):
@@ -890,7 +872,6 @@ def blend_phases(dev, ident, first):
         ms5 = cuda_ms(lambda: cb.blend_bwd(F, out_k, g, meta), 20)
         pms5 = cuda_ms(lambda: cb.blend_core_bwd_ref(F, out_k, g, meta), 1,
                        1)
-        var5 = reverse_variants(lambda: cb.blend_bwd(F, out_k, g, meta))
         cull5 = window_cull(F, out_k, meta)
         # (candidate, pixel) pairs this data needs: forward, each pixel up
         # to its stop (its last contributor when done, else its block's
@@ -904,7 +885,8 @@ def blend_phases(dev, ident, first):
         # bytes: the 10 used F rows of the live candidates, the outputs
         # (K4) / inputs and dF (K5); >= 20 fp32 operations per forward pair,
         # the backward's as GATE_OPS / BWD_CONTRIB_OPS say, the gate charged
-        # to the walked pairs inside the box (and, as before PR 5, to all)
+        # to the walked pairs inside the box (the all-walked bound charges
+        # it to every walked pair)
         b4 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs4 * 20.0)
         bytes5 = live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4
         b5 = bound_ms(bytes5, cull5["kept_pairs"] * GATE_OPS
@@ -915,7 +897,7 @@ def blend_phases(dev, ident, first):
                            done_diff=done_diff, last_diff=last_diff,
                            rel5=rel5, ms4=ms4, pms4=pms4, ms5=ms5, pms5=pms5,
                            b4=b4, b5=b5, b5_all=b5_all, pairs4=pairs4,
-                           pairs5=pairs5, contrib5=contrib5, var5=var5,
+                           pairs5=pairs5, contrib5=contrib5,
                            blocks5=cb.reverse_blocks(nb, meta.B),
                            bits5=bits5, **cull5)
         print(f"K4/K5 {tier}: {nb} blocks x K {K} ({live_cols:.0f} live "
@@ -930,8 +912,7 @@ def blend_phases(dev, ident, first):
               f"contributing; {tiers[tier]['blocks5']} CUDA blocks, "
               f"{cull5['culled_share']:.4f} of the (candidate, group) pairs "
               f"culled, walk depth max {cull5['depth_max']:.0f} mean "
-              f"{cull5['depth_mean']:.0f}, rerun bit-equal {bits5}; by variant "
-              + ", ".join(f"{k}: {v:.4f} ms" for k, v in var5.items()) + ")",
+              f"{cull5['depth_mean']:.0f}, rerun bit-equal {bits5})",
               flush=True)
 
     def row(name, wrapper, err, ms, pms, b, pairs, replaces, tol,
@@ -961,11 +942,9 @@ def blend_phases(dev, ident, first):
              "pms5", "b5", "pairs5", "gsmpm_tpu/render/pallas_blend.py:212",
              "1e-4 x max per dF row group",
              extra=("blocks5", "culled_share", "kept_pairs", "b5_all",
-                    "var5", "bits5"))
+                    "bits5", "depth_max"))
     r5.update(blocks=sum(v["blocks5"] for v in tiers.values()),
               bound_all_walked_ms=sum(v["b5_all"][0] for v in tiers.values()),
-              variants_ms={k: sum(v["var5"][k] for v in tiers.values())
-                           for k in tiers["tier1"]["var5"]},
               bit_equal=all(v["bits5"] for v in tiers.values()))
     return [r4, r5], tiers
 
@@ -1180,8 +1159,6 @@ def stream_bwd_phase(dev, ident, first):
     check(bits7, "K7 stream bwd: two launches differ")
     ms7 = cuda_ms(lambda: sr.stream_blend_bwd(splanes, bounds, out, g, *args),
                   20)
-    var7 = reverse_variants(lambda: sr.stream_blend_bwd(splanes, bounds, out,
-                                                        g, *args))
     pms7 = cuda_ms(lambda: sr.stream_blend_bwd_ref(splanes, bounds, out, g,
                                                    *args), 1, 1)
     ms3 = cuda_ms(lambda: sr.stream_blend(splanes, bounds, lv.nbx, cfg.block,
@@ -1203,7 +1180,7 @@ def stream_bwd_phase(dev, ident, first):
           f"{b3[1]}", flush=True)
     # (slot, pixel) pairs this data needs: each pixel from its last
     # contributor back to its segment's start, gated where the pixel lies
-    # in the slot's box (and, as before PR 5, everywhere); the
+    # in the slot's box (the all-walked bound: everywhere); the
     # contributing ones among them (GATE_OPS / BWD_CONTRIB_OPS)
     lo = bounds[:-1].to(torch.float64)
     last = out[:, 5].to(torch.float64)
@@ -1228,9 +1205,7 @@ def stream_bwd_phase(dev, ident, first):
           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
           + f"; rerun bit-equal {bits7}; {ms7:.4f} ms (plain {pms7:.2f} ms, "
           f"bound {b7[0]:.4f} {b7[1]}, all-walked bound {b7_all[0]:.4f}); "
-          "by variant "
-          + ", ".join(f"{k}: {v:.4f} ms" for k, v in var7.items())
-          + f"; K3 on the same stream {ms3:.4f} ms", flush=True)
+          f"K3 on the same stream {ms3:.4f} ms", flush=True)
     return dict(
         name="stream_blend_bwd", route="cuda",
         source="gsmpm_tpu_torch/csrc/stream_raster.cu",
@@ -1240,7 +1215,8 @@ def stream_bwd_phase(dev, ident, first):
         wrapper=sr.stream_blend_bwd, pairs=pairs, contrib_pairs=contrib,
         walked_slots=walked, blocks=blocks7,
         culled_share=cull7["culled_share"], kept_pairs=cull7["kept_pairs"],
-        bound_all_walked_ms=b7_all[0], variants_ms=var7, bit_equal=bits7,
+        bound_all_walked_ms=b7_all[0], bit_equal=bits7,
+        depth_max=cull7["depth_max"],
         L=int(splanes.shape[1]),
         k3_fit=dict(ms=ms3, max_abs_err=err3, done_differ=done3,
                     bound_ms=b3[0], bound_by=b3[1], **cull))
@@ -1357,8 +1333,6 @@ def packed_phase(dev, ident, first, wrappers):
                   20)
     pms9 = cuda_ms(lambda: cb.blend_packed_bwd_ref(cnt, offs, F, out_k, g,
                                                    meta), 1, 1)
-    var9 = reverse_variants(lambda: cb.blend_packed_bwd(cnt, offs, F, out_k,
-                                                        g, meta))
     cull9 = window_cull(Fw, out_k, meta)
     # pairs and bytes as K4 / K5's (blend_phases)
     cntf = cnt.to(torch.float64)[:, None]
@@ -1388,9 +1362,8 @@ def packed_phase(dev, ident, first, wrappers):
           f"{cull9['kept_pairs']:.4g} in the box, {contrib9:.4g} "
           f"contributing; {blocks9} CUDA blocks, "
           f"{cull9['culled_share']:.4f} of the (candidate, group) pairs "
-          f"culled, walk depth max {cull9['depth_max']:.0f}; rerun bit-equal {bits9}, K5's bits {k9_is_k5}; by "
-          "variant " + ", ".join(f"{k}: {v:.4f} ms" for k, v in var9.items())
-          + ")", flush=True)
+          f"culled, walk depth max {cull9['depth_max']:.0f}; rerun "
+          f"bit-equal {bits9}, K5's bits {k9_is_k5})", flush=True)
     common = dict(route="cuda", source="gsmpm_tpu_torch/csrc/tile_blend.cu",
                   library_ms=None)
     rows = [
@@ -1407,7 +1380,8 @@ def packed_phase(dev, ident, first, wrappers):
              contrib_pairs=contrib9, blocks=blocks9,
              culled_share=cull9["culled_share"],
              kept_pairs=cull9["kept_pairs"], bound_all_walked_ms=b9_all[0],
-             variants_ms=var9, bit_equal=bits9 and k9_is_k5, **common),
+             bit_equal=bits9 and k9_is_k5, depth_max=cull9["depth_max"],
+             **common),
     ]
     return counts_p, dict(
         caps=dict(k_tile=cfg.k_tile, k_coarse=cfg.k_coarse,

@@ -9,10 +9,10 @@
 //
 // - The grid.  The block's 16 x 8 pixel groups go one to a warp (lane l
 //   owns column l % 16 of rows l / 16, + 2, + 4, + 6 of its group, as in
-//   K3), NW warps to a CUDA block, and the ceil(groups / NW) CUDA blocks of
-//   one pixel block form a thread block cluster: 40 pixel blocks fill 160
-//   CUDA blocks at B = 64 and NW = 8, not 40.  The blocks of a cluster
-//   walk the same steps of CH slots in lockstep.
+//   K3), NW = 8 warps to a CUDA block, and the ceil(groups / 8) CUDA blocks
+//   of one pixel block form a thread block cluster: the fit's 40 tier-2
+//   windows fill 160 CUDA blocks at B = 64, not 40.  The blocks of a
+//   cluster walk the same steps of CH = 256 slots in lockstep.
 // - The cull.  Each staged slot carries a box (the kernel's own: the
 //   gate's ellipse, widened against rounding) outside which it cannot pass
 //   the gate.  A warp lists, by ballot, the staged slots before its own
@@ -29,9 +29,17 @@
 //   partials of its warps in warp order (reading only the marked ones),
 //   and after a cluster barrier each block totals a slice of the step's
 //   slots over the cluster's blocks in rank order through distributed
-//   shared memory.  A second barrier keeps the partials until every block
-//   has read them.  No global scratch and no atomics: the same window
-//   gives the same bits in every run, in K5 and in K9.
+//   shared memory.  The block sums are double-buffered by step parity, so
+//   that one barrier per step keeps them until every block has read them.
+//   No global scratch and no atomics: the same window gives the same bits
+//   in every run, in K5 and in K9.
+//
+// Measured on the H100 at the fit (chip_smoke.py): one 32-warp block per
+// 64-pixel block (the cull alone) was 8-10% slower than the cluster of
+// four 8-warp blocks; 256 slots per step beat 128 (the deepest window
+// walks 23,199 candidates, so per-step barriers add up); groups of 16 x 4
+// and 16 x 2 pixels per warp, and pixels evaluated without branches, were
+// slower.
 
 #pragma once
 
@@ -42,36 +50,39 @@ namespace rwalk {
 
 namespace cg = cooperative_groups;
 
+constexpr int NW = 8;                  // warps (pixel groups) per CUDA block
+constexpr int CH = 256;                // slots staged per step
+constexpr int PPT = 4;                 // pixels per lane: 16 x 8 per warp
 constexpr int NSUM = 9;                // sums per slot
+constexpr int WORDS = CH / 32;         // mask words per step
 constexpr unsigned FULL = 0xffffffffu;
 
-// A block's shared memory, for NW warps, NS staged rows per slot and CH
-// slots per step.  The block's sums are double-buffered by step parity, so
-// one cluster barrier per step keeps them until every block has read them.
-template <int NW, int NS, int CH>
+// A block's shared memory, for NS staged rows per slot (about 111 KB for
+// K7's 19, so two blocks fit an SM).  The block's sums are double-buffered
+// by step parity, so one cluster barrier per step keeps them until every
+// block has read them.
+template <int NS>
 struct Shared {
-  static constexpr int WORDS = CH / 32;
   float st[NS][CH];                    // the kernel's staged rows
-  float part[NW][NSUM][CH];            // each warp's sums of the slots it reached
+  float part[NW][NSUM][CH];            // each warp's sums of its slots
   float bpart[2][NSUM][CH];            // the block's sums, warps in order
   unsigned wmask[NW][WORDS];           // the slots each warp stored
-  unsigned bmask[2][WORDS];            // the slots any warp of the block stored
+  unsigned bmask[2][WORDS];            // the slots any warp stored
   unsigned char list[NW][CH];          // each warp's culled slot list
   int top;                             // the block's largest last contributor
 };
 
-// A block's pixel groups of 16 x 2 PPT pixels (PPT pixels per lane)
-__host__ __device__ __forceinline__ int groups_of(int B, int ppt) {
-  return (B / 16) * (B / (2 * ppt));
+// A block's 16 x 8 pixel groups
+__host__ __device__ __forceinline__ int groups_of(int B) {
+  return (B / 16) * (B / 8);
 }
 
-// CUDA blocks (the cluster size) per pixel block
-__host__ __device__ __forceinline__ int blocks_per(int B, int nw, int ppt) {
-  return (groups_of(B, ppt) + nw - 1) / nw;
+// CUDA blocks (the cluster size) per pixel block: 4 at B = 64
+__host__ __device__ __forceinline__ int blocks_per(int B) {
+  return (groups_of(B) + NW - 1) / NW;
 }
 
-// A lane's PPT pixels of its warp's group and their reverse-walk state.
-template <int PPT>
+// A lane's 4 pixels of its warp's group and their reverse-walk state.
 struct Lane {
   float px, pxx;
   float py[PPT], T[PPT], S[PPT], gr[PPT], gg[PPT], gb[PPT];
@@ -83,14 +94,13 @@ struct Lane {
 // Lane state of group `rect` from the blend state ob and its cotangent gb
 // (8, B*B) of the pixel block: T, S seeded with T_final g_T, g_rgb, and
 // the last contributor + 1.  A warp past the block's groups gets none.
-template <int PPT>
-__device__ __forceinline__ void load_lane(Lane<PPT>& ln, int rect, int B,
+__device__ __forceinline__ void load_lane(Lane& ln, int rect, int B,
                                           const float* ob, const float* gb,
                                           int lane) {
   const int P = B * B;
   const int rects_x = B / 16;
-  const bool live = rect < groups_of(B, PPT);
-  const int rx0 = (rect % rects_x) * 16, ry0 = (rect / rects_x) * 2 * PPT;
+  const bool live = rect < groups_of(B);
+  const int rx0 = (rect % rects_x) * 16, ry0 = (rect / rects_x) * 8;
   ln.rx0 = (float)rx0;
   ln.ry0 = (float)ry0;
   ln.px = (float)(rx0 + (lane & 15));
@@ -117,9 +127,9 @@ __device__ __forceinline__ void load_lane(Lane<PPT>& ln, int rect, int B,
 
 // The largest last contributor over the cluster's warps.  Ends with a
 // cluster barrier: a block whose walk is empty may then exit.
-template <class Sh, class Ln>
+template <class Sh>
 __device__ __forceinline__ int cluster_top(cg::cluster_group& cl, Sh& sh,
-                                           const Ln& ln, int lane) {
+                                           const Lane& ln, int lane) {
   if (threadIdx.x == 0) sh.top = 0;
   __syncthreads();
   if (lane == 0 && ln.top > 0) atomicMax(&sh.top, ln.top);
@@ -161,8 +171,8 @@ struct Slot {
 // the splat's centre, dx^2, dx dy, dy^2, dx, dy, 1; else the block-local
 // px^2, px, 1, py^2, py, px py) and g_rgb w.  dpower is 0 where
 // exp(power) reaches the 0.99 clamp.  Returns whether any pixel passed.
-template <bool CENTRED, int PPT>
-__device__ __forceinline__ bool walk_slot(Lane<PPT>& ln, int idx1,
+template <bool CENTRED>
+__device__ __forceinline__ bool walk_slot(Lane& ln, int idx1,
                                           const Slot& s, float alpha_min,
                                           float (&v)[NSUM]) {
   bool any = false;
@@ -211,13 +221,12 @@ __device__ __forceinline__ bool walk_slot(Lane<PPT>& ln, int idx1,
 }
 
 // The warp's list, in slot order, of the staged slots j < jmax whose box
-// (x lo, x hi, y lo, y hi) meets its group; returns its length.
-template <int PPT>
+// (x lo, x hi, y lo, y hi) meets its 16 x 8 group; returns its length.
 __device__ __forceinline__ int warp_list(const float* xl, const float* xh,
                                          const float* yl, const float* yh,
-                                         int jmax, const Lane<PPT>& ln,
+                                         int jmax, const Lane& ln,
                                          unsigned char* list, int lane) {
-  const float rxhi = ln.rx0 + 15.0f, ryhi = ln.ry0 + (2 * PPT - 1);
+  const float rxhi = ln.rx0 + 15.0f, ryhi = ln.ry0 + 7.0f;
   int count = 0;
   for (int j0 = 0; j0 < jmax; j0 += 32) {
     const int j = j0 + lane;
@@ -234,7 +243,7 @@ __device__ __forceinline__ int warp_list(const float* xl, const float* xh,
 // Clear the warp's mask before a step's walk.
 template <class Sh>
 __device__ __forceinline__ void clear_mask(Sh& sh, int warp, int lane) {
-  if (lane < Sh::WORDS) sh.wmask[warp][lane] = 0u;
+  if (lane < WORDS) sh.wmask[warp][lane] = 0u;
 }
 
 // The warp's sums v of slot j over its lanes, stored as its partial when
@@ -256,10 +265,9 @@ __device__ __forceinline__ void warp_emit(Sh& sh, int warp, int lane, int j,
 // After the walk and a __syncthreads: the block's sums of the n staged
 // slots into buffer q, its warps' stored partials added in warp order
 // (zero where no warp stored one).
-template <int NW, int NS, int CH>
-__device__ __forceinline__ void block_sum(Shared<NW, NS, CH>& sh, int n,
-                                          int q) {
-  for (int t = threadIdx.x; t < Shared<NW, NS, CH>::WORDS; t += blockDim.x) {
+template <class Sh>
+__device__ __forceinline__ void block_sum(Sh& sh, int n, int q) {
+  for (int t = threadIdx.x; t < WORDS; t += blockDim.x) {
     unsigned m = 0u;
 #pragma unroll
     for (int w = 0; w < NW; ++w) m |= sh.wmask[w][t];
@@ -305,16 +313,16 @@ __device__ __forceinline__ bool cluster_total(cg::cluster_group& cl, Sh& sh,
 }
 
 // Launch `kernel` on nb pixel blocks of edge B, each a cluster of
-// blocks_per(B, NW) CUDA blocks of NW warps with the dynamic shared memory
-// of Sh.
-template <int NW, int PPT, class Sh, typename... KArgs, typename... Args>
+// blocks_per(B) CUDA blocks of NW warps with the dynamic shared memory of
+// Sh.
+template <class Sh, typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), int nb, int B,
                    cudaStream_t stream, Args... args) {
   const size_t smem = sizeof(Sh);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int S = blocks_per(B, NW, PPT);
+  const int S = blocks_per(B);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nb * S);
   cfg.blockDim = dim3(NW * 32);
@@ -330,15 +338,5 @@ cudaError_t launch(void (*kernel)(KArgs...), int nb, int B,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
-
-// The variants timed on the card: (warps per block, slots per step,
-// pixels per lane: a group of 16 x 2 PPT pixels per warp); the launchers
-// take an index into this table.
-#define GSMPM_RWALK_VARIANTS(X) \
-  X(0, 8, 256, 4)               \
-  X(1, 16, 128, 2)              \
-  X(2, 8, 128, 2)               \
-  X(3, 32, 64, 1)               \
-  X(4, 8, 128, 4)
 
 }  // namespace rwalk

@@ -70,7 +70,7 @@
 //       64: 256 CUDA blocks at the stream fit's 64 display blocks, where one
 //       1024-thread block per display block kept 64 of the 132 SMs busy).
 //       The cluster walks its segment back to front from its largest last
-//       contributor, 128 slots staged per step with K3's expressions: the
+//       contributor, 256 slots staged per step with K3's expressions: the
 //       conic rows and slot_box, K3's box.  A warp walks only the staged
 //       slots before its own last contributor whose box meets its group,
 //       and a lane only the pixels inside the box.  Per pixel it keeps T
@@ -281,13 +281,13 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
 // (12..14) and its box (15..18)
 constexpr int BWD_NS = 19;
 
-template <int NW, int CHB, int PPT>
-__global__ void __launch_bounds__(NW * 32, NW >= 16 ? 1 : 16 / NW)
+__global__ void __launch_bounds__(rwalk::NW * 32, 2)
 stream_bwd_kernel(const float* __restrict__ splanes, int L,
                   const int* __restrict__ bounds,
                   const float* __restrict__ out, const float* __restrict__ g,
                   float* __restrict__ dsp, int nbx, int B, float alpha_min) {
-  using Sh = rwalk::Shared<NW, BWD_NS, CHB>;
+  using Sh = rwalk::Shared<BWD_NS>;
+  constexpr int CHB = rwalk::CH;
   extern __shared__ __align__(16) unsigned char smem[];
   Sh& sh = *reinterpret_cast<Sh*>(smem);
   cooperative_groups::cluster_group cl =
@@ -299,9 +299,9 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
   const float x0 = (float)((b % nbx) * B), y0 = (float)((b / nbx) * B);
   const int lo = bounds[b], hi = bounds[b + 1];
 
-  rwalk::Lane<PPT> ln;
-  rwalk::load_lane(ln, rank * NW + warp, B, out + (size_t)b * 8 * P,
-                   g + (size_t)b * 8 * P, lane);
+  rwalk::Lane ln;
+  rwalk::load_lane(ln, rank * rwalk::NW + warp, B,
+                   out + (size_t)b * 8 * P, g + (size_t)b * 8 * P, lane);
   // slots [lo, top) hold every contributor of the block
   const int top = min(rwalk::cluster_top(cl, sh, ln, lane), hi);
   const int steps = top > lo ? (top - lo + CHB - 1) / CHB : 0;
@@ -357,7 +357,7 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
         sl.gy = sh.st[11][j];
         sl.yl = sh.st[17][j];
         sl.yh = sh.st[18][j];
-        any = rwalk::walk_slot<true, PPT>(ln, base + j + 1, sl, alpha_min,
+        any = rwalk::walk_slot<true>(ln, base + j + 1, sl, alpha_min,
                                           v);
       }
       rwalk::warp_emit(sh, warp, lane, j, v, any);
@@ -415,21 +415,11 @@ int gsmpm_stream_fwd(const float* splanes, int L, const int* bounds,
 
 int gsmpm_stream_bwd(const float* splanes, int L, const int* bounds,
                      const float* out, const float* g, float* dsp, int nf,
-                     int nbx, int B, float alpha_min, int variant,
-                     void* stream) {
+                     int nbx, int B, float alpha_min, void* stream) {
   if (nf <= 0) return cudaSuccess;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-#define GSMPM_BWD(I, NW, CH, PPT)                                          \
-  case I:                                                                  \
-    return rwalk::launch<NW, PPT, rwalk::Shared<NW, BWD_NS, CH>>(          \
-        stream_bwd_kernel<NW, CH, PPT>, nf, B, st, splanes, L, bounds,     \
-        out, g, dsp, nbx, B, alpha_min);
-    GSMPM_RWALK_VARIANTS(GSMPM_BWD)
-#undef GSMPM_BWD
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return rwalk::launch<rwalk::Shared<BWD_NS>>(
+      stream_bwd_kernel, nf, B, static_cast<cudaStream_t>(stream), splanes,
+      L, bounds, out, g, dsp, nbx, B, alpha_min);
 }
 
 }  // extern "C"

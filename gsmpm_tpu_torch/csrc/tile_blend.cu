@@ -56,7 +56,7 @@
 //       blocks of 8 warps, one warp per 16 x 8 pixel group (4 blocks at B =
 //       64: the fit's 40 tier-2 windows take 160 CUDA blocks, where one
 //       1024-thread block per window kept 40 of the 132 SMs busy).  The
-//       cluster walks back to front from its largest last contributor, 128
+//       cluster walks back to front from its largest last contributor, 256
 //       candidates staged per step with the box window_box derives from
 //       their F rows; a warp walks only the staged candidates before its own
 //       last contributor whose box meets its group, a lane only the pixels
@@ -236,13 +236,14 @@ __device__ __forceinline__ void window_box(const float* F, int B,
 // staged rows of a candidate: F rows 0..6, colors (7..9), box (10..13)
 constexpr int BWD_NS = 14;
 
-template <bool PACKED, int NW, int CH, int PPT>
-__global__ void __launch_bounds__(NW * 32, NW >= 16 ? 1 : 16 / NW)
+template <bool PACKED>
+__global__ void __launch_bounds__(rwalk::NW * 32, 2)
 blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                  const float* __restrict__ F, const float* __restrict__ out,
                  const float* __restrict__ g, float* __restrict__ dF, int K,
                  int C, int n_chunks, int B, float alpha_min) {
-  using Sh = rwalk::Shared<NW, BWD_NS, CH>;
+  using Sh = rwalk::Shared<BWD_NS>;
+  constexpr int CH = rwalk::CH;
   extern __shared__ __align__(16) unsigned char smem[];
   Sh& sh = *reinterpret_cast<Sh*>(smem);
   cooperative_groups::cluster_group cl =
@@ -257,9 +258,9 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   const float* Fb = F + win.col0;
   float* dFb = dF + win.col0;
 
-  rwalk::Lane<PPT> ln;
-  rwalk::load_lane(ln, rank * NW + warp, B, out + (size_t)b * 8 * P,
-                   g + (size_t)b * 8 * P, lane);
+  rwalk::Lane ln;
+  rwalk::load_lane(ln, rank * rwalk::NW + warp, B,
+                   out + (size_t)b * 8 * P, g + (size_t)b * 8 * P, lane);
   // candidates [0, top) hold every contributor of the block; the columns
   // past the steps walked only get zeros, each block of the cluster a share
   const int top = rwalk::cluster_top(cl, sh, ln, lane);
@@ -305,7 +306,7 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
         sl.gx = sl.gy = 0.0f;
         sl.yl = sh.st[12][j];
         sl.yh = sh.st[13][j];
-        any = rwalk::walk_slot<false, PPT>(ln, base + j + 1, sl, alpha_min,
+        any = rwalk::walk_slot<false>(ln, base + j + 1, sl, alpha_min,
                                            v);
       }
       rwalk::warp_emit(sh, warp, lane, j, v, any);
@@ -340,25 +341,6 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   cl.sync();  // every block has read this block's sums
 }
 
-// K5 / K9 in variant `variant` of GSMPM_RWALK_VARIANTS
-template <bool PACKED>
-cudaError_t launch_bwd(int variant, int nb, int B, cudaStream_t st,
-                       const int* counts, const int* offs, const float* F,
-                       const float* out, const float* g, float* dF, int K,
-                       int C, int n_chunks, float alpha_min) {
-  switch (variant) {
-#define GSMPM_BWD(I, NW, CH, PPT)                                        \
-  case I:                                                                \
-    return rwalk::launch<NW, PPT, rwalk::Shared<NW, BWD_NS, CH>>(        \
-        blend_bwd_kernel<PACKED, NW, CH, PPT>, nb, B, st, counts, offs,  \
-        F, out, g, dF, K, C, n_chunks, B, alpha_min);
-    GSMPM_RWALK_VARIANTS(GSMPM_BWD)
-#undef GSMPM_BWD
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -379,11 +361,11 @@ int gsmpm_blend_fwd(const int* counts, const float* F, float* out, int nb,
 
 int gsmpm_blend_bwd(const float* F, const float* out, const float* g,
                     float* dF, int nb, int K, int B, float alpha_min,
-                    int variant, void* stream) {
+                    void* stream) {
   if (nb <= 0) return cudaSuccess;
-  return launch_bwd<false>(variant, nb, B, static_cast<cudaStream_t>(stream),
-                           nullptr, nullptr, F, out, g, dF, K, 1, 0,
-                           alpha_min);
+  return rwalk::launch<rwalk::Shared<BWD_NS>>(
+      blend_bwd_kernel<false>, nb, B, static_cast<cudaStream_t>(stream),
+      nullptr, nullptr, F, out, g, dF, K, 1, 0, B, alpha_min);
 }
 
 int gsmpm_blend_packed_fwd(const int* counts, const int* offs, const float* F,
@@ -401,11 +383,11 @@ int gsmpm_blend_packed_fwd(const int* counts, const int* offs, const float* F,
 int gsmpm_blend_packed_bwd(const int* counts, const int* offs, const float* F,
                            const float* out, const float* g, float* dF,
                            int nb, int T, int C, int n_chunks, int B,
-                           float alpha_min, int variant, void* stream) {
+                           float alpha_min, void* stream) {
   if (nb <= 0) return cudaSuccess;
-  return launch_bwd<true>(variant, nb, B, static_cast<cudaStream_t>(stream),
-                          counts, offs, F, out, g, dF, T, C, n_chunks,
-                          alpha_min);
+  return rwalk::launch<rwalk::Shared<BWD_NS>>(
+      blend_bwd_kernel<true>, nb, B, static_cast<cudaStream_t>(stream),
+      counts, offs, F, out, g, dF, T, C, n_chunks, B, alpha_min);
 }
 
 }  // extern "C"

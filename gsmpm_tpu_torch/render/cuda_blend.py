@@ -281,35 +281,30 @@ def blend_core_bwd_ref(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the reverse walks' variants (K5, K9 and K7; csrc/reverse_walk.cuh
-# GSMPM_RWALK_VARIANTS): (warps per CUDA block, slots staged per step,
-# pixels per lane, a warp's group being 16 x 2 ppt pixels).  A launch
-# takes ceil(groups / warps) CUDA blocks per pixel block, as one cluster.
-REVERSE_VARIANTS = ((8, 256, 4), (16, 128, 2), (8, 128, 2), (32, 64, 1),
-                    (8, 128, 4))
-REVERSE_VARIANT = 0
+# warps (16 x 8 pixel groups) per CUDA block of the reverse walks (K5, K9
+# and K7; csrc/reverse_walk.cuh NW)
+REVERSE_WARPS = 8
 
 
 def reverse_blocks(nblocks: int, B: int) -> int:
     """CUDA blocks of one reverse-walk launch over nblocks pixel blocks of
-    edge B: one cluster of ceil(groups / warps) per pixel block."""
-    nw, _, ppt = REVERSE_VARIANTS[REVERSE_VARIANT]
-    groups = (B // 16) * (B // (2 * ppt))
-    return nblocks * -(-groups // nw)
+    edge B: one cluster of ceil(groups / REVERSE_WARPS) per pixel block, a
+    group being 16 x 8 pixels."""
+    groups = (B // 16) * (B // 8)
+    return nblocks * -(-groups // REVERSE_WARPS)
 
 
 def _lib():
     lib = build.load("tile_blend")
     lib.gsmpm_blend_fwd.argtypes = [_VP, _VP, _VP, _I, _I, _I, _F, _F, _VP]
     lib.gsmpm_blend_fwd.restype = ctypes.c_int
-    lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I,
-                                    _VP]
+    lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP]
     lib.gsmpm_blend_bwd.restype = ctypes.c_int
     lib.gsmpm_blend_packed_fwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                            _I, _F, _F, _VP]
     lib.gsmpm_blend_packed_fwd.restype = ctypes.c_int
     lib.gsmpm_blend_packed_bwd.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I,
-                                           _I, _I, _I, _I, _F, _I, _VP]
+                                           _I, _I, _I, _I, _F, _VP]
     lib.gsmpm_blend_packed_bwd.restype = ctypes.c_int
     return lib
 
@@ -324,7 +319,8 @@ def _check(t: torch.Tensor, name: str, shape, dtype, dev) -> None:
 
 def _check_block(B: int) -> None:
     # one thread per pixel in 16x16 sub-tiles (K4); K5's 16x8 pixel groups
-    # spread over one cluster of at most 8 CUDA blocks (32 groups at 64)
+    # spread over one cluster of CUDA blocks, 4 at 64 (a portable cluster
+    # holds at most 8)
     if B % 16 != 0 or B * B > 4096:
         raise ValueError(f"block {B}: the kernels take multiples of 16 up "
                          "to 64")
@@ -372,7 +368,6 @@ def blend_bwd(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     err = lib.gsmpm_blend_bwd(F.data_ptr(), out.data_ptr(), g.data_ptr(),
                               dF.data_ptr(), nb, K, meta.B, meta.alpha_min,
-                              REVERSE_VARIANT,
                               torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "blend_bwd")
     blend_bwd.launches += 1
@@ -536,8 +531,7 @@ def blend_packed_bwd(counts: torch.Tensor, offs: torch.Tensor, F: torch.Tensor,
     err = lib.gsmpm_blend_packed_bwd(
         counts.data_ptr(), offs.data_ptr(), F.data_ptr(), out.data_ptr(),
         g.data_ptr(), dF.data_ptr(), nb, T, meta.C, meta.n_chunks, meta.B,
-        meta.alpha_min, REVERSE_VARIANT,
-        torch.cuda.current_stream(dev).cuda_stream)
+        meta.alpha_min, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "blend_packed_bwd")
     blend_packed_bwd.launches += 1
     return dF

@@ -31,7 +31,6 @@ from typing import NamedTuple
 
 import torch
 
-from gsmpm_tpu_torch.render import cuda_blend
 from gsmpm_tpu_torch.render.renderer import (
     Preprocessed,
     _raw_planes_nosentinel,
@@ -438,7 +437,7 @@ def _lib():
     lib.gsmpm_stream_fwd.argtypes = [_VP, _I, _VP, _VP, _I, _I, _I, _F, _F, _VP]
     lib.gsmpm_stream_fwd.restype = ctypes.c_int
     lib.gsmpm_stream_bwd.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                     _F, _I, _VP]
+                                     _F, _VP]
     lib.gsmpm_stream_bwd.restype = ctypes.c_int
     return lib
 
@@ -496,8 +495,8 @@ def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
     if dev.type == "cpu":
         return stream_blend_bwd_ref(splanes, bounds, out, g, nbx, B,
                                     alpha_min)
-    # the 16 x 8 pixel groups of a block spread over one cluster of at most
-    # 8 CUDA blocks (32 groups at 64)
+    # a block's 16 x 8 pixel groups spread over one cluster of CUDA blocks,
+    # 4 at 64 (a portable cluster holds at most 8)
     if B * B > 4096:
         raise ValueError(f"block {B}: the backward kernel takes blocks up "
                          "to 64")
@@ -513,7 +512,7 @@ def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
     err = lib.gsmpm_stream_bwd(
         splanes.data_ptr(), splanes.shape[1], bounds.data_ptr(),
         out.data_ptr(), g.data_ptr(), dsp.data_ptr(), nf, nbx, B, alpha_min,
-        cuda_blend.REVERSE_VARIANT, torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "stream_blend_bwd")
     stream_blend_bwd.launches += 1
