@@ -31,9 +31,14 @@
    geometry rendered with ``RasterConfig(packed=True)`` at drop-free caps,
    and its backward, held against the padded path (K4 / K5); K8 and K9
    against their twins on those inputs.
-7. Every path is driven with every launch counter set to 0 just before it
+7. The reverse walks (K5 per tier, K7, K9) also print their CUDA blocks,
+   the culled share of (slot, 16 x 8 pixel group) pairs, the walk depth
+   and a rerun bit-equality check (K9 also against K5 on the same
+   windows); their bounds charge the gate to the walked pairs inside
+   the cull box, with the all-walked bound beside them.
+8. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-8. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+9. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
