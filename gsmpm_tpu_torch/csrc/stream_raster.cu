@@ -105,7 +105,6 @@
 
 namespace {
 
-
 constexpr int FWD_WARPS = 32;      // K3: one 16 x 8 pixel group per warp
 constexpr int FWD_THREADS = FWD_WARPS * 32;
 constexpr int FWD_PPT = 4;         // pixels per K3 lane

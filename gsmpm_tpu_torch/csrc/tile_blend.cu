@@ -86,7 +86,6 @@
 
 namespace {
 
-
 constexpr int FWD_THREADS = 256;   // 16 x 16 pixels
 constexpr int CH = 256;            // candidates staged per forward step
 constexpr int NROW = 10;           // staged F rows: 0..6 and 8..10
