@@ -888,12 +888,13 @@ def blend_phases(dev, ident, first):
         contrib5 = _contrib_pairs_windows(F, out_k, meta)
         live_cols = float(counts.sum())
         # bytes: the 10 used F rows of the live candidates, the outputs
-        # (K4) / inputs and dF (K5); >= 20 fp32 operations per forward pair,
-        # the backward's as GATE_OPS / BWD_CONTRIB_OPS say, the gate charged
-        # to the walked pairs inside the box (the all-walked bound charges
-        # it to every walked pair)
+        # (K4) / the state and cotangent rows read (T, last, rgb, T) and dF
+        # (K5); >= 20 fp32 operations per forward pair, the backward's as
+        # GATE_OPS / BWD_CONTRIB_OPS say, the gate charged to the walked
+        # pairs inside the box (the all-walked bound charges it to every
+        # walked pair)
         b4 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs4 * 20.0)
-        bytes5 = live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4
+        bytes5 = live_cols * (10 + 16) * 4 + nb * 6 * P * 4
         b5 = bound_ms(bytes5, cull5["kept_pairs"] * GATE_OPS
                       + contrib5 * BWD_CONTRIB_OPS)
         b5_all = bound_ms(bytes5, pairs5 * GATE_OPS
@@ -903,7 +904,7 @@ def blend_phases(dev, ident, first):
                            rel5=rel5, ms4=ms4, pms4=pms4, ms5=ms5, pms5=pms5,
                            b4=b4, b5=b5, b5_all=b5_all, pairs4=pairs4,
                            pairs5=pairs5, contrib5=contrib5,
-                           blocks5=cb.reverse_blocks(nb, meta.B),
+                           blocks5=cb.blend_bwd_blocks(nb, meta.B),
                            bits5=bits5, **cull5)
         print(f"K4/K5 {tier}: {nb} blocks x K {K} ({live_cols:.0f} live "
               f"candidates): K4 max err {err4:.3g}, done differ "
@@ -1131,7 +1132,6 @@ def _fit_stream(ident, state, cam):
 def stream_bwd_phase(dev, ident, first):
     """K7 against its twin on the steady stream-fit frame's real stream and
     blend state, with a seeded cotangent; K3 timed on the same stream."""
-    from gsmpm_tpu_torch.render import cuda_blend as cb
     from gsmpm_tpu_torch.render import stream_raster as sr
 
     state, cam = first[0], first[1]
@@ -1200,7 +1200,7 @@ def stream_bwd_phase(dev, ident, first):
     b7 = bound_ms(bytes7, cull7["kept_pairs"] * GATE_OPS
                   + contrib * BWD_CONTRIB_OPS)
     b7_all = bound_ms(bytes7, pairs * GATE_OPS + contrib * BWD_CONTRIB_OPS)
-    blocks7 = cb.reverse_blocks(lv.nf, cfg.block)
+    blocks7 = sr.stream_bwd_blocks(lv.nf, cfg.block)
     print(f"K7 stream bwd: {lv.nf} display blocks in {blocks7} CUDA blocks, "
           f"{splanes.shape[1]} slots ({walked:.0f} walked, {pairs:.4g} "
           f"pairs, {cull7['kept_pairs']:.4g} in the box, {contrib:.4g} "
@@ -1347,11 +1347,11 @@ def packed_phase(dev, ident, first, wrappers):
     contrib9 = _contrib_pairs_windows(Fw, out_k, meta)
     live_cols = float(cnt.sum())
     b8 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs8 * 20.0)
-    bytes9 = live_cols * (10 + 16) * 4 + 2 * out_k.numel() * 4
+    bytes9 = live_cols * (10 + 16) * 4 + nb * 6 * P * 4
     b9 = bound_ms(bytes9, cull9["kept_pairs"] * GATE_OPS
                   + contrib9 * BWD_CONTRIB_OPS)
     b9_all = bound_ms(bytes9, pairs9 * GATE_OPS + contrib9 * BWD_CONTRIB_OPS)
-    blocks9 = cb.reverse_blocks(nb, meta.B)
+    blocks9 = cb.blend_bwd_blocks(nb, meta.B)
     print(f"packed path: caps k_tile {cfg.k_tile} k_coarse {cfg.k_coarse} "
           f"k_global {cfg.k_global}, t_cap {cfg.t_cap} ({live_cols:.0f} live "
           f"candidates in {nb} blocks); render + backward {s_p:.3f} s packed, "

@@ -82,6 +82,11 @@ __host__ __device__ __forceinline__ int blocks_per(int B) {
   return (groups_of(B) + NW - 1) / NW;
 }
 
+// CUDA blocks of one launch over nb pixel blocks of edge B
+__host__ __device__ __forceinline__ int grid_of(int nb, int B) {
+  return nb * blocks_per(B);
+}
+
 // A lane's 4 pixels of its warp's group and their reverse-walk state.
 struct Lane {
   float px, pxx;
@@ -221,17 +226,18 @@ __device__ __forceinline__ bool walk_slot(Lane& ln, int idx1,
 }
 
 // The warp's list, in slot order, of the staged slots j < jmax whose box
-// (x lo, x hi, y lo, y hi) meets its 16 x 8 group; returns its length.
+// (x lo, x hi, y lo, y hi) meets its 16 x 8 group at (rx0, ry0); returns
+// its length.  K3 (csrc/stream_raster.cu) lists its slots the same way.
 __device__ __forceinline__ int warp_list(const float* xl, const float* xh,
                                          const float* yl, const float* yh,
-                                         int jmax, const Lane& ln,
+                                         int jmax, float rx0, float ry0,
                                          unsigned char* list, int lane) {
-  const float rxhi = ln.rx0 + 15.0f, ryhi = ln.ry0 + 7.0f;
+  const float rxhi = rx0 + 15.0f, ryhi = ry0 + 7.0f;
   int count = 0;
   for (int j0 = 0; j0 < jmax; j0 += 32) {
     const int j = j0 + lane;
-    const bool hit = j < jmax && xl[j] <= rxhi && xh[j] >= ln.rx0
-                     && yl[j] <= ryhi && yh[j] >= ln.ry0;
+    const bool hit = j < jmax && xl[j] <= rxhi && xh[j] >= rx0
+                     && yl[j] <= ryhi && yh[j] >= ry0;
     const unsigned m = __ballot_sync(FULL, hit);
     if (hit) list[count + __popc(m & ((1u << lane) - 1u))] = (unsigned char)j;
     count += __popc(m);
@@ -324,7 +330,7 @@ cudaError_t launch(void (*kernel)(KArgs...), int nb, int B,
   if (err != cudaSuccess) return err;
   const int S = blocks_per(B);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nb * S);
+  cfg.gridDim = dim3(grid_of(nb, B));
   cfg.blockDim = dim3(NW * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

@@ -108,9 +108,10 @@ namespace {
 constexpr int FWD_WARPS = 32;      // K3: one 16 x 8 pixel group per warp
 constexpr int FWD_THREADS = FWD_WARPS * 32;
 constexpr int FWD_PPT = 4;         // pixels per K3 lane
-constexpr int CH = 256;            // slots staged per step (K3's lists
-                                   // hold slot indices in a byte)
-constexpr unsigned FULL = 0xffffffffu;
+// slots staged per step, as in the reverse walk (the lists hold slot
+// indices in a byte)
+using rwalk::CH;
+using rwalk::FULL;
 
 // The quadratic form's coefficients of the block-local pixel monomials
 // [px^2, px, 1, py^2, py, px py] of a splat at block offset (gx, gy) with
@@ -168,8 +169,7 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
   const int rects_x = B / 16;
   const bool has_rect = rect < rects_x * (B / 8);
   const int rx0 = (rect % rects_x) * 16, ry0 = (rect / rects_x) * 8;
-  const float rxlo = (float)rx0, rxhi = (float)(rx0 + 15);
-  const float rylo = (float)ry0, ryhi = (float)(ry0 + 7);
+  const float rxlo = (float)rx0, rylo = (float)ry0;
   const float px = (float)(rx0 + (lane & 15));
   const float pxx = px * px;
   float py[FWD_PPT], T[FWD_PPT], cr[FWD_PPT], cg[FWD_PPT], cb[FWD_PPT];
@@ -218,19 +218,11 @@ stream_fwd_kernel(const float* __restrict__ splanes, int L,
     __syncthreads();
     // this warp's list: the staged slots whose box meets its rectangle, in
     // slot order
-    int count = 0;
-    if (!__all_sync(FULL, mine)) {
-      for (int j0 = 0; j0 < n; j0 += 32) {
-        const int j = j0 + lane;
-        const bool hit = j < n && box[0][j] <= rxhi && box[1][j] >= rxlo
-                         && box[2][j] <= ryhi && box[3][j] >= rylo;
-        const unsigned m = __ballot_sync(FULL, hit);
-        if (hit) list[wid][count + __popc(m & ((1u << lane) - 1u))] =
-            (unsigned char)j;
-        count += __popc(m);
-      }
-      __syncwarp();
-    }
+    const int count =
+        __all_sync(FULL, mine)
+            ? 0
+            : rwalk::warp_list(box[0], box[1], box[2], box[3], n, rxlo, rylo,
+                               list[wid], lane);
     for (int e = 0; e < count; ++e) {
       const int j = list[wid][e];
       // the same box, per pixel: a lane's 4 pixels share its column
@@ -286,7 +278,6 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
                   const float* __restrict__ out, const float* __restrict__ g,
                   float* __restrict__ dsp, int nbx, int B, float alpha_min) {
   using Sh = rwalk::Shared<BWD_NS>;
-  constexpr int CHB = rwalk::CH;
   extern __shared__ __align__(16) unsigned char smem[];
   Sh& sh = *reinterpret_cast<Sh*>(smem);
   cooperative_groups::cluster_group cl =
@@ -303,12 +294,12 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
                    out + (size_t)b * 8 * P, g + (size_t)b * 8 * P, lane);
   // slots [lo, top) hold every contributor of the block
   const int top = min(rwalk::cluster_top(cl, sh, ln, lane), hi);
-  const int steps = top > lo ? (top - lo + CHB - 1) / CHB : 0;
+  const int steps = top > lo ? (top - lo + CH - 1) / CH : 0;
   const float log_amin = logf(alpha_min) - 1e-3f;
 
   for (int step = steps - 1; step >= 0; --step) {
-    const int base = lo + step * CHB;
-    const int n = min(CHB, hi - base);
+    const int base = lo + step * CH;
+    const int n = min(CH, hi - base);
     const int q = step & 1;  // this step's buffer of the block's sums
     // stage each slot once: its conic rows (K3's expressions) and box
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
@@ -338,8 +329,8 @@ stream_bwd_kernel(const float* __restrict__ splanes, int L,
     rwalk::clear_mask(sh, warp, lane);
     __syncthreads();
     const int count = rwalk::warp_list(sh.st[15], sh.st[16], sh.st[17],
-                                       sh.st[18], min(n, ln.top - base), ln,
-                                       sh.list[warp], lane);
+                                       sh.st[18], min(n, ln.top - base),
+                                       ln.rx0, ln.ry0, sh.list[warp], lane);
     for (int e = count - 1; e >= 0; --e) {
       const int j = sh.list[warp][e];
       float v[rwalk::NSUM];
@@ -411,6 +402,9 @@ int gsmpm_stream_fwd(const float* splanes, int L, const int* bounds,
       splanes, L, bounds, out, nbx, B, t_min, alpha_min);
   return cudaGetLastError();
 }
+
+// CUDA blocks of a K7 launch over nf display blocks of edge B
+int gsmpm_stream_bwd_blocks(int nf, int B) { return rwalk::grid_of(nf, B); }
 
 int gsmpm_stream_bwd(const float* splanes, int L, const int* bounds,
                      const float* out, const float* g, float* dsp, int nf,

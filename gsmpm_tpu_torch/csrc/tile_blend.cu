@@ -288,8 +288,8 @@ blend_bwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
     rwalk::clear_mask(sh, warp, lane);
     __syncthreads();
     const int count = rwalk::warp_list(sh.st[10], sh.st[11], sh.st[12],
-                                       sh.st[13], min(n, ln.top - base), ln,
-                                       sh.list[warp], lane);
+                                       sh.st[13], min(n, ln.top - base),
+                                       ln.rx0, ln.ry0, sh.list[warp], lane);
     for (int e = count - 1; e >= 0; --e) {
       const int j = sh.list[warp][e];
       float v[rwalk::NSUM];
@@ -357,6 +357,9 @@ int gsmpm_blend_fwd(const int* counts, const float* F, float* out, int nb,
           counts, nullptr, F, out, K, 1, 0, B, t_min, alpha_min);
   return cudaGetLastError();
 }
+
+// CUDA blocks of a K5 / K9 launch over nb pixel blocks of edge B
+int gsmpm_blend_bwd_blocks(int nb, int B) { return rwalk::grid_of(nb, B); }
 
 int gsmpm_blend_bwd(const float* F, const float* out, const float* g,
                     float* dF, int nb, int K, int B, float alpha_min,

@@ -281,17 +281,6 @@ def blend_core_bwd_ref(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# warps (16 x 8 pixel groups) per CUDA block of the reverse walks (K5, K9
-# and K7; csrc/reverse_walk.cuh NW)
-REVERSE_WARPS = 8
-
-
-def reverse_blocks(nblocks: int, B: int) -> int:
-    """CUDA blocks of one reverse-walk launch over nblocks pixel blocks of
-    edge B: one cluster of ceil(groups / REVERSE_WARPS) per pixel block, a
-    group being 16 x 8 pixels."""
-    groups = (B // 16) * (B // 8)
-    return nblocks * -(-groups // REVERSE_WARPS)
 
 
 def _lib():
@@ -300,6 +289,8 @@ def _lib():
     lib.gsmpm_blend_fwd.restype = ctypes.c_int
     lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP]
     lib.gsmpm_blend_bwd.restype = ctypes.c_int
+    lib.gsmpm_blend_bwd_blocks.argtypes = [_I, _I]
+    lib.gsmpm_blend_bwd_blocks.restype = ctypes.c_int
     lib.gsmpm_blend_packed_fwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                            _I, _F, _F, _VP]
     lib.gsmpm_blend_packed_fwd.restype = ctypes.c_int
@@ -372,6 +363,12 @@ def blend_bwd(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     build.check(lib, err, "blend_bwd")
     blend_bwd.launches += 1
     return dF
+
+
+def blend_bwd_blocks(nblocks: int, B: int) -> int:
+    """CUDA blocks of one K5 / K9 launch over nblocks pixel blocks of edge
+    B, as the launch computes them (a cluster per pixel block)."""
+    return _lib().gsmpm_blend_bwd_blocks(nblocks, B)
 
 
 blend_fwd.launches = 0

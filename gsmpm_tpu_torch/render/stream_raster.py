@@ -439,6 +439,8 @@ def _lib():
     lib.gsmpm_stream_bwd.argtypes = [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I,
                                      _F, _VP]
     lib.gsmpm_stream_bwd.restype = ctypes.c_int
+    lib.gsmpm_stream_bwd_blocks.argtypes = [_I, _I]
+    lib.gsmpm_stream_bwd_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -517,6 +519,12 @@ def stream_blend_bwd(splanes: torch.Tensor, bounds: torch.Tensor,
     build.check(lib, err, "stream_blend_bwd")
     stream_blend_bwd.launches += 1
     return dsp
+
+
+def stream_bwd_blocks(nf: int, B: int) -> int:
+    """CUDA blocks of one K7 launch over nf display blocks of edge B, as
+    the launch computes them (a cluster per display block)."""
+    return _lib().gsmpm_stream_bwd_blocks(nf, B)
 
 
 stream_blend.launches = 0

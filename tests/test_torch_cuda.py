@@ -496,6 +496,14 @@ def test_blend_bwd_on_crafted_windows(cuda, B):
         assert torch.equal(dF9[:, o:o + a], dF[b, :, :a])
 
 
+@pytest.mark.parametrize("B,per", [(16, 1), (32, 1), (48, 3), (64, 4)])
+def test_reverse_walk_block_counts(cuda, B, per):
+    """The reverse walks' launches report their CUDA blocks: a cluster of
+    ceil(groups / 8) blocks per pixel block, a group being 16 x 8 pixels."""
+    assert cb.blend_bwd_blocks(40, B) == 40 * per
+    assert sr.stream_bwd_blocks(64, B) == 64 * per
+
+
 def test_packed_window_outside_array_asserts(cuda):
     """A window past the packed array's end stops K8 with a device-side
     assert (no host sync checks it); run in a child process, whose CUDA
