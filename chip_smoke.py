@@ -19,7 +19,7 @@
    then a timed steady-state loop of fit frames whose launches per frame
    are asserted exactly, a profile of one fit frame, K4 / K5 against their
    twins on the fit frame's real candidates (tier 1 and tier 2), K6 on the
-   fit state, K1 on the fit state (the blob's dense tiles), and one
+   fit state, K1 and K2 on the fit state (the blob's dense tiles), and one
    small fit frame on the GPU and on the CPU.
 5. Stream-rendered fit (slice 3, path A): a SystemIdentifier on the same
    blob with ``RasterConfig(stream=True)`` (ground truth at E 3e3, 2 fit
@@ -31,11 +31,12 @@
    geometry rendered with ``RasterConfig(packed=True)`` at drop-free caps,
    and its backward, held against the padded path (K4 / K5); K8 and K9
    against their twins on those inputs.
-7. The reverse walks (K5 per tier, K7, K9) also print their CUDA blocks,
-   the culled share of (slot, 16 x 8 pixel group) pairs, the walk depth
-   and a rerun bit-equality check (K9 also against K5 on the same
-   windows); their bounds charge the gate to the walked pairs inside
-   the cull box, with the all-walked bound beside them.
+7. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
+   CUDA blocks, the culled share of (slot, 16 x 8 pixel group) pairs, the
+   walk depth and a rerun bit-equality check (K8 also against K4 and K9
+   against K5 on the same windows); their bounds charge the gate to the
+   walked pairs inside the cull box, with the all-walked bound beside
+   them.
 8. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
 9. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
@@ -88,9 +89,11 @@ OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # a kernel row's numbers beyond the required keys, copied into the kernels
 # line: K1 at the fit's shapes and its blocks, K3's cull, K4/K5 per tier,
 # the reverse walks' blocks, cull, all-walked bound, depth and rerun
-ROW_EXTRAS = ("per_tier", "blocks", "fit_ms", "fit_plain_ms",
-              "fit_bound_ms", "fit_bound_by", "fit_blocks", "culled_share",
-              "bound_all_walked_ms", "kept_pairs", "bit_equal", "depth_max")
+ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "variants",
+              "fit_ms", "fit_plain_ms", "fit_bound_ms", "fit_bound_by",
+              "fit_share", "fit_max_abs_err", "fit_rel_err", "fit_blocks",
+              "fit_variants", "culled_share", "bound_all_walked_ms",
+              "kept_pairs", "bit_equal", "depth_max", "depth_mean")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -219,6 +222,124 @@ def p2g_phase(ts, sig, grid, tc, dt, label):
         blocks=int(live.sum()))
 
 
+# K2's variants (mode 0 stage per chunk, 1 L1 gathers, 2 bulk copy per
+# run; chunks a block; blocks per SM of the launch bound; rows read early;
+# the separable contraction)
+G2P_VARIANTS = ((0, 1, 1, 0, 0), (0, 1, 2, 1, 0), (2, 2, 1, 0, 0),
+                (2, 1, 2, 1, 0), (2, 2, 2, 1, 0), (2, 4, 2, 1, 0),
+                (2, 2, 2, 0, 1), (2, 2, 2, 1, 1), (2, 2, 3, 0, 1),
+                (2, 2, 3, 1, 1), (2, 1, 3, 1, 1), (2, 2, 4, 0, 1))
+
+
+def g2p_variants(ts, ext, grid, tc, dt, q_r, scale, cont):
+    """K2's variants (gsmpm_g2p_variant), each held against the twin as K2
+    is and timed: {name: (rel err, ms)}."""
+    import ctypes
+
+    from gsmpm_tpu_torch.sim import cuda_mpm
+    from gsmpm_tpu_torch.utils import build
+
+    lib = cuda_mpm._lib()
+    fn = lib.gsmpm_g2p_variant
+    VP, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [I, I, I, I, I, VP, VP, VP, VP, VP, I, I, I, I, I, Fl,
+                   Fl, VP]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(ts.q)
+
+    def run(v):
+        err = fn(*v, ts.q.data_ptr(), ext.data_ptr(),
+                 ts.chunk_tile.data_ptr(), ts.chunk_live.data_ptr(),
+                 out.data_ptr(), tc.np_rows, tc.nchunk, tc.nt, tc.S,
+                 tc.n_grid, grid.inv_dx, dt,
+                 torch.cuda.current_stream().cuda_stream)
+        build.check(lib, err, f"g2p variant {v}")
+
+    res = {}
+    for v in G2P_VARIANTS:
+        run(v)
+        torch.cuda.synchronize()
+        rel = float(((out - q_r).abs().to(torch.float64).amax(dim=1)
+                     / scale)[cont].max())
+        check(rel <= 1e-5, f"K2 variant {v}: relative err {rel}")
+        res["mode %d run %d minb %d early %d sep %d" % v] = (
+            rel, cuda_ms(lambda: run(v), 20))
+    return res
+
+
+def g2p_phase(ts, ext, grid, tc, dt, label):
+    """K2 against its twin on one tiled state and its velocity blocks, its
+    time and its bound.  Returns (its kernels-table row, drift flags
+    differing)."""
+    from gsmpm_tpu_torch.sim import cuda_mpm, tiles
+
+    dev = ts.q.device
+    n_real = int((ts.q[tiles.RMASS] > 0).sum())
+    q_k = cuda_mpm.g2p_tiled(ts, ext, grid, tc, dt)
+    q_r = cuda_mpm.g2p_tiled_ref(ts, ext, grid, tc, dt)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(q_k).all()), "K2 g2p: non-finite output")
+    # error scale per row group: the twin's largest entry in the group
+    groups = {"x": (tiles.RX, 3), "v": (tiles.RV, 3), "C": (tiles.RC, 9),
+              "F_trial": (tiles.RFT, 9)}
+    scale = torch.ones(tiles.QROWS, dtype=torch.float64, device=dev)
+    for r0, n in groups.values():
+        scale[r0:r0 + n] = float(q_r[r0:r0 + n].abs().max())
+    cont = [r for r in range(tiles.QROWS) if r != tiles.RDRIFT]
+    diff = (q_k - q_r).abs().to(torch.float64)
+    err2 = float(diff[cont].max())
+    rel_rows = diff.amax(dim=1) / scale
+    rel2 = float(rel_rows[cont].max())
+    # dt grad(v) F: how far a wrong velocity gradient would move F_trial
+    step = float((q_r[tiles.RFT:tiles.RFT + 9]
+                  - q_r[tiles.RF:tiles.RF + 9]).abs().max())
+    f_scale = float(scale[tiles.RFT])
+    print(f"K2 g2p ({label}): relative err by group "
+          + ", ".join(f"{k} {float(rel_rows[r0:r0 + n].max()):.3g}"
+                      for k, (r0, n) in groups.items())
+          + "; scales " + ", ".join(f"{k} {float(scale[r0]):.4g}"
+                                    for k, (r0, n) in groups.items())
+          + f"; max |F_trial - F| {step:.3g}"
+          + f"; copied rows max abs {float(diff[tiles.RF:tiles.RF + 9].max())}"
+          f" / {float(diff[tiles.RMASS:tiles.RDRIFT].max())}", flush=True)
+    check(step >= 5e-4 * f_scale,
+          f"K2 inputs: velocity gradient too small ({step} vs |F| {f_scale})")
+    drift_mismatch = int((q_k[tiles.RDRIFT] != q_r[tiles.RDRIFT]).sum())
+    # gathers summed in another order than the twin's bmm: 1e-5 of each
+    # group's largest entry; drift flags may flip only for positions
+    # exactly on a cell boundary
+    check(rel2 <= 1e-5, f"K2 g2p ({label}): relative err {rel2}")
+    check(drift_mismatch <= 8,
+          f"K2 g2p ({label}): {drift_mismatch} drift flags differ")
+    ms2 = cuda_ms(lambda: cuda_mpm.g2p_tiled(ts, ext, grid, tc, dt), 20)
+    pms2 = cuda_ms(lambda: cuda_mpm.g2p_tiled_ref(ts, ext, grid, tc, dt), 3, 1)
+    occupied = int(torch.unique(ts.chunk_tile[ts.chunk_live == 1]).numel())
+    # must read x, F, mass and the copied rows (18 rows) of every slot and
+    # the occupied tiles' velocity blocks, write all 40 rows; ~1900 flops
+    # per real particle
+    b2 = bound_ms(tc.np_rows * (18 + 40) * 4 + occupied * 192 * 64 * 4,
+                  n_real * 1900.0)
+    variants = g2p_variants(ts, ext, grid, tc, dt, q_r, scale, cont)
+    live = ts.chunk_live == 1
+    per_tile = torch.bincount(ts.chunk_tile[live].to(torch.int64),
+                              minlength=tc.ntiles)
+    print(f"K2 g2p ({label}): {n_real} particles in {int(live.sum())} live "
+          f"chunks of {occupied} tiles (densest {int(per_tile.max())} "
+          f"chunks), {tc.nchunk} chunks: {ms2:.4f} ms (plain {pms2:.3f}, "
+          f"bound {b2[0]:.4f} {b2[1]}, share {b2[0] / ms2:.3f}); drift flags "
+          f"differing {drift_mismatch}; variants "
+          + ", ".join(f"{k} {v[1]:.4f} ms (rel err {v[0]:.3g})"
+                      for k, v in variants.items()), flush=True)
+    return dict(
+        name="g2p_tiled", route="cuda",
+        source="gsmpm_tpu_torch/csrc/mpm_transfer.cu",
+        replaces="gsmpm_tpu/sim/pallas_mpm.py:293",
+        max_abs_err=err2, rel_err=rel2, tol="1e-5 x max per row group",
+        ms=ms2, plain_ms=pms2, bound_ms=b2[0], bound_by=b2[1],
+        library_ms=None, wrapper=cuda_mpm.g2p_tiled, occupied=occupied,
+        variants=variants), drift_mismatch
+
+
 def kernel_phases(dev):
     """K1, K2 on a moved main-path state and K3 on frame 0, each against
     its plain twin."""
@@ -246,57 +367,9 @@ def kernel_phases(dev):
 
     # ---- K2 G2P (input: this substep's grid velocities)
     ext = tiles.grid_phase(win_k, su.model, su.bcs, 0.0, grid, tc, dt)
-    q_k = cuda_mpm.g2p_tiled(ts, ext, grid, tc, dt)
-    q_r = cuda_mpm.g2p_tiled_ref(ts, ext, grid, tc, dt)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(q_k).all()), "K2 g2p: non-finite output")
-    # error scale per row group: the twin's largest entry in the group
-    groups = {"x": (tiles.RX, 3), "v": (tiles.RV, 3), "C": (tiles.RC, 9),
-              "F_trial": (tiles.RFT, 9)}
-    scale = torch.ones(tiles.QROWS, dtype=torch.float64, device=dev)
-    for r0, n in groups.values():
-        scale[r0:r0 + n] = float(q_r[r0:r0 + n].abs().max())
-    cont = [r for r in range(tiles.QROWS) if r != tiles.RDRIFT]
-    diff = (q_k - q_r).abs().to(torch.float64)
-    err2 = float(diff[cont].max())
-    rel_rows = diff.amax(dim=1) / scale
-    rel2 = float(rel_rows[cont].max())
-    # dt grad(v) F: how far a wrong velocity gradient would move F_trial
-    step = float((q_r[tiles.RFT:tiles.RFT + 9]
-                  - q_r[tiles.RF:tiles.RF + 9]).abs().max())
-    f_scale = float(scale[tiles.RFT])
-    print("K2 g2p: relative err by group "
-          + ", ".join(f"{k} {float(rel_rows[r0:r0 + n].max()):.3g}"
-                      for k, (r0, n) in groups.items())
-          + "; scales " + ", ".join(f"{k} {float(scale[r0]):.4g}"
-                                    for k, (r0, n) in groups.items())
-          + f"; max |F_trial - F| {step:.3g}"
-          + f"; copied rows max abs {float(diff[tiles.RF:tiles.RF + 9].max())}"
-          f" / {float(diff[tiles.RMASS:tiles.RDRIFT].max())}", flush=True)
-    check(step >= 5e-4 * f_scale,
-          f"K2 inputs: velocity gradient too small ({step} vs |F| {f_scale})")
-    drift_mismatch = int((q_k[tiles.RDRIFT] != q_r[tiles.RDRIFT]).sum())
-    # gathers summed in another order than the twin's bmm: 1e-5 of each
-    # group's largest entry; drift flags may flip only for positions
-    # exactly on a cell boundary
-    check(rel2 <= 1e-5, f"K2 g2p: relative err {rel2}")
-    check(drift_mismatch <= 8, f"K2 g2p: {drift_mismatch} drift flags differ")
-    ms2 = cuda_ms(lambda: cuda_mpm.g2p_tiled(ts, ext, grid, tc, dt), 20)
-    pms2 = cuda_ms(lambda: cuda_mpm.g2p_tiled_ref(ts, ext, grid, tc, dt), 3, 1)
-    occupied = int(torch.unique(ts.chunk_tile[ts.chunk_live == 1]).numel())
-    # must read x, F, mass and the copied rows (18 rows) of every slot and
-    # the occupied tiles' velocity blocks, write all 40 rows; ~1900 flops
-    # per real particle
-    b2 = bound_ms(tc.np_rows * (18 + 40) * 4 + occupied * 192 * 64 * 4,
-                  n_real * 1900.0)
-    rows.append(dict(
-        name="g2p_tiled", route="cuda",
-        source="gsmpm_tpu_torch/csrc/mpm_transfer.cu",
-        replaces="gsmpm_tpu/sim/pallas_mpm.py:293",
-        max_abs_err=err2, rel_err=rel2, tol="1e-5 x max per row group",
-        ms=ms2, plain_ms=pms2, bound_ms=b2[0], bound_by=b2[1],
-        library_ms=None, wrapper=cuda_mpm.g2p_tiled,
-    ))
+    row, drift_mismatch = g2p_phase(ts, ext, grid, tc, dt, "simulate")
+    rows.append(row)
+    occupied = row["occupied"]
 
     # ---- K3 stream forward (input: frame 0 of the main path)
     rcfg = RasterConfig(stream=True)
@@ -457,6 +530,80 @@ def window_cull(F, out, meta, chunk=64):
                 pairs=float(last.to(torch.float64).sum()),
                 kept_pairs=float(kept), depth_max=float(top.max()),
                 depth_mean=float(top.mean()))
+
+
+def fwd_window_cull(F, counts, out, meta, chunk=256):
+    """The forward walk of windows F (nblocks, 16, K) with blend state out
+    (K4 / K8) on this data.  A pixel's stop is its last contributor when
+    it is done, else its window's count; a 16 x 8 group's the largest of
+    its pixels', a window's (its walk depth) the largest of its groups'.
+    Returns the share of the walked (candidate, group) pairs (candidates
+    before the group's stop) whose box (cuda_blend.window_boxes) misses
+    the group, the (candidate, pixel) pairs of the unculled walk (before
+    the pixel's stop) and the ones among them whose pixel lies in the box
+    (the pairs the kernel evaluates), the walk depth's max and mean over
+    the windows and the live candidates before each window's depth."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+
+    dev, B = F.device, meta.B
+    cnt = torch.minimum(counts.to(torch.int64),
+                        torch.tensor(F.shape[2], device=dev))
+    stop = torch.where(out[:, 4] > 0, out[:, 5],
+                       cnt.to(torch.float32)[:, None])
+    gstop = _group_max(stop, B)
+    depth = stop.amax(dim=1)
+    rx, ry = _group_rects(B, dev)
+    pix = torch.arange(B * B, device=dev)
+    px, py = (pix % B).float(), (pix // B).float()
+    listed = kept = 0
+    for c0 in range(0, int(depth.max()), chunk):
+        Fc = F[:, :, c0:c0 + chunk]
+        nb, c = Fc.shape[0], Fc.shape[2]
+        box = [v.reshape(-1) for v in cb.window_boxes(Fc, B, meta.alpha_min)]
+        meets, inside = _box_hits(*box, rx, ry, px, py)
+        idx = torch.arange(c0, c0 + c, device=dev).float()
+        listed += int((meets.reshape(nb, c, -1)
+                       & (idx[None, :, None] < gstop[:, None, :])).sum())
+        kept += int((inside.reshape(nb, c, -1)
+                     & (idx[None, :, None] < stop[:, None, :])).sum())
+    walked = float(gstop.to(torch.float64).sum())
+    return dict(culled_share=1.0 - listed / max(walked, 1.0),
+                pairs=float(stop.to(torch.float64).sum()),
+                kept_pairs=float(kept), depth_max=float(depth.max()),
+                depth_mean=float(depth.mean()),
+                read_cols=float(depth.to(torch.float64).sum()))
+
+
+def fwd_variants(counts, F, meta, out_k):
+    """K4's variants (gsmpm_blend_fwd_variant) on the same windows: {name:
+    (equal to K4's bits, ms)}."""
+    import ctypes
+
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+    from gsmpm_tpu_torch.utils import build
+
+    lib = cb._lib()
+    fn = lib.gsmpm_blend_fwd_variant
+    VP, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [I, VP, VP, VP, I, I, I, Fl, Fl, VP]
+    fn.restype = ctypes.c_int
+    nb, _, K = F.shape
+    out = torch.empty_like(out_k)
+
+    def run(v):
+        err = fn(v, counts.data_ptr(), F.data_ptr(), out.data_ptr(), nb, K,
+                 meta.B, meta.t_min, meta.alpha_min,
+                 torch.cuda.current_stream().cuda_stream)
+        build.check(lib, err, f"blend_fwd variant {v}")
+
+    res = {}
+    for name, v in (("first design", 0), ("private staging", 1),
+                    ("cluster staging", 2)):
+        run(v)
+        torch.cuda.synchronize()
+        res[name] = (bool(torch.equal(out, out_k)), cuda_ms(lambda: run(v),
+                                                            20))
+    return res
 
 
 def k7_cull(splanes, bounds, out, nbx, B, alpha_min, chunk=2048):
@@ -872,7 +1019,14 @@ def blend_phases(dev, ident, first):
         check(max(rel5.values()) <= 1e-4, f"K5 {tier}: rel err {rel5}")
         check(pad_rows == 0.0, f"K5 {tier}: unused dF rows {pad_rows}")
         check(bits5, f"K5 {tier}: two launches differ")
+        # the culled walk's bits do not depend on the run
+        bits4 = torch.equal(out_k, cb.blend_fwd(counts, F, meta))
+        check(bits4, f"K4 {tier}: two launches differ")
         ms4 = cuda_ms(lambda: cb.blend_fwd(counts, F, meta), 20)
+        var4 = fwd_variants(counts, F, meta, out_k)
+        check(var4["first design"][0],
+              f"K4 {tier}: not the first design's bits")
+        cull4 = fwd_window_cull(F, counts, out_k, meta)
         pms4 = cuda_ms(lambda: cb.blend_core_ref(counts, F, meta), 1, 1)
         ms5 = cuda_ms(lambda: cb.blend_bwd(F, out_k, g, meta), 20)
         pms5 = cuda_ms(lambda: cb.blend_core_bwd_ref(F, out_k, g, meta), 1,
@@ -893,7 +1047,13 @@ def blend_phases(dev, ident, first):
         # GATE_OPS / BWD_CONTRIB_OPS say, the gate charged to the walked
         # pairs inside the box (the all-walked bound charges it to every
         # walked pair)
-        b4 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs4 * 20.0)
+        # K4 bytes: the 10 used F rows of the candidates before each
+        # window's depth and the outputs; operations: >= 20 per walked
+        # pair whose pixel lies in the box (the all-walked bound: per
+        # walked pair)
+        bytes4 = cull4["read_cols"] * 10 * 4 + out_k.numel() * 4
+        b4 = bound_ms(bytes4, cull4["kept_pairs"] * 20.0)
+        b4_all = bound_ms(bytes4, pairs4 * 20.0)
         bytes5 = live_cols * (10 + 16) * 4 + nb * 6 * P * 4
         b5 = bound_ms(bytes5, cull5["kept_pairs"] * GATE_OPS
                       + contrib5 * BWD_CONTRIB_OPS)
@@ -905,12 +1065,22 @@ def blend_phases(dev, ident, first):
                            b4=b4, b5=b5, b5_all=b5_all, pairs4=pairs4,
                            pairs5=pairs5, contrib5=contrib5,
                            blocks5=cb.blend_bwd_blocks(nb, meta.B),
-                           bits5=bits5, **cull5)
+                           bits5=bits5, blocks4=cb.blend_fwd_blocks(
+                               nb, meta.B), bits4=bits4, b4_all=b4_all,
+                           cull4=cull4, var4=var4, **cull5)
         print(f"K4/K5 {tier}: {nb} blocks x K {K} ({live_cols:.0f} live "
               f"candidates): K4 max err {err4:.3g}, done differ "
               f"{done_diff:.3g}, last differ {last_diff:.3g}, "
               f"{ms4:.4f} ms (plain {pms4:.2f}, bound {b4[0]:.4f} {b4[1]}, "
-              f"{pairs4:.4g} pairs); K5 rel err "
+              f"all-walked bound {b4_all[0]:.4f}; {pairs4:.4g} pairs, "
+              f"{cull4['kept_pairs']:.4g} in the box; "
+              f"{tiers[tier]['blocks4']} CUDA blocks, "
+              f"{cull4['culled_share']:.4f} of the (candidate, group) pairs "
+              f"culled, forward walk depth max {cull4['depth_max']:.0f} mean "
+              f"{cull4['depth_mean']:.0f}, rerun bit-equal {bits4}; variants "
+              + ", ".join(f"{k} {v[1]:.4f} ms (K4's bits {v[0]})"
+                          for k, v in var4.items())
+              + "); K5 rel err "
               + ", ".join(f"{k} {v:.3g}" for k, v in rel5.items())
               + f", {ms5:.4f} ms (plain {pms5:.2f}, bound {b5[0]:.4f} "
               f"{b5[1]}, all-walked bound {b5_all[0]:.4f}; {pairs5:.4g} "
@@ -942,7 +1112,12 @@ def blend_phases(dev, ident, first):
     r4 = row("blend_fwd", cb.blend_fwd,
              max(v["err4"] for v in tiers.values()), "ms4", "pms4", "b4",
              "pairs4", "gsmpm_tpu/render/pallas_blend.py:136",
-             "2e-3 abs on rgb/T")
+             "2e-3 abs on rgb/T",
+             extra=("blocks4", "cull4", "b4_all", "bits4", "var4"))
+    r4.update(blocks=sum(v["blocks4"] for v in tiers.values()),
+              bound_all_walked_ms=sum(v["b4_all"][0] for v in tiers.values()),
+              bit_equal=all(v["bits4"] for v in tiers.values()),
+              depth_max=max(v["cull4"]["depth_max"] for v in tiers.values()))
     r5 = row("blend_bwd", cb.blend_bwd,
              max(max(v["rel5"].values()) for v in tiers.values()), "ms5",
              "pms5", "b5", "pairs5", "gsmpm_tpu/render/pallas_blend.py:212",
@@ -1011,11 +1186,11 @@ def sored_phase(dev, ident, first):
         wrapper=cuda_mpm.sored_tiled)
 
 
-def p2g_fit_phase(dev, ident, first):
-    """K1 at the fit's shapes: the steady identify frame's state bucketed
-    as a fitting substep buckets it (the blob's ~21 dense tiles), given
-    seeded motion and strain, with the fit's Green StVK stress and substep
-    dt."""
+def fit_tiled_state(dev, ident, first):
+    """The transfers' inputs at the fit's shapes: the steady identify
+    frame's state bucketed as a fitting substep buckets it (the blob's ~21
+    dense tiles), given seeded motion and strain, with the fit's Green
+    StVK stress and substep dt: (ts, sig, grid, tc, dt)."""
     from gsmpm_tpu_torch.ops.constitutive import cauchy_stress_stvk_green_soa
     from gsmpm_tpu_torch.sim import tiles
     from gsmpm_tpu_torch.sim.kernels import soa_from_state
@@ -1038,8 +1213,19 @@ def p2g_fit_phase(dev, ident, first):
     sig = torch.cat([torch.stack(stress),
                      torch.zeros((7, tc.np_rows), device=dev)])
     dt = ident.fit_cfg.frame_dt / ident.fit_cfg.substeps_per_frame
-    _, row = p2g_phase(ts, sig, grid, tc, dt, "fit")
-    return row
+    return ts, sig, grid, tc, dt
+
+
+def transfer_fit_phases(dev, ident, first):
+    """K1 and K2 at the fit's shapes (fit_tiled_state), K2 on the velocity
+    blocks of K1's windows: their kernels-table rows."""
+    from gsmpm_tpu_torch.sim import tiles
+
+    ts, sig, grid, tc, dt = fit_tiled_state(dev, ident, first)
+    win, row1 = p2g_phase(ts, sig, grid, tc, dt, "fit")
+    ext = tiles.grid_phase(win, ident.model, ident.bcs, 0.0, grid, tc, dt)
+    row2, _ = g2p_phase(ts, ext, grid, tc, dt, "fit")
+    return row1, row2
 
 
 # ---------------------------------------------------------------------------
@@ -1332,6 +1518,11 @@ def packed_phase(dev, ident, first, wrappers):
     check(pad_rows == 0.0, f"K9: unused dF rows {pad_rows}")
     check(bits9, "K9: two launches differ")
     check(k9_is_k5, "K9: not K5's bits on the same windows")
+    # the forward walk's bits: a rerun, and K4 on the same windows
+    bits8 = torch.equal(out_k, cb.blend_packed_fwd(cnt, offs, F, meta))
+    k8_is_k4 = torch.equal(out_k, cb.blend_fwd(cnt, Fw, meta))
+    check(bits8, "K8: two launches differ")
+    check(k8_is_k4, "K8: not K4's bits on the same windows")
     ms8 = cuda_ms(lambda: cb.blend_packed_fwd(cnt, offs, F, meta), 20)
     pms8 = cuda_ms(lambda: cb.blend_packed_ref(cnt, offs, F, meta), 1, 1)
     ms9 = cuda_ms(lambda: cb.blend_packed_bwd(cnt, offs, F, out_k, g, meta),
@@ -1346,7 +1537,11 @@ def packed_phase(dev, ident, first, wrappers):
     pairs9 = float(last.sum())
     contrib9 = _contrib_pairs_windows(Fw, out_k, meta)
     live_cols = float(cnt.sum())
-    b8 = bound_ms(live_cols * 10 * 4 + out_k.numel() * 4, pairs8 * 20.0)
+    cull8 = fwd_window_cull(Fw, cnt, out_k, meta)
+    bytes8 = cull8["read_cols"] * 10 * 4 + out_k.numel() * 4
+    b8 = bound_ms(bytes8, cull8["kept_pairs"] * 20.0)
+    b8_all = bound_ms(bytes8, pairs8 * 20.0)
+    blocks8 = cb.blend_fwd_blocks(nb, meta.B)
     bytes9 = live_cols * (10 + 16) * 4 + nb * 6 * P * 4
     b9 = bound_ms(bytes9, cull9["kept_pairs"] * GATE_OPS
                   + contrib9 * BWD_CONTRIB_OPS)
@@ -1360,7 +1555,12 @@ def packed_phase(dev, ident, first, wrappers):
           + f"; launches {counts_p}", flush=True)
     print(f"K8 packed fwd: max err {err8:.3g}, done differ {done_diff:.3g}, "
           f"last differ {last_diff:.3g}, {ms8:.4f} ms (plain {pms8:.2f}, "
-          f"bound {b8[0]:.4f} {b8[1]}, {pairs8:.4g} pairs); K9 rel err "
+          f"bound {b8[0]:.4f} {b8[1]}, all-walked bound {b8_all[0]:.4f}; "
+          f"{pairs8:.4g} pairs, {cull8['kept_pairs']:.4g} in the box; "
+          f"{blocks8} CUDA blocks, {cull8['culled_share']:.4f} of the "
+          f"(candidate, group) pairs culled, forward walk depth max "
+          f"{cull8['depth_max']:.0f} mean {cull8['depth_mean']:.0f}; rerun "
+          f"bit-equal {bits8}, K4's bits {k8_is_k4}); K9 rel err "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel9.items())
           + f", {ms9:.4f} ms (plain {pms9:.2f}, bound {b9[0]:.4f} {b9[1]}, "
           f"all-walked bound {b9_all[0]:.4f}; {pairs9:.4g} pairs, "
@@ -1376,7 +1576,10 @@ def packed_phase(dev, ident, first, wrappers):
              replaces="gsmpm_tpu/render/pallas_blend.py:692",
              max_abs_err=err8, tol="2e-3 abs on rgb/T", ms=ms8,
              plain_ms=pms8, bound_ms=b8[0], bound_by=b8[1], pairs=pairs8,
-             **common),
+             blocks=blocks8, culled_share=cull8["culled_share"],
+             kept_pairs=cull8["kept_pairs"], bound_all_walked_ms=b8_all[0],
+             bit_equal=bits8 and k8_is_k4, depth_max=cull8["depth_max"],
+             depth_mean=cull8["depth_mean"], **common),
         dict(name="blend_packed_bwd", wrapper=cb.blend_packed_bwd,
              replaces="gsmpm_tpu/render/pallas_blend.py:759",
              max_abs_err=float((dF_k - dF_r).abs().max()),
@@ -1495,10 +1698,11 @@ def main() -> int:
     fit["profile"] = fit_profile(dev, ident, first, fit["steady"])
     blend_rows, fit["blend_tiers"] = blend_phases(dev, ident, first)
     rows += blend_rows + [sored_phase(dev, ident, first)]
-    # K1 at the fit's shapes, beside its row at simulate's
-    k1_fit = p2g_fit_phase(dev, ident, first)
-    rows[0].update({f"fit_{k}": k1_fit[k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "rel_err", "blocks")})
+    # K1 and K2 at the fit's shapes, beside their rows at simulate's
+    for r, fit_row in zip(rows[:2], transfer_fit_phases(dev, ident, first)):
+        r.update({f"fit_{k}": fit_row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "rel_err", "blocks", "variants") if k in fit_row})
     fit["small_parity"] = small_fit_parity(dev)
     del ident, first
     torch.cuda.empty_cache()
@@ -1524,6 +1728,9 @@ def main() -> int:
     kernels = []
     for r in rows:
         name = r["name"]
+        r["share"] = r["bound_ms"] / r["ms"]
+        if "fit_ms" in r:
+            r["fit_share"] = r["fit_bound_ms"] / r["fit_ms"]
         by_path = {"simulate": sim_counts[name], "identify": fit_counts[name],
                    "stream_fit": sfit_counts[name],
                    "packed": packed_counts[name]}

@@ -60,6 +60,8 @@
 // The domain clamp folds stencil slots as clip(torg + k, PAD_LO,
 // PAD_LO + g - 1) - torg, the scatter form of the JAX _clamp_bases.
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -200,102 +202,358 @@ p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---- K2: gathers from the tile's velocity block ---------------------------
+
+// A slot's position and stencils, read before its tile's block is needed;
+// with EARLY also its F, mass and copied rows
+struct G2PSlot {
+  float x[3];
+  Axis ax[3];
+  float F[9], cp[QROWS - RMASS];
+};
+
+template <bool EARLY>
+__device__ __forceinline__ void g2p_stencils(const float* __restrict__ q,
+                                             int p, int NP, const int* torg,
+                                             int g, float inv_dx,
+                                             G2PSlot& s) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    s.x[d] = q[(RX + d) * NP + p];
+    axis_stencil(s.x[d], torg[d], inv_dx, g, s.ax[d]);
+  }
+  if (EARLY) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) s.F[i] = q[(RF + i) * NP + p];
+#pragma unroll
+    for (int r = RMASS; r < QROWS; ++r)
+      s.cp[r - RMASS] = r == RDRIFT ? 0.0f : q[(size_t)r * NP + p];
+  }
+}
+
+// Slot p's gathers from blk (its tile's (192, 64) block: shared memory, or
+// global memory read through L1 when GLOBAL), then every q row of it.
+template <bool GLOBAL, bool EARLY>
+__device__ __forceinline__ void g2p_slot(const G2PSlot& s,
+                                         const float* __restrict__ blk,
+                                         const float* __restrict__ q,
+                                         float* __restrict__ q_out, int p,
+                                         int NP, const int* torg, int g,
+                                         float inv_dx, float dt) {
+  const Axis* ax = s.ax;
+  float v[3] = {0.f, 0.f, 0.f};
+  float grad[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  float Cn[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+#pragma unroll
+      for (int cz = 0; cz < 3; ++cz) {
+        const float wyz = ax[1].w[b] * ax[2].w[cz];
+        const float wxz = ax[0].w[a] * ax[2].w[cz];
+        const float wxy = ax[0].w[a] * ax[1].w[b];
+        const float w = ax[0].w[a] * wyz;
+        const int base = ext_index(ax[0].slot[a], ax[1].slot[b], ax[2].slot[cz], 0);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          const float G = GLOBAL ? __ldg(blk + base + r * 8 * 64)
+                                 : blk[base + r * 8 * 64];
+          v[r] += w * G;
+          grad[r][0] += ax[0].dw[a] * wyz * G;
+          grad[r][1] += ax[1].dw[b] * wxz * G;
+          grad[r][2] += ax[2].dw[cz] * wxy * G;
+          Cn[r][0] += ax[0].u[a] * wyz * G;
+          Cn[r][1] += ax[1].u[b] * wxz * G;
+          Cn[r][2] += ax[2].u[cz] * wxy * G;
+        }
+      }
+    }
+  }
+  const float coef = 4.0f * inv_dx;
+  const bool valid = (EARLY ? s.cp[0] : q[RMASS * NP + p]) > 0.0f;
+  bool drift = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float nx = valid ? s.x[d] + dt * v[d] : s.x[d];
+    q_out[(RX + d) * NP + p] = nx;
+    q_out[(RV + d) * NP + p] = valid ? v[d] : 0.0f;
+    const float gp = nx * inv_dx;
+    const int basep =
+        (int)fminf(fmaxf(floorf(gp - 0.5f), -1.0f), (float)(g - 1)) + PAD_LO;
+    const int local = basep - torg[d];
+    drift = drift || local < SAFE_MIN || local > SAFE_MAX;
+  }
+  float F[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) F[i] = EARLY ? s.F[i] : q[(RF + i) * NP + p];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      q_out[(RC + 3 * r + cc) * NP + p] = valid ? coef * Cn[r][cc] : 0.0f;
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float gk = grad[r][k] * dt + (k == r ? 1.0f : 0.0f);
+        acc += gk * F[3 * k + cc];
+      }
+      q_out[(RFT + 3 * r + cc) * NP + p] = valid ? acc : F[3 * r + cc];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 9; ++i) q_out[(RF + i) * NP + p] = F[i];
+  q_out[RDRIFT * NP + p] = (valid && drift) ? 1.0f : 0.0f;
+#pragma unroll
+  for (int row = RMASS; row < QROWS; ++row)
+    if (row != RDRIFT)
+      q_out[(size_t)row * NP + p] =
+          EARLY ? s.cp[row - RMASS] : q[(size_t)row * NP + p];
+}
+
+// The separable form of g2p_slot: per component, the gathers contracted
+// over z, then y, then x (147 multiply-adds where the 27-node form takes
+// 567 and 270 weight products), dw and u formed from the fraction fx when
+// they are used, and the APIC rows written per component.
+template <bool EARLY>
+__device__ __forceinline__ void g2p_slot_sep(const G2PSlot& s,
+                                             const float* __restrict__ blk,
+                                             const float* __restrict__ q,
+                                             float* __restrict__ q_out,
+                                             int p, int NP, const int* torg,
+                                             int g, float inv_dx, float dt) {
+  const Axis* ax = s.ax;
+  int off[3][3];
+  float fx[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int i = ax[0].slot[k], j = ax[1].slot[k], l = ax[2].slot[k];
+    off[0][k] = (i >> 3) * 6144 + (i & 7) * 64;
+    off[1][k] = (j >> 3) * 3072 + (j & 7) * 8;
+    off[2][k] = (l >> 3) * 1536 + (l & 7);
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float gp = s.x[d] * inv_dx;
+    fx[d] = gp - floorf(gp - 0.5f);
+  }
+  // axis_stencil's dw and u of node k along axis d
+  auto dw = [&](int d, int k) {
+    return k == 0 ? (fx[d] - 1.5f) * inv_dx
+                  : (k == 1 ? -2.0f * (fx[d] - 1.0f) * inv_dx
+                            : (fx[d] - 0.5f) * inv_dx);
+  };
+  auto uu = [&](int d, int k) { return ax[d].w[k] * ((float)k - fx[d]); };
+  const float coef = 4.0f * inv_dx;
+  const bool valid = (EARLY ? s.cp[0] : q[RMASS * NP + p]) > 0.0f;
+  float v[3], grad[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    float fv = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f, c0 = 0.f, c1 = 0.f,
+          c2 = 0.f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float yww = 0.f, ydw = 0.f, yuw = 0.f, ywd = 0.f, ywu = 0.f;
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        float zw = 0.f, zd = 0.f, zu = 0.f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float G = blk[off[0][a] + off[1][b] + off[2][c] + r * 512];
+          zw += ax[2].w[c] * G;
+          zd += dw(2, c) * G;
+          zu += uu(2, c) * G;
+        }
+        yww += ax[1].w[b] * zw;
+        ydw += dw(1, b) * zw;
+        yuw += uu(1, b) * zw;
+        ywd += ax[1].w[b] * zd;
+        ywu += ax[1].w[b] * zu;
+      }
+      fv += ax[0].w[a] * yww;
+      g0 += dw(0, a) * yww;
+      c0 += uu(0, a) * yww;
+      g1 += ax[0].w[a] * ydw;
+      c1 += ax[0].w[a] * yuw;
+      g2 += ax[0].w[a] * ywd;
+      c2 += ax[0].w[a] * ywu;
+    }
+    v[r] = fv;
+    grad[r][0] = g0;
+    grad[r][1] = g1;
+    grad[r][2] = g2;
+    q_out[(RC + 3 * r + 0) * NP + p] = valid ? coef * c0 : 0.0f;
+    q_out[(RC + 3 * r + 1) * NP + p] = valid ? coef * c1 : 0.0f;
+    q_out[(RC + 3 * r + 2) * NP + p] = valid ? coef * c2 : 0.0f;
+  }
+  bool drift = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float nx = valid ? s.x[d] + dt * v[d] : s.x[d];
+    q_out[(RX + d) * NP + p] = nx;
+    q_out[(RV + d) * NP + p] = valid ? v[d] : 0.0f;
+    const float gp = nx * inv_dx;
+    const int basep =
+        (int)fminf(fmaxf(floorf(gp - 0.5f), -1.0f), (float)(g - 1)) + PAD_LO;
+    const int local = basep - torg[d];
+    drift = drift || local < SAFE_MIN || local > SAFE_MAX;
+  }
+  float F[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) F[i] = EARLY ? s.F[i] : q[(RF + i) * NP + p];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float gk = grad[r][k] * dt + (k == r ? 1.0f : 0.0f);
+        acc += gk * F[3 * k + cc];
+      }
+      q_out[(RFT + 3 * r + cc) * NP + p] = valid ? acc : F[3 * r + cc];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 9; ++i) q_out[(RF + i) * NP + p] = F[i];
+  q_out[RDRIFT * NP + p] = (valid && drift) ? 1.0f : 0.0f;
+#pragma unroll
+  for (int row = RMASS; row < QROWS; ++row)
+    if (row != RDRIFT)
+      q_out[(size_t)row * NP + p] =
+          EARLY ? s.cp[row - RMASS] : q[(size_t)row * NP + p];
+}
+
+// A dead chunk's 40 rows passed through, 16 bytes a thread (S % 4 == 0)
+__device__ __forceinline__ void g2p_pass(const float* __restrict__ q,
+                                         float* __restrict__ q_out, int c,
+                                         int NP, int S) {
+  const int S4 = S / 4;
+  for (int i = threadIdx.x; i < QROWS * S4; i += blockDim.x) {
+    const int row = i / S4, k = i % S4;
+    const size_t off = (size_t)row * NP + (size_t)c * S;
+    reinterpret_cast<float4*>(q_out + off)[k] =
+        reinterpret_cast<const float4*>(q + off)[k];
+  }
+}
+
+// The mbarrier and bulk-copy (TMA) primitives of the staged variant
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One thread: expect `bytes` on bar and copy them from src into dst
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned phase) {
+  unsigned ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(smem_addr(bar)), "r"(phase) : "memory");
+  }
+}
+
+// How a block reaches its tile's velocity block
+enum G2PMode {
+  G2P_STAGE_CHUNK = 0,  // copy it into shared memory for every chunk
+  G2P_DIRECT = 1,       // gather from global memory through L1
+  G2P_STAGE_RUN = 2,    // bulk-copy it once per run of one tile's chunks
+};
+
+// Block i takes chunks [i R, i R + R).
+template <int MODE, int R, int MINB, bool EARLY, bool SEP>
+__global__ void __launch_bounds__(THREADS, MINB)
 g2p_kernel(const float* __restrict__ q, const float* __restrict__ ext,
            const int* __restrict__ chunk_tile,
            const int* __restrict__ chunk_live, float* __restrict__ q_out,
-           int NP, int nt, int S, int g, float inv_dx, float dt) {
-  extern __shared__ float blk[];
-  const int c = blockIdx.x;
-  if (chunk_live[c] != 1) {  // dead chunk: pass q through
-    for (int i = threadIdx.x; i < QROWS * S; i += THREADS) {
-      const int row = i / S, p = c * S + i % S;
-      q_out[(size_t)row * NP + p] = q[(size_t)row * NP + p];
-    }
-    return;
+           int NP, int nchunk, int nt, int S, int g, float inv_dx,
+           float dt) {
+  extern __shared__ __align__(128) float blk[];
+  __shared__ __align__(8) unsigned long long bar;
+  if (MODE == G2P_STAGE_RUN) {
+    if (threadIdx.x == 0) mbar_init(&bar);
+    __syncthreads();
   }
-  const int t = chunk_tile[c];
-  const float4* src = reinterpret_cast<const float4*>(ext + (size_t)t * EXT_FLOATS);
-  float4* dst = reinterpret_cast<float4*>(blk);
-  for (int i = threadIdx.x; i < EXT_FLOATS / 4; i += THREADS) dst[i] = src[i];
-  const int torg[3] = {(t / (nt * nt)) * T_TILE, ((t / nt) % nt) * T_TILE,
-                       (t % nt) * T_TILE};
-  __syncthreads();
+  int staged = -1;
+  unsigned phase = 0;
+  const int c0 = blockIdx.x * R, c1 = min(c0 + R, nchunk);
+  for (int c = c0; c < c1; ++c) {
+    if (chunk_live[c] != 1) {  // dead chunk: pass q through
+      g2p_pass(q, q_out, c, NP, S);
+      continue;
+    }
+    const int t = chunk_tile[c];
+    const int torg[3] = {(t / (nt * nt)) * T_TILE, ((t / nt) % nt) * T_TILE,
+                         (t % nt) * T_TILE};
+    const float* src = ext + (size_t)t * EXT_FLOATS;
+    bool fresh = false;
+    if (MODE == G2P_STAGE_CHUNK) {
+      if (R > 1) __syncthreads();  // the last chunk's gathers are done
+      const float4* s4 = reinterpret_cast<const float4*>(src);
+      float4* d4 = reinterpret_cast<float4*>(blk);
+      for (int i = threadIdx.x; i < EXT_FLOATS / 4; i += THREADS) d4[i] = s4[i];
+      __syncthreads();
+    } else if (MODE == G2P_STAGE_RUN && t != staged) {
+      fresh = true;
+      __syncthreads();  // every gather from the last tile's block is done
+      if (threadIdx.x == 0)
+        bulk_load(blk, src, EXT_FLOATS * sizeof(float), &bar);
+    }
+    for (int s = threadIdx.x; s < S; s += THREADS) {
+      const int p = c * S + s;
+      G2PSlot sl;
+      g2p_stencils<EARLY>(q, p, NP, torg, g, inv_dx, sl);
+      if (fresh) mbar_wait(&bar, phase);  // the copy lands meanwhile
+      if (SEP)
+        g2p_slot_sep<EARLY>(sl, blk, q, q_out, p, NP, torg, g, inv_dx, dt);
+      else
+        g2p_slot<MODE == G2P_DIRECT, EARLY>(
+            sl, MODE == G2P_DIRECT ? src : blk, q, q_out, p, NP, torg, g,
+            inv_dx, dt);
+    }
+    if (fresh) {
+      phase ^= 1u;
+      staged = t;
+    }
+  }
+}
 
-  const float coef = 4.0f * inv_dx;
-  for (int s = threadIdx.x; s < S; s += THREADS) {
-    const int p = c * S + s;
-    float x[3];
-    Axis ax[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      x[d] = q[(RX + d) * NP + p];
-      axis_stencil(x[d], torg[d], inv_dx, g, ax[d]);
-    }
-    float v[3] = {0.f, 0.f, 0.f};
-    float grad[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-    float Cn[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-#pragma unroll
-        for (int cz = 0; cz < 3; ++cz) {
-          const float wyz = ax[1].w[b] * ax[2].w[cz];
-          const float wxz = ax[0].w[a] * ax[2].w[cz];
-          const float wxy = ax[0].w[a] * ax[1].w[b];
-          const float w = ax[0].w[a] * wyz;
-          const int base = ext_index(ax[0].slot[a], ax[1].slot[b], ax[2].slot[cz], 0);
-#pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            const float G = blk[base + r * 8 * 64];
-            v[r] += w * G;
-            grad[r][0] += ax[0].dw[a] * wyz * G;
-            grad[r][1] += ax[1].dw[b] * wxz * G;
-            grad[r][2] += ax[2].dw[cz] * wxy * G;
-            Cn[r][0] += ax[0].u[a] * wyz * G;
-            Cn[r][1] += ax[1].u[b] * wxz * G;
-            Cn[r][2] += ax[2].u[cz] * wxy * G;
-          }
-        }
-      }
-    }
-    const bool valid = q[RMASS * NP + p] > 0.0f;
-    bool drift = false;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const float nx = valid ? x[d] + dt * v[d] : x[d];
-      q_out[(RX + d) * NP + p] = nx;
-      q_out[(RV + d) * NP + p] = valid ? v[d] : 0.0f;
-      const float gp = nx * inv_dx;
-      const int basep =
-          (int)fminf(fmaxf(floorf(gp - 0.5f), -1.0f), (float)(g - 1)) + PAD_LO;
-      const int local = basep - torg[d];
-      drift = drift || local < SAFE_MIN || local > SAFE_MAX;
-    }
-    float F[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) F[i] = q[(RF + i) * NP + p];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        q_out[(RC + 3 * r + cc) * NP + p] = valid ? coef * Cn[r][cc] : 0.0f;
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float gk = grad[r][k] * dt + (k == r ? 1.0f : 0.0f);
-          acc += gk * F[3 * k + cc];
-        }
-        q_out[(RFT + 3 * r + cc) * NP + p] = valid ? acc : F[3 * r + cc];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 9; ++i) q_out[(RF + i) * NP + p] = F[i];
-    q_out[RDRIFT * NP + p] = (valid && drift) ? 1.0f : 0.0f;
-    for (int row = RMASS; row < QROWS; ++row)
-      if (row != RDRIFT) q_out[(size_t)row * NP + p] = q[(size_t)row * NP + p];
-  }
+template <int MODE, int R, int MINB = 1, bool EARLY = false,
+          bool SEP = false>
+cudaError_t g2p_launch(const float* q, const float* ext,
+                       const int* chunk_tile, const int* chunk_live,
+                       float* q_out, int NP, int nchunk, int nt, int S,
+                       int g, float inv_dx, float dt, cudaStream_t st) {
+  const int smem = MODE == G2P_DIRECT ? 0 : EXT_FLOATS * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      g2p_kernel<MODE, R, MINB, EARLY, SEP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  g2p_kernel<MODE, R, MINB, EARLY, SEP>
+      <<<(nchunk + R - 1) / R, THREADS, smem, st>>>(
+      q, ext, chunk_tile, chunk_live, q_out, NP, nchunk, nt, S, g, inv_dx,
+      dt);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -333,13 +591,42 @@ int gsmpm_g2p_tiled(const float* q, const float* ext, const int* chunk_tile,
                     const int* chunk_live, float* q_out, int NP, int nchunk,
                     int nt, int S, int g, float inv_dx, float dt,
                     void* stream) {
-  const int smem = EXT_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      g2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  g2p_kernel<<<nchunk, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, ext, chunk_tile, chunk_live, q_out, NP, nt, S, g, inv_dx, dt);
-  return cudaGetLastError();
+  if (S % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0
+      || reinterpret_cast<uintptr_t>(q_out) % 16 != 0
+      || reinterpret_cast<uintptr_t>(ext) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  return g2p_launch<G2P_STAGE_RUN, 2>(
+      q, ext, chunk_tile, chunk_live, q_out, NP, nchunk, nt, S, g, inv_dx,
+      dt, static_cast<cudaStream_t>(stream));
+}
+
+// K2's variants, timed against each other: mode (G2PMode), chunks per
+// block, the launch bound's blocks per SM, and the rows read early
+int gsmpm_g2p_variant(int mode, int R, int minb, int early, int sep,
+                      const float* q, const float* ext,
+                      const int* chunk_tile, const int* chunk_live,
+                      float* q_out, int NP, int nchunk, int nt, int S, int g,
+                      float inv_dx, float dt, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define G2P_VARIANT(M, RR, MB, E, SP)                                       \
+  if (mode == M && R == RR && minb == MB && early == E && sep == SP)        \
+    return g2p_launch<M, RR, MB, E, SP>(q, ext, chunk_tile, chunk_live,     \
+                                        q_out, NP, nchunk, nt, S, g,        \
+                                        inv_dx, dt, st);
+  G2P_VARIANT(G2P_STAGE_CHUNK, 1, 1, false, false)
+  G2P_VARIANT(G2P_STAGE_CHUNK, 1, 2, true, false)
+  G2P_VARIANT(G2P_STAGE_RUN, 2, 1, false, false)
+  G2P_VARIANT(G2P_STAGE_RUN, 1, 2, true, false)
+  G2P_VARIANT(G2P_STAGE_RUN, 2, 2, true, false)
+  G2P_VARIANT(G2P_STAGE_RUN, 4, 2, true, false)
+  G2P_VARIANT(G2P_STAGE_RUN, 2, 2, false, true)
+  G2P_VARIANT(G2P_STAGE_RUN, 2, 2, true, true)
+  G2P_VARIANT(G2P_STAGE_RUN, 2, 3, false, true)
+  G2P_VARIANT(G2P_STAGE_RUN, 2, 3, true, true)
+  G2P_VARIANT(G2P_STAGE_RUN, 1, 3, true, true)
+  G2P_VARIANT(G2P_STAGE_RUN, 2, 4, false, true)
+#undef G2P_VARIANT
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -86,8 +86,10 @@
 
 namespace {
 
-constexpr int FWD_THREADS = 256;   // 16 x 16 pixels
+constexpr int OLD_THREADS = 256;   // 16 x 16 pixels (variant)
 constexpr int CH = 256;            // candidates staged per forward step
+constexpr int FWD_THREADS = rwalk::NW * 32;  // K4 / K8: one staged column each
+static_assert(FWD_THREADS == CH, "K4 stages one candidate per thread");
 constexpr int NROW = 10;           // staged F rows: 0..6 and 8..10
 
 __device__ __forceinline__ int frow(int r) { return r < 7 ? r : r + 1; }
@@ -133,8 +135,8 @@ __device__ __forceinline__ float power_of(float (*sF)[CH], int j,
 }
 
 template <bool PACKED>
-__global__ void __launch_bounds__(FWD_THREADS)
-blend_fwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
+__global__ void __launch_bounds__(OLD_THREADS)
+blend_fwd_old_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
                  const float* __restrict__ F, float* __restrict__ out, int K,
                  int C, int n_chunks, int B, float t_min, float alpha_min) {
   __shared__ float sF[NROW][CH];
@@ -154,7 +156,7 @@ blend_fwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   for (int base = 0; base < count; base += CH) {
     if (__syncthreads_and(done)) break;
     const int n = min(CH, count - base);
-    for (int i = threadIdx.x; i < NROW * CH; i += FWD_THREADS) {
+    for (int i = threadIdx.x; i < NROW * CH; i += OLD_THREADS) {
       const int r = i / CH, j = i % CH;
       sF[r][j] = j < n ? Fb[frow(r) * win.ld + base + j] : 0.0f;
     }
@@ -233,7 +235,214 @@ __device__ __forceinline__ void window_box(const float* F, int B,
 }
 
 // staged rows of a candidate: F rows 0..6, colors (7..9), box (10..13)
-constexpr int BWD_NS = 14;
+constexpr int NS = 14;
+
+// The F rows of window column j of step base into f (zeros past count)
+__device__ __forceinline__ void load_rows(const float* __restrict__ Fb,
+                                          size_t ld, int j, int count,
+                                          float* f) {
+#pragma unroll
+  for (int r = 0; r < NROW; ++r)
+    f[r] = j < count ? Fb[frow(r) * ld + j] : 0.0f;
+}
+
+// A lane's 4 pixels of its warp's 16 x 8 group and their blend state
+struct FwdLane {
+  float px, pxx, rx0, ry0;
+  float py[rwalk::PPT], T[rwalk::PPT], cr[rwalk::PPT], cg[rwalk::PPT],
+      cb[rwalk::PPT], last[rwalk::PPT];
+  bool done[rwalk::PPT];
+  bool live;  // the group lies in the block
+
+  __device__ __forceinline__ bool all_done() const {
+    bool d = true;
+#pragma unroll
+    for (int k = 0; k < rwalk::PPT; ++k) d = d && done[k];
+    return d;
+  }
+};
+
+__device__ __forceinline__ void fwd_lane(FwdLane& ln, int rect, int B,
+                                         int lane) {
+  const int rects_x = B / 16;
+  ln.live = rect < rwalk::groups_of(B);
+  const int rx0 = (rect % rects_x) * 16, ry0 = (rect / rects_x) * 8;
+  ln.rx0 = (float)rx0;
+  ln.ry0 = (float)ry0;
+  ln.px = (float)(rx0 + (lane & 15));
+  ln.pxx = ln.px * ln.px;
+#pragma unroll
+  for (int k = 0; k < rwalk::PPT; ++k) {
+    ln.py[k] = (float)(ry0 + (lane >> 4) + 2 * k);
+    ln.T[k] = 1.0f;
+    ln.cr[k] = ln.cg[k] = ln.cb[k] = ln.last[k] = 0.0f;
+    ln.done[k] = !ln.live;
+  }
+}
+
+// The warp's walk of its listed candidates of one step, front to back: a
+// lane skips a candidate whose box misses its pixel before the power and
+// the exp, then takes the twin's gate and update per pixel.
+__device__ __forceinline__ void fwd_walk(FwdLane& ln, float (*st)[CH],
+                                         const unsigned char* list, int cnt,
+                                         int base, float t_min,
+                                         float alpha_min) {
+  for (int e = 0; e < cnt; ++e) {
+    const int j = list[e];
+    if (ln.px < st[10][j] || ln.px > st[11][j]) continue;
+    const float yl = st[12][j], yh = st[13][j];
+    const float F0 = st[0][j], F1 = st[1][j], F2 = st[2][j];
+    const float F3 = st[3][j], F4 = st[4][j], F5 = st[5][j];
+    const float logo = st[6][j];
+#pragma unroll
+    for (int k = 0; k < rwalk::PPT; ++k) {
+      const float py = ln.py[k];
+      if (ln.done[k] || py < yl || py > yh) continue;
+      const float power = rwalk::power_of(F0, F1, F2, F3, F4, F5, logo,
+                                          ln.pxx, ln.px, py * py, py,
+                                          ln.px * py);
+      const float alpha = fminf(0.99f, expf(power));
+      if (!(power <= logo && alpha >= alpha_min)) continue;
+      const float T_after = ln.T[k] * (1.0f - alpha);
+      if (T_after < t_min) { ln.done[k] = true; continue; }
+      const float w = ln.T[k] * alpha;
+      ln.cr[k] += st[7][j] * w;
+      ln.cg[k] += st[8][j] * w;
+      ln.cb[k] += st[9][j] * w;
+      ln.T[k] = T_after;
+      ln.last[k] = (float)(base + j + 1);
+    }
+  }
+}
+
+__device__ __forceinline__ void fwd_store(const FwdLane& ln, float* ob,
+                                          int B, int lane) {
+  if (!ln.live) return;
+  const int P = B * B;
+#pragma unroll
+  for (int k = 0; k < rwalk::PPT; ++k) {
+    float* o = ob + (int)ln.py[k] * B + (int)ln.px;
+    o[0 * P] = ln.cr[k];
+    o[1 * P] = ln.cg[k];
+    o[2 * P] = ln.cb[k];
+    o[3 * P] = ln.T[k];
+    o[4 * P] = ln.done[k] ? 1.0f : 0.0f;
+    o[5 * P] = ln.last[k];
+    o[6 * P] = 0.0f;
+    o[7 * P] = 0.0f;
+  }
+}
+
+// K4 / K8: the CUDA blocks [b S, b S + S) of pixel block b, S =
+// rwalk::blocks_per(B), each take 8 of its 16 x 8 pixel groups.
+template <bool PACKED>
+__global__ void __launch_bounds__(FWD_THREADS)
+blend_fwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
+                 const float* __restrict__ F, float* __restrict__ out, int K,
+                 int C, int n_chunks, int B, float t_min, float alpha_min) {
+  __shared__ float st[NS][CH];
+  __shared__ unsigned char list[rwalk::NW][CH];
+  const int per = rwalk::blocks_per(B);
+  const int b = blockIdx.x / per;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  FwdLane ln;
+  fwd_lane(ln, (blockIdx.x % per) * rwalk::NW + warp, B, lane);
+  const Window win = window_of<PACKED>(b, counts, offs, K, C, n_chunks);
+  const float* Fb = F + win.col0;
+  const int count = win.count;
+  const float log_amin = logf(alpha_min) - 1e-3f;
+
+  float f[NROW];  // this thread's candidate of the next step
+  load_rows(Fb, win.ld, threadIdx.x, count, f);
+  for (int base = 0; base < count; base += CH) {
+    const bool mine = ln.all_done();
+    // also the barrier after the last step's walk
+    if (__syncthreads_and(mine)) break;
+    const int n = min(CH, count - base);
+    {
+      float box[4];
+      window_box(f, B, log_amin, box);
+#pragma unroll
+      for (int r = 0; r < NROW; ++r) st[r][threadIdx.x] = f[r];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) st[NROW + r][threadIdx.x] = box[r];
+    }
+    __syncthreads();
+    // the next step's rows load while this one is walked
+    if (base + CH < count)
+      load_rows(Fb, win.ld, base + CH + threadIdx.x, count, f);
+    const int cnt = __all_sync(rwalk::FULL, mine)
+                        ? 0
+                        : rwalk::warp_list(st[10], st[11], st[12], st[13], n,
+                                           ln.rx0, ln.ry0, list[warp], lane);
+    fwd_walk(ln, st, list[warp], cnt, base, t_min, alpha_min);
+  }
+  fwd_store(ln, out + (size_t)b * 8 * B * B, B, lane);
+}
+
+// Variant: the blocks of a pixel block form a cluster and stage each step
+// once, each a share of its candidates pushed into every block's buffer
+// (double-buffered by step parity, one cluster barrier a step); the
+// cluster leaves the window when all its blocks are done.
+__global__ void __launch_bounds__(FWD_THREADS)
+blend_fwd_cluster_kernel(const int* __restrict__ counts,
+                         const float* __restrict__ F, float* __restrict__ out,
+                         int K, int B, float t_min, float alpha_min) {
+  __shared__ float st[2][NS][CH];
+  __shared__ unsigned char list[rwalk::NW][CH];
+  __shared__ int flag[2];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const int nranks = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int b = blockIdx.x / nranks;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  FwdLane ln;
+  fwd_lane(ln, rank * rwalk::NW + warp, B, lane);
+  const Window win = window_of<false>(b, counts, nullptr, K, 1, 0);
+  const float* Fb = F + win.col0;
+  const int count = win.count;
+  const float log_amin = logf(alpha_min) - 1e-3f;
+  const int share = (CH + nranks - 1) / nranks;
+  const int jj = rank * share + threadIdx.x;  // this thread's column
+  const bool stager = threadIdx.x < share && jj < CH;
+
+  float f[NROW];
+  load_rows(Fb, win.ld, stager ? jj : count, count, f);
+  for (int base = 0, step = 0; base < count; base += CH, ++step) {
+    const int q = step & 1;
+    const bool mine = ln.all_done();
+    const int bd = __syncthreads_and(mine);
+    if (threadIdx.x == 0) flag[q] = bd;
+    const int n = min(CH, count - base);
+    if (stager && jj < n) {
+      float box[4];
+      window_box(f, B, log_amin, box);
+      for (int s = 0; s < nranks; ++s) {
+        float (*o)[CH] = cl.map_shared_rank(st[q], s);
+#pragma unroll
+        for (int r = 0; r < NROW; ++r) o[r][jj] = f[r];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) o[NROW + r][jj] = box[r];
+      }
+    }
+    cl.sync();
+    bool all = true;
+    for (int s = 0; s < nranks; ++s) all = all && *cl.map_shared_rank(&flag[q], s);
+    if (all) break;
+    if (stager && base + CH < count)
+      load_rows(Fb, win.ld, base + CH + jj, count, f);
+    const int cnt = __all_sync(rwalk::FULL, mine)
+                        ? 0
+                        : rwalk::warp_list(st[q][10], st[q][11], st[q][12],
+                                           st[q][13], n, ln.rx0, ln.ry0,
+                                           list[warp], lane);
+    fwd_walk(ln, st[q], list[warp], cnt, base, t_min, alpha_min);
+    __syncwarp();
+  }
+  fwd_store(ln, out + (size_t)b * 8 * B * B, B, lane);
+  cl.sync();  // no block reads another's flags any more
+}
+
+constexpr int BWD_NS = NS;
 
 template <bool PACKED>
 __global__ void __launch_bounds__(rwalk::NW * 32, 2)
@@ -351,11 +560,48 @@ const char* gsmpm_cuda_error_string(int err) {
 int gsmpm_blend_fwd(const int* counts, const float* F, float* out, int nb,
                     int K, int B, float t_min, float alpha_min, void* stream) {
   if (nb <= 0) return cudaSuccess;
-  const dim3 grid(nb, (B / 16) * (B / 16));
-  blend_fwd_kernel<false>
-      <<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          counts, nullptr, F, out, K, 1, 0, B, t_min, alpha_min);
+  blend_fwd_kernel<false><<<rwalk::grid_of(nb, B), FWD_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      counts, nullptr, F, out, K, 1, 0, B, t_min, alpha_min);
   return cudaGetLastError();
+}
+
+// CUDA blocks of a K4 / K8 launch over nb pixel blocks of edge B
+int gsmpm_blend_fwd_blocks(int nb, int B) { return rwalk::grid_of(nb, B); }
+
+// K4's variants, timed against each other by chip_smoke.py: 0 the first
+// design (one block per 16 x 16 sub-tile, no cull), 1 the culled walk
+// with private staging (gsmpm_blend_fwd), 2 the culled walk staged once
+// per cluster
+int gsmpm_blend_fwd_variant(int variant, const int* counts, const float* F,
+                            float* out, int nb, int K, int B, float t_min,
+                            float alpha_min, void* stream) {
+  if (nb <= 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 0) {
+    const dim3 grid(nb, (B / 16) * (B / 16));
+    blend_fwd_old_kernel<false><<<grid, OLD_THREADS, 0, st>>>(
+        counts, nullptr, F, out, K, 1, 0, B, t_min, alpha_min);
+    return cudaGetLastError();
+  }
+  if (variant == 1)
+    return gsmpm_blend_fwd(counts, F, out, nb, K, B, t_min, alpha_min,
+                           stream);
+  if (variant != 2) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rwalk::grid_of(nb, B));
+  cfg.blockDim = dim3(FWD_THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = rwalk::blocks_per(B);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, blend_fwd_cluster_kernel, counts,
+                                       F, out, K, B, t_min, alpha_min);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // CUDA blocks of a K5 / K9 launch over nb pixel blocks of edge B
@@ -375,10 +621,9 @@ int gsmpm_blend_packed_fwd(const int* counts, const int* offs, const float* F,
                            int B, float t_min, float alpha_min,
                            void* stream) {
   if (nb <= 0) return cudaSuccess;
-  const dim3 grid(nb, (B / 16) * (B / 16));
-  blend_fwd_kernel<true>
-      <<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          counts, offs, F, out, T, C, n_chunks, B, t_min, alpha_min);
+  blend_fwd_kernel<true><<<rwalk::grid_of(nb, B), FWD_THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      counts, offs, F, out, T, C, n_chunks, B, t_min, alpha_min);
   return cudaGetLastError();
 }
 

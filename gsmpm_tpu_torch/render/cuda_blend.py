@@ -289,8 +289,9 @@ def _lib():
     lib.gsmpm_blend_fwd.restype = ctypes.c_int
     lib.gsmpm_blend_bwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP]
     lib.gsmpm_blend_bwd.restype = ctypes.c_int
-    lib.gsmpm_blend_bwd_blocks.argtypes = [_I, _I]
-    lib.gsmpm_blend_bwd_blocks.restype = ctypes.c_int
+    for name in ("gsmpm_blend_fwd_blocks", "gsmpm_blend_bwd_blocks"):
+        getattr(lib, name).argtypes = [_I, _I]
+        getattr(lib, name).restype = ctypes.c_int
     lib.gsmpm_blend_packed_fwd.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                            _I, _F, _F, _VP]
     lib.gsmpm_blend_packed_fwd.restype = ctypes.c_int
@@ -309,9 +310,8 @@ def _check(t: torch.Tensor, name: str, shape, dtype, dev) -> None:
 
 
 def _check_block(B: int) -> None:
-    # one thread per pixel in 16x16 sub-tiles (K4); K5's 16x8 pixel groups
-    # spread over one cluster of CUDA blocks, 4 at 64 (a portable cluster
-    # holds at most 8)
+    # 16x8 pixel groups, 8 to a CUDA block; K5's blocks of one pixel block
+    # form a cluster, 4 at 64 (a portable cluster holds at most 8)
     if B % 16 != 0 or B * B > 4096:
         raise ValueError(f"block {B}: the kernels take multiples of 16 up "
                          "to 64")
@@ -363,6 +363,12 @@ def blend_bwd(F: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     build.check(lib, err, "blend_bwd")
     blend_bwd.launches += 1
     return dF
+
+
+def blend_fwd_blocks(nblocks: int, B: int) -> int:
+    """CUDA blocks of one K4 / K8 launch over nblocks pixel blocks of edge
+    B, as the launch computes them (8 pixel groups of 16 x 8 per block)."""
+    return _lib().gsmpm_blend_fwd_blocks(nblocks, B)
 
 
 def blend_bwd_blocks(nblocks: int, B: int) -> int:

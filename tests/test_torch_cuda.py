@@ -142,6 +142,42 @@ def test_g2p_kernel_matches_twin(cuda, tmp_path):
     assert float(((got - want).abs() / scale).max()) <= 1e-5
 
 
+def test_g2p_kernel_dense_tiles(cuda):
+    """K2 on tests/test_torch_cull_groups.py's dense case: tile 0's 78 live
+    chunks with a dead chunk among them, then a tile of one chunk, so the
+    tile changes inside a run of chunks a block may take (chunks 78 / 79),
+    then 24 chunks of tile 7 and dead slack chunks; seeded velocity blocks.
+    The live chunks' rows within 1e-5 of each row group's natural scale of
+    the twin, at most 8 drift flags differing (positions exactly on a cell
+    boundary), and the dead chunks' rows passed through bit for bit."""
+    from test_torch_cull_groups import dense_tiled_state
+
+    ts, _, grid, tc, dt = dense_tiled_state(cuda)
+    assert int(ts.chunk_live[40]) == 0 and int(ts.chunk_live[41]) == 1
+    assert int(ts.chunk_tile[78]) == 0 and int(ts.chunk_tile[79]) == 3
+    rng = np.random.default_rng(6)
+    ext = torch.from_numpy(rng.normal(size=(tc.ntiles, 192, 64))
+                           .astype(np.float32)).to(cuda)
+    before = cuda_mpm.g2p_tiled.launches
+    got = cuda_mpm.g2p_tiled(ts, ext, grid, tc, dt)
+    assert cuda_mpm.g2p_tiled.launches == before + 1
+    want = tiles.g2p_tiled_ref(ts, ext, grid, tc, dt)
+    live = (ts.chunk_live == 1).repeat_interleave(tc.S)
+    scale = torch.ones((tiles.QROWS, 1), device=cuda)
+    scale[tiles.RX:tiles.RX + 3] = float(want[0:3].abs().max())
+    scale[tiles.RV:tiles.RV + 3] = float(ext.abs().max())
+    scale[tiles.RC:tiles.RC + 9] = 4.0 * grid.inv_dx * float(ext.abs().max())
+    rows = [r for r in range(tiles.QROWS) if r != tiles.RDRIFT]
+    err = ((got - want).abs() / scale)[rows][:, live]
+    assert float(err.max()) <= 1e-5
+    drift = got[tiles.RDRIFT, live] != want[tiles.RDRIFT, live]
+    assert int(drift.sum()) <= 8
+    # the F rows moved: a kernel that gathered the wrong block would miss
+    moved = (want[tiles.RFT:tiles.RFT + 9] - want[tiles.RF:tiles.RF + 9])
+    assert float(moved[:, live].abs().max()) > 1e-3
+    assert torch.equal(got[:, ~live], ts.q[:, ~live])
+
+
 def test_wrappers_reject_bad_inputs(cuda, tmp_path):
     cfg, su, ts, sig = _first_substep_inputs(tmp_path)
     with pytest.raises(ValueError):
@@ -494,6 +530,57 @@ def test_blend_bwd_on_crafted_windows(cuda, B):
     for b, o in enumerate(offs.tolist()):
         a = -(-counts_l[b] // meta.C) * meta.C
         assert torch.equal(dF9[:, o:o + a], dF[b, :, :a])
+
+
+def _sequential_fwd(F, counts, meta):
+    """tests/test_torch_cull_windows.py's unculled sequential forward walk,
+    on the card: torch's elementwise ops round as the kernels built without
+    FMA contraction, so K4 / K8 give its bits."""
+    from test_torch_cull_windows import sequential_walk
+
+    return sequential_walk(F, counts, meta.B, meta.t_min, meta.alpha_min,
+                           cull=False)
+
+
+@pytest.mark.parametrize("B", [16, 32, 64])
+def test_blend_fwd_on_crafted_windows(cuda, B):
+    """K4 and K8 on tests/test_torch_cull_windows.py's crafted windows
+    (splats of 0.3 to 40 pixels, larger than a pixel group and centred
+    outside the block, conics not positive definite or near-singular,
+    opacities from below alpha_min to 0.9999, dead columns) against the
+    twins; the culled walk gives an unculled sequential walk's bits, two
+    K4 launches give the same bits, and K8 on the same windows packed
+    gives K4's."""
+    from test_torch_cull_windows import crafted_windows
+
+    Fpad, _ = crafted_windows(B, nb=4, K=512, seed=B + 1)
+    counts_l = [512, 384, 100, 0]
+    for b, c in enumerate(counts_l):
+        Fpad[b, 6, c:] = cb.NEG  # past a window's count: dead, as built
+    Fpad = Fpad.to(cuda).contiguous()
+    counts = torch.tensor(counts_l, dtype=torch.int32, device=cuda)
+    meta = cb.BlendMeta(64, B, 1e-2, 1.0 / 255.0, 512 // 64)
+    before = (cb.blend_fwd.launches, cb.blend_packed_fwd.launches)
+    out = cb.blend_fwd(counts, Fpad, meta)
+    want = cb.blend_core_ref(counts, Fpad, meta)
+    assert float((out[:, 0:4] - want[:, 0:4]).abs().max()) <= 2e-3
+    assert float((out[:, 4] != want[:, 4]).float().mean()) <= 1e-3
+    assert float((out[:, 5] != want[:, 5]).float().mean()) <= 1e-3
+    assert float(out[:, 5].max()) > 100  # the blend went past a step
+    assert 0 < int(out[:, 4].sum()) < out[:, 4].numel()
+    assert torch.equal(out, _sequential_fwd(Fpad, counts, meta))
+    assert torch.equal(out, cb.blend_fwd(counts, Fpad, meta))
+    offs, F = _pack(Fpad, counts_l, meta.C)
+    assert torch.equal(cb.blend_packed_fwd(counts, offs, F, meta), out)
+    assert (cb.blend_fwd.launches, cb.blend_packed_fwd.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("B,per", [(16, 1), (32, 1), (48, 3), (64, 4)])
+def test_forward_walk_block_counts(cuda, B, per):
+    """K4 / K8's launches report their CUDA blocks: ceil(groups / 8)
+    blocks of 8 warps per pixel block, a group being 16 x 8 pixels."""
+    assert cb.blend_fwd_blocks(40, B) == 40 * per
 
 
 @pytest.mark.parametrize("B,per", [(16, 1), (32, 1), (48, 3), (64, 4)])

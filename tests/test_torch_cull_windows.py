@@ -129,3 +129,86 @@ def test_window_box_empty_where_the_peak_is_below_alpha_min():
     assert bool(m.any())
     assert bool((xl[0, m] == np.inf).all())
     assert not bool(gate[0, m].any())
+
+
+def sequential_walk(F, counts, B, t_min, alpha_min, cull):
+    """The forward blend of windows F (nb, 16, K) walked one candidate at a
+    time, front to back, as kernels K4 / K8 walk them: blend state (nb, 8,
+    P).  A pixel takes the twins' gate and update for each candidate j <
+    count until its T would fall below t_min; with ``cull`` it skips the
+    candidates whose ``window_boxes`` box misses it before the gate."""
+    nb, _, K = F.shape
+    P, dev = B * B, F.device
+    mono = cb._monomials(B, dev)
+    pix = torch.arange(P, device=dev)
+    px, py = (pix % B).float(), (pix // B).float()
+    xl, xh, yl, yh = cb.window_boxes(F, B, alpha_min)
+    rgb = torch.zeros((nb, 3, P), device=dev)
+    T = torch.ones((nb, P), device=dev)
+    done = torch.zeros((nb, P), dtype=torch.bool, device=dev)
+    last = torch.zeros((nb, P), device=dev)
+    live = torch.arange(K, device=dev)[None, :] < counts[:, None]
+    for j in range(K):
+        power = cb._power(F[:, :, j:j + 1], mono)[:, 0]     # (nb, P)
+        alpha = torch.clamp_max(torch.exp(power), 0.99)
+        step = (live[:, j:j + 1] & ~done & (power <= F[:, 6, j:j + 1])
+                & (alpha >= alpha_min))
+        if cull:
+            step &= ((xl[:, j:j + 1] <= px) & (px <= xh[:, j:j + 1])
+                     & (yl[:, j:j + 1] <= py) & (py <= yh[:, j:j + 1]))
+        T_after = T * (1.0 - alpha)
+        stop = step & (T_after < t_min)
+        take = step & ~stop
+        w = T * alpha
+        rgb = torch.where(take[:, None], rgb + F[:, 8:11, j:j + 1] * w[:, None],
+                          rgb)
+        T = torch.where(take, T_after, T)
+        last = torch.where(take, float(j + 1), last)
+        done = done | stop
+    out = torch.zeros((nb, 8, P), device=dev)
+    out[:, 0:3] = rgb
+    out[:, 3] = T
+    out[:, 4] = done.float()
+    out[:, 5] = last
+    return out
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("seed,B", [(10, 16), (11, 32), (12, 64), (13, 80)])
+def test_culled_forward_walk_is_the_unculled_walk(seed, B, packed):
+    """K4 / K8's cull: a sequential forward walk that skips every pair
+    outside the candidate's box gives the unculled walk's rgb, T, done and
+    last bit for bit (a culled pair is one the gate rejects), on crafted
+    windows in the padded and the packed addressing; both agree with the
+    chunked twins within their tolerance."""
+    # t_min 1e-2: enough pixels stop within the window at every block size
+    K, C, t_min = 256, 64, 1e-2
+    F, _ = crafted_windows(B, nb=3, K=K, seed=seed)
+    counts = torch.tensor([K, 200, 40], dtype=torch.int32)
+    for b, c in enumerate(counts.tolist()):
+        F[b, 6, c:] = cb.NEG  # past a window's count: dead, as built
+    meta = cb.BlendMeta(C, B, t_min, ALPHA_MIN, K // C)
+    if packed:
+        # the windows back to back at C-aligned offsets, with a tail of
+        # columns no block owns, walked through the packed addressing
+        aligned = [-(-c // C) * C for c in counts.tolist()]
+        offs = torch.tensor(np.concatenate([[0], np.cumsum(aligned)[:-1]]),
+                            dtype=torch.int32)
+        Fp = torch.zeros((16, sum(aligned) + C))
+        for b, (o, a) in enumerate(zip(offs.tolist(), aligned)):
+            Fp[:, o:o + a] = F[b, :, :a]
+        cols, _ = cb._packed_windows(counts, offs, Fp.shape[1], meta)
+        Fw = Fp[:, cols].transpose(0, 1)
+        twin = cb.blend_packed_ref(counts, offs, Fp, meta)
+    else:
+        Fw = F
+        twin = cb.blend_core_ref(counts, F, meta)
+    plain = sequential_walk(Fw, counts, B, t_min, ALPHA_MIN, cull=False)
+    culled = sequential_walk(Fw, counts, B, t_min, ALPHA_MIN, cull=True)
+    assert torch.equal(culled, plain)
+    # the walk blends, stops some pixels and leaves others open
+    assert float(plain[:, 5].max()) > 20
+    assert 0 < int(plain[:, 4].sum()) < plain[:, 4].numel()
+    assert float((plain[:, 0:4] - twin[:, 0:4]).abs().max()) <= 2e-3
+    assert float((plain[:, 4] != twin[:, 4]).float().mean()) <= 1e-3
+    assert float((plain[:, 5] != twin[:, 5]).float().mean()) <= 1e-3
