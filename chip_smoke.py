@@ -87,13 +87,14 @@ FIT_SUBSTEPS = 30
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # a kernel row's numbers beyond the required keys, copied into the kernels
-# line: K1 at the fit's shapes and its blocks, K3's cull, K4/K5 per tier,
-# the reverse walks' blocks, cull, all-walked bound, depth and rerun
-ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "variants",
-              "fit_ms", "fit_plain_ms", "fit_bound_ms", "fit_bound_by",
-              "fit_share", "fit_max_abs_err", "fit_rel_err", "fit_blocks",
-              "fit_variants", "culled_share", "bound_all_walked_ms",
-              "kept_pairs", "bit_equal", "depth_max", "depth_mean")
+# line: the share of the bound, K1 and K2 at the fit's shapes and their
+# blocks, K3's cull, K4/K5 per tier, the culled walks' blocks, cull,
+# all-walked bound, depth and rerun
+ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "fit_ms",
+              "fit_plain_ms", "fit_bound_ms", "fit_bound_by", "fit_share",
+              "fit_max_abs_err", "fit_rel_err", "fit_blocks",
+              "culled_share", "bound_all_walked_ms", "kept_pairs",
+              "bit_equal", "depth_max", "depth_mean")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -222,51 +223,6 @@ def p2g_phase(ts, sig, grid, tc, dt, label):
         blocks=int(live.sum()))
 
 
-# K2's variants (mode 0 stage per chunk, 1 L1 gathers, 2 bulk copy per
-# run; chunks a block; blocks per SM of the launch bound; rows read early;
-# the separable contraction)
-G2P_VARIANTS = ((0, 1, 1, 0, 0), (0, 1, 2, 1, 0), (2, 2, 1, 0, 0),
-                (2, 1, 2, 1, 0), (2, 2, 2, 1, 0), (2, 4, 2, 1, 0),
-                (2, 2, 2, 0, 1), (2, 2, 2, 1, 1), (2, 2, 3, 0, 1),
-                (2, 2, 3, 1, 1), (2, 1, 3, 1, 1), (2, 2, 4, 0, 1))
-
-
-def g2p_variants(ts, ext, grid, tc, dt, q_r, scale, cont):
-    """K2's variants (gsmpm_g2p_variant), each held against the twin as K2
-    is and timed: {name: (rel err, ms)}."""
-    import ctypes
-
-    from gsmpm_tpu_torch.sim import cuda_mpm
-    from gsmpm_tpu_torch.utils import build
-
-    lib = cuda_mpm._lib()
-    fn = lib.gsmpm_g2p_variant
-    VP, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [I, I, I, I, I, VP, VP, VP, VP, VP, I, I, I, I, I, Fl,
-                   Fl, VP]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(ts.q)
-
-    def run(v):
-        err = fn(*v, ts.q.data_ptr(), ext.data_ptr(),
-                 ts.chunk_tile.data_ptr(), ts.chunk_live.data_ptr(),
-                 out.data_ptr(), tc.np_rows, tc.nchunk, tc.nt, tc.S,
-                 tc.n_grid, grid.inv_dx, dt,
-                 torch.cuda.current_stream().cuda_stream)
-        build.check(lib, err, f"g2p variant {v}")
-
-    res = {}
-    for v in G2P_VARIANTS:
-        run(v)
-        torch.cuda.synchronize()
-        rel = float(((out - q_r).abs().to(torch.float64).amax(dim=1)
-                     / scale)[cont].max())
-        check(rel <= 1e-5, f"K2 variant {v}: relative err {rel}")
-        res["mode %d run %d minb %d early %d sep %d" % v] = (
-            rel, cuda_ms(lambda: run(v), 20))
-    return res
-
-
 def g2p_phase(ts, ext, grid, tc, dt, label):
     """K2 against its twin on one tiled state and its velocity blocks, its
     time and its bound.  Returns (its kernels-table row, drift flags
@@ -319,17 +275,16 @@ def g2p_phase(ts, ext, grid, tc, dt, label):
     # per real particle
     b2 = bound_ms(tc.np_rows * (18 + 40) * 4 + occupied * 192 * 64 * 4,
                   n_real * 1900.0)
-    variants = g2p_variants(ts, ext, grid, tc, dt, q_r, scale, cont)
     live = ts.chunk_live == 1
     per_tile = torch.bincount(ts.chunk_tile[live].to(torch.int64),
                               minlength=tc.ntiles)
+    blocks = cuda_mpm.g2p_blocks(tc.nchunk)
     print(f"K2 g2p ({label}): {n_real} particles in {int(live.sum())} live "
           f"chunks of {occupied} tiles (densest {int(per_tile.max())} "
-          f"chunks), {tc.nchunk} chunks: {ms2:.4f} ms (plain {pms2:.3f}, "
+          f"chunks), {tc.nchunk} chunks in {blocks} CUDA blocks: "
+          f"{ms2:.4f} ms (plain {pms2:.3f}, "
           f"bound {b2[0]:.4f} {b2[1]}, share {b2[0] / ms2:.3f}); drift flags "
-          f"differing {drift_mismatch}; variants "
-          + ", ".join(f"{k} {v[1]:.4f} ms (rel err {v[0]:.3g})"
-                      for k, v in variants.items()), flush=True)
+          f"differing {drift_mismatch}", flush=True)
     return dict(
         name="g2p_tiled", route="cuda",
         source="gsmpm_tpu_torch/csrc/mpm_transfer.cu",
@@ -337,7 +292,7 @@ def g2p_phase(ts, ext, grid, tc, dt, label):
         max_abs_err=err2, rel_err=rel2, tol="1e-5 x max per row group",
         ms=ms2, plain_ms=pms2, bound_ms=b2[0], bound_by=b2[1],
         library_ms=None, wrapper=cuda_mpm.g2p_tiled, occupied=occupied,
-        variants=variants), drift_mismatch
+        blocks=blocks), drift_mismatch
 
 
 def kernel_phases(dev):
@@ -572,38 +527,6 @@ def fwd_window_cull(F, counts, out, meta, chunk=256):
                 kept_pairs=float(kept), depth_max=float(depth.max()),
                 depth_mean=float(depth.mean()),
                 read_cols=float(depth.to(torch.float64).sum()))
-
-
-def fwd_variants(counts, F, meta, out_k):
-    """K4's variants (gsmpm_blend_fwd_variant) on the same windows: {name:
-    (equal to K4's bits, ms)}."""
-    import ctypes
-
-    from gsmpm_tpu_torch.render import cuda_blend as cb
-    from gsmpm_tpu_torch.utils import build
-
-    lib = cb._lib()
-    fn = lib.gsmpm_blend_fwd_variant
-    VP, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [I, VP, VP, VP, I, I, I, Fl, Fl, VP]
-    fn.restype = ctypes.c_int
-    nb, _, K = F.shape
-    out = torch.empty_like(out_k)
-
-    def run(v):
-        err = fn(v, counts.data_ptr(), F.data_ptr(), out.data_ptr(), nb, K,
-                 meta.B, meta.t_min, meta.alpha_min,
-                 torch.cuda.current_stream().cuda_stream)
-        build.check(lib, err, f"blend_fwd variant {v}")
-
-    res = {}
-    for name, v in (("first design", 0), ("private staging", 1),
-                    ("cluster staging", 2)):
-        run(v)
-        torch.cuda.synchronize()
-        res[name] = (bool(torch.equal(out, out_k)), cuda_ms(lambda: run(v),
-                                                            20))
-    return res
 
 
 def k7_cull(splanes, bounds, out, nbx, B, alpha_min, chunk=2048):
@@ -1023,9 +946,6 @@ def blend_phases(dev, ident, first):
         bits4 = torch.equal(out_k, cb.blend_fwd(counts, F, meta))
         check(bits4, f"K4 {tier}: two launches differ")
         ms4 = cuda_ms(lambda: cb.blend_fwd(counts, F, meta), 20)
-        var4 = fwd_variants(counts, F, meta, out_k)
-        check(var4["first design"][0],
-              f"K4 {tier}: not the first design's bits")
         cull4 = fwd_window_cull(F, counts, out_k, meta)
         pms4 = cuda_ms(lambda: cb.blend_core_ref(counts, F, meta), 1, 1)
         ms5 = cuda_ms(lambda: cb.blend_bwd(F, out_k, g, meta), 20)
@@ -1067,7 +987,7 @@ def blend_phases(dev, ident, first):
                            blocks5=cb.blend_bwd_blocks(nb, meta.B),
                            bits5=bits5, blocks4=cb.blend_fwd_blocks(
                                nb, meta.B), bits4=bits4, b4_all=b4_all,
-                           cull4=cull4, var4=var4, **cull5)
+                           cull4=cull4, **cull5)
         print(f"K4/K5 {tier}: {nb} blocks x K {K} ({live_cols:.0f} live "
               f"candidates): K4 max err {err4:.3g}, done differ "
               f"{done_diff:.3g}, last differ {last_diff:.3g}, "
@@ -1077,10 +997,8 @@ def blend_phases(dev, ident, first):
               f"{tiers[tier]['blocks4']} CUDA blocks, "
               f"{cull4['culled_share']:.4f} of the (candidate, group) pairs "
               f"culled, forward walk depth max {cull4['depth_max']:.0f} mean "
-              f"{cull4['depth_mean']:.0f}, rerun bit-equal {bits4}; variants "
-              + ", ".join(f"{k} {v[1]:.4f} ms (K4's bits {v[0]})"
-                          for k, v in var4.items())
-              + "); K5 rel err "
+              f"{cull4['depth_mean']:.0f}, rerun bit-equal {bits4}); K5 rel "
+              "err "
               + ", ".join(f"{k} {v:.3g}" for k, v in rel5.items())
               + f", {ms5:.4f} ms (plain {pms5:.2f}, bound {b5[0]:.4f} "
               f"{b5[1]}, all-walked bound {b5_all[0]:.4f}; {pairs5:.4g} "
@@ -1113,7 +1031,7 @@ def blend_phases(dev, ident, first):
              max(v["err4"] for v in tiers.values()), "ms4", "pms4", "b4",
              "pairs4", "gsmpm_tpu/render/pallas_blend.py:136",
              "2e-3 abs on rgb/T",
-             extra=("blocks4", "cull4", "b4_all", "bits4", "var4"))
+             extra=("blocks4", "cull4", "b4_all", "bits4"))
     r4.update(blocks=sum(v["blocks4"] for v in tiers.values()),
               bound_all_walked_ms=sum(v["b4_all"][0] for v in tiers.values()),
               bit_equal=all(v["bits4"] for v in tiers.values()),
@@ -1702,7 +1620,7 @@ def main() -> int:
     for r, fit_row in zip(rows[:2], transfer_fit_phases(dev, ident, first)):
         r.update({f"fit_{k}": fit_row[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "rel_err", "blocks", "variants") if k in fit_row})
+            "rel_err", "blocks") if k in fit_row})
     fit["small_parity"] = small_fit_parity(dev)
     del ident, first
     torch.cuda.empty_cache()

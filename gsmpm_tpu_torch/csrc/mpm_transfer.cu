@@ -24,11 +24,16 @@
 //   K2 must read 18 rows of every slot (x and the copied rows: F, mass,
 //   vol, yield, padding; 284,672 slots) and the occupied tiles' velocity
 //   blocks, and write all 40 rows: ~69 MB, 21 us.  ~1,900 flops per
-//   particle is 5.6 us, so the bound is bytes.
+//   particle (the 27-node form's count) is 5.6 us, so the bound is bytes.
 // What holds K1 back is not the bytes but 108 shared-memory float atomics
 // per particle (27 nodes x 4 components).  With one block per tile (the
 // port's first design) a dense scene put ~46 chunks of one tile through one
 // block on one SM: the fit's 21 occupied tiles used 21 of 132 SMs.
+// What held K2 back was neither the bytes nor the staging: its first
+// design (a block per chunk copying its tile's 48 KB block into shared
+// memory through registers) used 251 registers a thread, so one 256-thread
+// block ran per SM and nothing hid the latency of the copy, the gathers
+// and the row loads and stores (PERF.md, section 6).
 //
 // Design.  The TPU kernels expand the separable B-spline stencil into dense
 // pair-table matmuls because the TPU has no scatter; a GPU has fast
@@ -53,10 +58,24 @@
 //       order, so the kernel is NOT deterministic: results agree with the
 //       twin to ~1e-6 of the window's largest entry, not bitwise, and may
 //       differ in the last bits between runs.
-//   K2: one block per chunk stages its tile's (192, 64) block (48 KB) in
-//       shared memory; one thread per particle gathers its 27 nodes, then
+//   K2: one 256-thread block per two consecutive chunks, two blocks an SM
+//       (127 registers a thread, no spills).  The chunks of a tile are
+//       consecutive (chunk_tile is non-decreasing), so a block bulk-copies
+//       its tile's (192, 64) block (48 KB) into shared memory once with
+//       cp.async.bulk on an mbarrier (again only where the tile changes),
+//       and each thread forms its particle's stencils while the copy is
+//       in flight.  One thread per particle then gathers its 27 nodes as a
+//       separable contraction (over z, then y, then x, per component) and
 //       writes every q row (advected x, v, C, F_trial, drift flag; other
-//       rows copied).  Dead chunks copy q through.
+//       rows copied).  Dead chunks pass q through with float4 copies.
+//       Measured and dropped (PERF.md, section 6): gathers from global
+//       memory through L1 without staging (no faster than staging per
+//       chunk: a chunk's particles are in random order, so a warp's
+//       gather touches up to 32 lines), 4 or 8 chunks a block (too few
+//       blocks to fill the card), a cap of 80 or 64 registers (spills),
+//       loading the F and copied rows before the copy lands (more
+//       registers; slower with the separable form), and the 27-node sum
+//       at 128 registers (3-8% slower than the separable form).
 // The domain clamp folds stencil slots as clip(torg + k, PAD_LO,
 // PAD_LO + g - 1) - torg, the scatter form of the JAX _clamp_bases.
 
@@ -112,10 +131,11 @@ __device__ __forceinline__ int win_x(int i) { return (i >> 3) * 8192 + (i & 7) *
 __device__ __forceinline__ int win_y(int j) { return (j >> 3) * 4096 + (j & 7) * 8; }
 __device__ __forceinline__ int win_z(int k) { return (k >> 3) * 2048 + (k & 7); }
 
-__device__ __forceinline__ int ext_index(int i, int j, int k, int comp) {
-  int oct = (i >> 3) * 4 + (j >> 3) * 2 + (k >> 3);
-  return ((oct * 24 + comp * 8 + (i & 7)) << 6) + ((j & 7) << 3) + (k & 7);
-}
+// The same for the G2P block's rows oct*24 + comp*8 + (i&7); component comp
+// adds comp * 8 * 64.
+__device__ __forceinline__ int ext_x(int i) { return (i >> 3) * 6144 + (i & 7) * 64; }
+__device__ __forceinline__ int ext_y(int j) { return (j >> 3) * 3072 + (j & 7) * 8; }
+__device__ __forceinline__ int ext_z(int k) { return (k >> 3) * 1536 + (k & 7); }
 
 // ---- K1: one block per live chunk ---------------------------------------
 
@@ -202,38 +222,22 @@ p2g_kernel(const float* __restrict__ q, const float* __restrict__ sig,
   }
 }
 
-// ---- K2: gathers from the tile's velocity block ---------------------------
+// ---- K2: a block per two chunks, its tile's block bulk-copied once -------
 
-// A slot's position and stencils, read before its tile's block is needed;
-// with EARLY also its F, mass and copied rows
+constexpr int G2P_RUN = 2;  // chunks a K2 block takes
+
+// A slot's position and stencils, formed while its tile's block lands
 struct G2PSlot {
   float x[3];
   Axis ax[3];
-  float F[9], cp[QROWS - RMASS];
 };
 
-template <bool EARLY>
-__device__ __forceinline__ void g2p_stencils(const float* __restrict__ q,
-                                             int p, int NP, const int* torg,
-                                             int g, float inv_dx,
-                                             G2PSlot& s) {
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    s.x[d] = q[(RX + d) * NP + p];
-    axis_stencil(s.x[d], torg[d], inv_dx, g, s.ax[d]);
-  }
-  if (EARLY) {
-#pragma unroll
-    for (int i = 0; i < 9; ++i) s.F[i] = q[(RF + i) * NP + p];
-#pragma unroll
-    for (int r = RMASS; r < QROWS; ++r)
-      s.cp[r - RMASS] = r == RDRIFT ? 0.0f : q[(size_t)r * NP + p];
-  }
-}
-
-// Slot p's gathers from blk (its tile's (192, 64) block: shared memory, or
-// global memory read through L1 when GLOBAL), then every q row of it.
-template <bool GLOBAL, bool EARLY>
+// The separable gathers of slot p from blk, its tile's (192, 64) block in
+// shared memory, then every q row of it.  Per component the 27 nodes are
+// contracted over z, then y, then x (147 multiply-adds where the 27-node
+// sum takes 567 and 270 weight products), axis_stencil's dw and u are
+// formed from the fraction fx where they are used, and the APIC rows are
+// written per component: 127 registers, two blocks an SM.
 __device__ __forceinline__ void g2p_slot(const G2PSlot& s,
                                          const float* __restrict__ blk,
                                          const float* __restrict__ q,
@@ -241,96 +245,13 @@ __device__ __forceinline__ void g2p_slot(const G2PSlot& s,
                                          int NP, const int* torg, int g,
                                          float inv_dx, float dt) {
   const Axis* ax = s.ax;
-  float v[3] = {0.f, 0.f, 0.f};
-  float grad[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  float Cn[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-#pragma unroll
-      for (int cz = 0; cz < 3; ++cz) {
-        const float wyz = ax[1].w[b] * ax[2].w[cz];
-        const float wxz = ax[0].w[a] * ax[2].w[cz];
-        const float wxy = ax[0].w[a] * ax[1].w[b];
-        const float w = ax[0].w[a] * wyz;
-        const int base = ext_index(ax[0].slot[a], ax[1].slot[b], ax[2].slot[cz], 0);
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          const float G = GLOBAL ? __ldg(blk + base + r * 8 * 64)
-                                 : blk[base + r * 8 * 64];
-          v[r] += w * G;
-          grad[r][0] += ax[0].dw[a] * wyz * G;
-          grad[r][1] += ax[1].dw[b] * wxz * G;
-          grad[r][2] += ax[2].dw[cz] * wxy * G;
-          Cn[r][0] += ax[0].u[a] * wyz * G;
-          Cn[r][1] += ax[1].u[b] * wxz * G;
-          Cn[r][2] += ax[2].u[cz] * wxy * G;
-        }
-      }
-    }
-  }
-  const float coef = 4.0f * inv_dx;
-  const bool valid = (EARLY ? s.cp[0] : q[RMASS * NP + p]) > 0.0f;
-  bool drift = false;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float nx = valid ? s.x[d] + dt * v[d] : s.x[d];
-    q_out[(RX + d) * NP + p] = nx;
-    q_out[(RV + d) * NP + p] = valid ? v[d] : 0.0f;
-    const float gp = nx * inv_dx;
-    const int basep =
-        (int)fminf(fmaxf(floorf(gp - 0.5f), -1.0f), (float)(g - 1)) + PAD_LO;
-    const int local = basep - torg[d];
-    drift = drift || local < SAFE_MIN || local > SAFE_MAX;
-  }
-  float F[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) F[i] = EARLY ? s.F[i] : q[(RF + i) * NP + p];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-#pragma unroll
-    for (int cc = 0; cc < 3; ++cc) {
-      q_out[(RC + 3 * r + cc) * NP + p] = valid ? coef * Cn[r][cc] : 0.0f;
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float gk = grad[r][k] * dt + (k == r ? 1.0f : 0.0f);
-        acc += gk * F[3 * k + cc];
-      }
-      q_out[(RFT + 3 * r + cc) * NP + p] = valid ? acc : F[3 * r + cc];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 9; ++i) q_out[(RF + i) * NP + p] = F[i];
-  q_out[RDRIFT * NP + p] = (valid && drift) ? 1.0f : 0.0f;
-#pragma unroll
-  for (int row = RMASS; row < QROWS; ++row)
-    if (row != RDRIFT)
-      q_out[(size_t)row * NP + p] =
-          EARLY ? s.cp[row - RMASS] : q[(size_t)row * NP + p];
-}
-
-// The separable form of g2p_slot: per component, the gathers contracted
-// over z, then y, then x (147 multiply-adds where the 27-node form takes
-// 567 and 270 weight products), dw and u formed from the fraction fx when
-// they are used, and the APIC rows written per component.
-template <bool EARLY>
-__device__ __forceinline__ void g2p_slot_sep(const G2PSlot& s,
-                                             const float* __restrict__ blk,
-                                             const float* __restrict__ q,
-                                             float* __restrict__ q_out,
-                                             int p, int NP, const int* torg,
-                                             int g, float inv_dx, float dt) {
-  const Axis* ax = s.ax;
-  int off[3][3];
+  int off[3][3];  // the block index's term of stencil node k per axis
   float fx[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const int i = ax[0].slot[k], j = ax[1].slot[k], l = ax[2].slot[k];
-    off[0][k] = (i >> 3) * 6144 + (i & 7) * 64;
-    off[1][k] = (j >> 3) * 3072 + (j & 7) * 8;
-    off[2][k] = (l >> 3) * 1536 + (l & 7);
+    off[0][k] = ext_x(ax[0].slot[k]);
+    off[1][k] = ext_y(ax[1].slot[k]);
+    off[2][k] = ext_z(ax[2].slot[k]);
   }
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -345,7 +266,7 @@ __device__ __forceinline__ void g2p_slot_sep(const G2PSlot& s,
   };
   auto uu = [&](int d, int k) { return ax[d].w[k] * ((float)k - fx[d]); };
   const float coef = 4.0f * inv_dx;
-  const bool valid = (EARLY ? s.cp[0] : q[RMASS * NP + p]) > 0.0f;
+  const bool valid = q[RMASS * NP + p] > 0.0f;
   float v[3], grad[3][3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -400,7 +321,7 @@ __device__ __forceinline__ void g2p_slot_sep(const G2PSlot& s,
   }
   float F[9];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) F[i] = EARLY ? s.F[i] : q[(RF + i) * NP + p];
+  for (int i = 0; i < 9; ++i) F[i] = q[(RF + i) * NP + p];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
 #pragma unroll
@@ -417,11 +338,8 @@ __device__ __forceinline__ void g2p_slot_sep(const G2PSlot& s,
 #pragma unroll
   for (int i = 0; i < 9; ++i) q_out[(RF + i) * NP + p] = F[i];
   q_out[RDRIFT * NP + p] = (valid && drift) ? 1.0f : 0.0f;
-#pragma unroll
   for (int row = RMASS; row < QROWS; ++row)
-    if (row != RDRIFT)
-      q_out[(size_t)row * NP + p] =
-          EARLY ? s.cp[row - RMASS] : q[(size_t)row * NP + p];
+    if (row != RDRIFT) q_out[(size_t)row * NP + p] = q[(size_t)row * NP + p];
 }
 
 // A dead chunk's 40 rows passed through, 16 bytes a thread (S % 4 == 0)
@@ -437,7 +355,6 @@ __device__ __forceinline__ void g2p_pass(const float* __restrict__ q,
   }
 }
 
-// The mbarrier and bulk-copy (TMA) primitives of the staged variant
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
@@ -448,7 +365,7 @@ __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// One thread: expect `bytes` on bar and copy them from src into dst
+// One thread: expect `bytes` on bar and bulk-copy them (TMA) from src
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes,
                                           unsigned long long* bar) {
@@ -473,16 +390,8 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
   }
 }
 
-// How a block reaches its tile's velocity block
-enum G2PMode {
-  G2P_STAGE_CHUNK = 0,  // copy it into shared memory for every chunk
-  G2P_DIRECT = 1,       // gather from global memory through L1
-  G2P_STAGE_RUN = 2,    // bulk-copy it once per run of one tile's chunks
-};
-
-// Block i takes chunks [i R, i R + R).
-template <int MODE, int R, int MINB, bool EARLY, bool SEP>
-__global__ void __launch_bounds__(THREADS, MINB)
+// Block i takes chunks [i G2P_RUN, i G2P_RUN + G2P_RUN).
+__global__ void __launch_bounds__(THREADS, 2)
 g2p_kernel(const float* __restrict__ q, const float* __restrict__ ext,
            const int* __restrict__ chunk_tile,
            const int* __restrict__ chunk_live, float* __restrict__ q_out,
@@ -490,13 +399,11 @@ g2p_kernel(const float* __restrict__ q, const float* __restrict__ ext,
            float dt) {
   extern __shared__ __align__(128) float blk[];
   __shared__ __align__(8) unsigned long long bar;
-  if (MODE == G2P_STAGE_RUN) {
-    if (threadIdx.x == 0) mbar_init(&bar);
-    __syncthreads();
-  }
-  int staged = -1;
+  if (threadIdx.x == 0) mbar_init(&bar);
+  __syncthreads();
+  int staged = -1;  // the tile whose block blk holds
   unsigned phase = 0;
-  const int c0 = blockIdx.x * R, c1 = min(c0 + R, nchunk);
+  const int c0 = blockIdx.x * G2P_RUN, c1 = min(c0 + G2P_RUN, nchunk);
   for (int c = c0; c < c1; ++c) {
     if (chunk_live[c] != 1) {  // dead chunk: pass q through
       g2p_pass(q, q_out, c, NP, S);
@@ -505,55 +412,29 @@ g2p_kernel(const float* __restrict__ q, const float* __restrict__ ext,
     const int t = chunk_tile[c];
     const int torg[3] = {(t / (nt * nt)) * T_TILE, ((t / nt) % nt) * T_TILE,
                          (t % nt) * T_TILE};
-    const float* src = ext + (size_t)t * EXT_FLOATS;
-    bool fresh = false;
-    if (MODE == G2P_STAGE_CHUNK) {
-      if (R > 1) __syncthreads();  // the last chunk's gathers are done
-      const float4* s4 = reinterpret_cast<const float4*>(src);
-      float4* d4 = reinterpret_cast<float4*>(blk);
-      for (int i = threadIdx.x; i < EXT_FLOATS / 4; i += THREADS) d4[i] = s4[i];
-      __syncthreads();
-    } else if (MODE == G2P_STAGE_RUN && t != staged) {
-      fresh = true;
+    const bool fresh = t != staged;
+    if (fresh) {
       __syncthreads();  // every gather from the last tile's block is done
       if (threadIdx.x == 0)
-        bulk_load(blk, src, EXT_FLOATS * sizeof(float), &bar);
+        bulk_load(blk, ext + (size_t)t * EXT_FLOATS,
+                  EXT_FLOATS * sizeof(float), &bar);
     }
     for (int s = threadIdx.x; s < S; s += THREADS) {
       const int p = c * S + s;
       G2PSlot sl;
-      g2p_stencils<EARLY>(q, p, NP, torg, g, inv_dx, sl);
-      if (fresh) mbar_wait(&bar, phase);  // the copy lands meanwhile
-      if (SEP)
-        g2p_slot_sep<EARLY>(sl, blk, q, q_out, p, NP, torg, g, inv_dx, dt);
-      else
-        g2p_slot<MODE == G2P_DIRECT, EARLY>(
-            sl, MODE == G2P_DIRECT ? src : blk, q, q_out, p, NP, torg, g,
-            inv_dx, dt);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        sl.x[d] = q[(RX + d) * NP + p];
+        axis_stencil(sl.x[d], torg[d], inv_dx, g, sl.ax[d]);
+      }
+      if (fresh) mbar_wait(&bar, phase);  // the copy landed meanwhile
+      g2p_slot(sl, blk, q, q_out, p, NP, torg, g, inv_dx, dt);
     }
     if (fresh) {
       phase ^= 1u;
       staged = t;
     }
   }
-}
-
-template <int MODE, int R, int MINB = 1, bool EARLY = false,
-          bool SEP = false>
-cudaError_t g2p_launch(const float* q, const float* ext,
-                       const int* chunk_tile, const int* chunk_live,
-                       float* q_out, int NP, int nchunk, int nt, int S,
-                       int g, float inv_dx, float dt, cudaStream_t st) {
-  const int smem = MODE == G2P_DIRECT ? 0 : EXT_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      g2p_kernel<MODE, R, MINB, EARLY, SEP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  g2p_kernel<MODE, R, MINB, EARLY, SEP>
-      <<<(nchunk + R - 1) / R, THREADS, smem, st>>>(
-      q, ext, chunk_tile, chunk_live, q_out, NP, nchunk, nt, S, g, inv_dx,
-      dt);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -587,46 +468,31 @@ int gsmpm_p2g_tiled(const float* q, const float* sig, const int* chunk_tile,
   return cudaGetLastError();
 }
 
+// CUDA blocks of a K2 launch over nchunk chunks
+int gsmpm_g2p_blocks(int nchunk) {
+  return (nchunk + G2P_RUN - 1) / G2P_RUN;
+}
+
+// The chunks of a tile are consecutive (chunk_tile is non-decreasing), so a
+// block's two chunks mostly share one bulk copy.
 int gsmpm_g2p_tiled(const float* q, const float* ext, const int* chunk_tile,
                     const int* chunk_live, float* q_out, int NP, int nchunk,
                     int nt, int S, int g, float inv_dx, float dt,
                     void* stream) {
+  // 16-byte rows for the bulk copy and the dead chunks' float4 copies
   if (S % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0
       || reinterpret_cast<uintptr_t>(q_out) % 16 != 0
       || reinterpret_cast<uintptr_t>(ext) % 16 != 0)
     return cudaErrorMisalignedAddress;
-  return g2p_launch<G2P_STAGE_RUN, 2>(
+  const int smem = EXT_FLOATS * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      g2p_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  g2p_kernel<<<gsmpm_g2p_blocks(nchunk), THREADS, smem,
+               static_cast<cudaStream_t>(stream)>>>(
       q, ext, chunk_tile, chunk_live, q_out, NP, nchunk, nt, S, g, inv_dx,
-      dt, static_cast<cudaStream_t>(stream));
-}
-
-// K2's variants, timed against each other: mode (G2PMode), chunks per
-// block, the launch bound's blocks per SM, and the rows read early
-int gsmpm_g2p_variant(int mode, int R, int minb, int early, int sep,
-                      const float* q, const float* ext,
-                      const int* chunk_tile, const int* chunk_live,
-                      float* q_out, int NP, int nchunk, int nt, int S, int g,
-                      float inv_dx, float dt, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define G2P_VARIANT(M, RR, MB, E, SP)                                       \
-  if (mode == M && R == RR && minb == MB && early == E && sep == SP)        \
-    return g2p_launch<M, RR, MB, E, SP>(q, ext, chunk_tile, chunk_live,     \
-                                        q_out, NP, nchunk, nt, S, g,        \
-                                        inv_dx, dt, st);
-  G2P_VARIANT(G2P_STAGE_CHUNK, 1, 1, false, false)
-  G2P_VARIANT(G2P_STAGE_CHUNK, 1, 2, true, false)
-  G2P_VARIANT(G2P_STAGE_RUN, 2, 1, false, false)
-  G2P_VARIANT(G2P_STAGE_RUN, 1, 2, true, false)
-  G2P_VARIANT(G2P_STAGE_RUN, 2, 2, true, false)
-  G2P_VARIANT(G2P_STAGE_RUN, 4, 2, true, false)
-  G2P_VARIANT(G2P_STAGE_RUN, 2, 2, false, true)
-  G2P_VARIANT(G2P_STAGE_RUN, 2, 2, true, true)
-  G2P_VARIANT(G2P_STAGE_RUN, 2, 3, false, true)
-  G2P_VARIANT(G2P_STAGE_RUN, 2, 3, true, true)
-  G2P_VARIANT(G2P_STAGE_RUN, 1, 3, true, true)
-  G2P_VARIANT(G2P_STAGE_RUN, 2, 4, false, true)
-#undef G2P_VARIANT
-  return cudaErrorInvalidValue;
+      dt);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

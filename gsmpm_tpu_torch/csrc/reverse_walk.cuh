@@ -227,7 +227,8 @@ __device__ __forceinline__ bool walk_slot(Lane& ln, int idx1,
 
 // The warp's list, in slot order, of the staged slots j < jmax whose box
 // (x lo, x hi, y lo, y hi) meets its 16 x 8 group at (rx0, ry0); returns
-// its length.  K3 (csrc/stream_raster.cu) lists its slots the same way.
+// its length.  The forward walks K3 (csrc/stream_raster.cu) and K4 / K8
+// (csrc/tile_blend.cu) list their slots the same way.
 __device__ __forceinline__ int warp_list(const float* xl, const float* xh,
                                          const float* yl, const float* yh,
                                          int jmax, float rx0, float ry0,

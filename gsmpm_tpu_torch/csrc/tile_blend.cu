@@ -37,20 +37,42 @@
 // evaluates candidates until it is done (forward) or back from its last
 // contributor (backward).  Each (candidate, pixel) pair is >= 20 fp32
 // operations forward; backward >= 16 (the gate) for every pair evaluated
-// and >= 33 more for a contributing one; K5 / K9 skip the pairs outside
-// the candidate's box (below) with a few compares, so their bound charges
-// the gate to the walked pairs inside it.  The bytes (F once, out / g / dF
-// once) are small, so both are bound by operations; chip_smoke.py counts
-// the pairs of each run from the kernels' own outputs, the contributing
-// ones by the forward's gates.
+// and >= 33 more for a contributing one.  All four skip the pairs outside
+// the candidate's box (below) with a few compares, so their bounds charge
+// the gate to the walked pairs inside it; K4 / K8 must read the F rows of
+// the candidates before each window's depth (where its last pixel stops).
+// So counted, the bytes (F once, out / g / dF once) set the bounds;
+// chip_smoke.py counts the pairs of each run from the kernels' own
+// outputs, the contributing ones by the forward's gates.  What holds the
+// walks back is one window's depth: a window is walked in order, so the
+// deepest (the fit's central one: 23,199 candidates, 91 steps of 256)
+// sets the launch's time while most blocks have finished.
 //
 // Design.
-//   K4: grid (nblocks, (B/16)^2): one 256-thread block per 16x16 sub-tile,
-//       one pixel per thread, 256 candidates (10 rows) staged in shared
-//       memory per step, front to back per pixel, block exit on
-//       __syncthreads_and(done).  This is the TPU kernel's stop rule (a
+//   K4: the forward walk of K3 (csrc/stream_raster.cu) on a candidate
+//       window.  A warp per 16 x 8 pixel group (a lane: one column, 4 rows),
+//       8 warps a CUDA block, ceil(groups / 8) independent CUDA blocks per
+//       pixel block (160 on the fit's 40 tier-2 windows).  Each CUDA block
+//       stages 256 candidates a step, one per thread: its 10 used F rows
+//       (loaded during the previous step's walk) and the box window_box
+//       derives from them.  A warp lists by ballot the staged candidates
+//       whose box meets its group and walks them front to back; a lane
+//       skips a candidate whose box misses its pixel before the power and
+//       the exp, and a block leaves the window when all its pixels are
+//       done.  A culled pair is one the gate rejects, so each pixel meets
+//       its contributors in the same order with the same expressions:
+//       rgb, T, done and last are the unculled walk's, bit for bit (K5
+//       walks back from that last).  This is the TPU kernel's stop rule (a
 //       pixel is done at the first candidate whose T_after falls below
 //       t_min) evaluated sequentially instead of with a chunked cumprod.
+//       Measured and dropped (PERF.md, section 6): the first design (one
+//       256-thread block per 16 x 16 sub-tile, every pixel taking the gate
+//       of every candidate, each candidate staged 16 times a 64-pixel
+//       window), 5.2x slower at the fit's tier 2; the CUDA blocks of a
+//       pixel block as a cluster staging each step once, each a share
+//       pushed into every block's shared memory (one cluster barrier a
+//       step, and the cluster leaves the window only when all its blocks
+//       are done), 44% slower at tier 2.
 //   K5: the reverse walk of csrc/reverse_walk.cuh over a candidate
 //       window.  Each pixel block is a cluster of ceil(groups / 8) CUDA
 //       blocks of 8 warps, one warp per 16 x 8 pixel group (4 blocks at B =
@@ -74,7 +96,8 @@
 //   K8 / K9: the same two kernels on the packed addressing (window_of):
 //       block b reads F columns offs[b] + j, walks n_live chunks of C like
 //       the TPU kernels, and keeps its last-contributor index local to its
-//       slice, as _blend_kernel_packed does.
+//       slice, as _blend_kernel_packed does; on the same windows K8 gives
+//       K4's bits and K9 K5's.
 // The power term is summed in the twin's order and this file is built with
 // --fmad=false, so power and the gating decisions round as the twin's.
 
@@ -86,9 +109,8 @@
 
 namespace {
 
-constexpr int OLD_THREADS = 256;   // 16 x 16 pixels (variant)
 constexpr int CH = 256;            // candidates staged per forward step
-constexpr int FWD_THREADS = rwalk::NW * 32;  // K4 / K8: one staged column each
+constexpr int FWD_THREADS = rwalk::NW * 32;  // K4 / K8: 8 pixel groups
 static_assert(FWD_THREADS == CH, "K4 stages one candidate per thread");
 constexpr int NROW = 10;           // staged F rows: 0..6 and 8..10
 
@@ -120,74 +142,6 @@ __device__ __forceinline__ Window window_of(int b, const int* counts,
   }
   w.count = counts ? min(counts[b], w.width) : w.width;
   return w;
-}
-
-__device__ __forceinline__ float power_of(float (*sF)[CH], int j,
-                                          float pxx, float px, float pyy,
-                                          float py, float pxy) {
-  float power = sF[0][j] * pxx;
-  power = power + sF[1][j] * px;
-  power = power + sF[2][j];
-  power = power + sF[3][j] * pyy;
-  power = power + sF[4][j] * py;
-  power = power + sF[5][j] * pxy;
-  return power + sF[6][j];
-}
-
-template <bool PACKED>
-__global__ void __launch_bounds__(OLD_THREADS)
-blend_fwd_old_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
-                 const float* __restrict__ F, float* __restrict__ out, int K,
-                 int C, int n_chunks, int B, float t_min, float alpha_min) {
-  __shared__ float sF[NROW][CH];
-  const int b = blockIdx.x;
-  const int subs = B / 16;
-  const int sx = blockIdx.y % subs, sy = blockIdx.y / subs;
-  const int pxi = sx * 16 + (threadIdx.x & 15);
-  const int pyi = sy * 16 + (threadIdx.x >> 4);
-  const float px = (float)pxi, py = (float)pyi;
-  const float pxx = px * px, pyy = py * py, pxy = px * py;
-  const Window win = window_of<PACKED>(b, counts, offs, K, C, n_chunks);
-  const float* Fb = F + win.col0;
-  const int count = win.count;
-
-  float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, last = 0.0f;
-  bool done = false;
-  for (int base = 0; base < count; base += CH) {
-    if (__syncthreads_and(done)) break;
-    const int n = min(CH, count - base);
-    for (int i = threadIdx.x; i < NROW * CH; i += OLD_THREADS) {
-      const int r = i / CH, j = i % CH;
-      sF[r][j] = j < n ? Fb[frow(r) * win.ld + base + j] : 0.0f;
-    }
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        const float power = power_of(sF, j, pxx, px, pyy, py, pxy);
-        const float alpha = fminf(0.99f, expf(power));
-        if (!(power <= sF[6][j] && alpha >= alpha_min)) continue;
-        const float T_after = T * (1.0f - alpha);
-        if (T_after < t_min) { done = true; break; }
-        const float w = T * alpha;
-        cr += sF[7][j] * w;
-        cg += sF[8][j] * w;
-        cb += sF[9][j] * w;
-        T = T_after;
-        last = (float)(base + j + 1);
-      }
-    }
-    __syncthreads();  // the next step overwrites sF
-  }
-  const size_t P = (size_t)B * B;
-  float* o = out + (size_t)b * 8 * P + (size_t)pyi * B + pxi;
-  o[0 * P] = cr;
-  o[1 * P] = cg;
-  o[2 * P] = cb;
-  o[3 * P] = T;
-  o[4 * P] = done ? 1.0f : 0.0f;
-  o[5 * P] = last;
-  o[6 * P] = 0.0f;
-  o[7 * P] = 0.0f;
 }
 
 // The box, in block-local pixels, outside which the candidate of F rows
@@ -380,68 +334,6 @@ blend_fwd_kernel(const int* __restrict__ counts, const int* __restrict__ offs,
   fwd_store(ln, out + (size_t)b * 8 * B * B, B, lane);
 }
 
-// Variant: the blocks of a pixel block form a cluster and stage each step
-// once, each a share of its candidates pushed into every block's buffer
-// (double-buffered by step parity, one cluster barrier a step); the
-// cluster leaves the window when all its blocks are done.
-__global__ void __launch_bounds__(FWD_THREADS)
-blend_fwd_cluster_kernel(const int* __restrict__ counts,
-                         const float* __restrict__ F, float* __restrict__ out,
-                         int K, int B, float t_min, float alpha_min) {
-  __shared__ float st[2][NS][CH];
-  __shared__ unsigned char list[rwalk::NW][CH];
-  __shared__ int flag[2];
-  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
-  const int nranks = (int)cl.num_blocks(), rank = (int)cl.block_rank();
-  const int b = blockIdx.x / nranks;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  FwdLane ln;
-  fwd_lane(ln, rank * rwalk::NW + warp, B, lane);
-  const Window win = window_of<false>(b, counts, nullptr, K, 1, 0);
-  const float* Fb = F + win.col0;
-  const int count = win.count;
-  const float log_amin = logf(alpha_min) - 1e-3f;
-  const int share = (CH + nranks - 1) / nranks;
-  const int jj = rank * share + threadIdx.x;  // this thread's column
-  const bool stager = threadIdx.x < share && jj < CH;
-
-  float f[NROW];
-  load_rows(Fb, win.ld, stager ? jj : count, count, f);
-  for (int base = 0, step = 0; base < count; base += CH, ++step) {
-    const int q = step & 1;
-    const bool mine = ln.all_done();
-    const int bd = __syncthreads_and(mine);
-    if (threadIdx.x == 0) flag[q] = bd;
-    const int n = min(CH, count - base);
-    if (stager && jj < n) {
-      float box[4];
-      window_box(f, B, log_amin, box);
-      for (int s = 0; s < nranks; ++s) {
-        float (*o)[CH] = cl.map_shared_rank(st[q], s);
-#pragma unroll
-        for (int r = 0; r < NROW; ++r) o[r][jj] = f[r];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) o[NROW + r][jj] = box[r];
-      }
-    }
-    cl.sync();
-    bool all = true;
-    for (int s = 0; s < nranks; ++s) all = all && *cl.map_shared_rank(&flag[q], s);
-    if (all) break;
-    if (stager && base + CH < count)
-      load_rows(Fb, win.ld, base + CH + jj, count, f);
-    const int cnt = __all_sync(rwalk::FULL, mine)
-                        ? 0
-                        : rwalk::warp_list(st[q][10], st[q][11], st[q][12],
-                                           st[q][13], n, ln.rx0, ln.ry0,
-                                           list[warp], lane);
-    fwd_walk(ln, st[q], list[warp], cnt, base, t_min, alpha_min);
-    __syncwarp();
-  }
-  fwd_store(ln, out + (size_t)b * 8 * B * B, B, lane);
-  cl.sync();  // no block reads another's flags any more
-}
-
 constexpr int BWD_NS = NS;
 
 template <bool PACKED>
@@ -568,41 +460,6 @@ int gsmpm_blend_fwd(const int* counts, const float* F, float* out, int nb,
 
 // CUDA blocks of a K4 / K8 launch over nb pixel blocks of edge B
 int gsmpm_blend_fwd_blocks(int nb, int B) { return rwalk::grid_of(nb, B); }
-
-// K4's variants, timed against each other by chip_smoke.py: 0 the first
-// design (one block per 16 x 16 sub-tile, no cull), 1 the culled walk
-// with private staging (gsmpm_blend_fwd), 2 the culled walk staged once
-// per cluster
-int gsmpm_blend_fwd_variant(int variant, const int* counts, const float* F,
-                            float* out, int nb, int K, int B, float t_min,
-                            float alpha_min, void* stream) {
-  if (nb <= 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 0) {
-    const dim3 grid(nb, (B / 16) * (B / 16));
-    blend_fwd_old_kernel<false><<<grid, OLD_THREADS, 0, st>>>(
-        counts, nullptr, F, out, K, 1, 0, B, t_min, alpha_min);
-    return cudaGetLastError();
-  }
-  if (variant == 1)
-    return gsmpm_blend_fwd(counts, F, out, nb, K, B, t_min, alpha_min,
-                           stream);
-  if (variant != 2) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(rwalk::grid_of(nb, B));
-  cfg.blockDim = dim3(FWD_THREADS);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = rwalk::blocks_per(B);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, blend_fwd_cluster_kernel, counts,
-                                       F, out, K, B, t_min, alpha_min);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
 
 // CUDA blocks of a K5 / K9 launch over nb pixel blocks of edge B
 int gsmpm_blend_bwd_blocks(int nb, int B) { return rwalk::grid_of(nb, B); }

@@ -29,8 +29,8 @@ from gsmpm_tpu_torch.sim.tiles import (
 )
 from gsmpm_tpu_torch.utils import build
 
-__all__ = ["p2g_tiled", "g2p_tiled", "sored_tiled", "p2g_tiled_ref",
-           "g2p_tiled_ref"]
+__all__ = ["p2g_tiled", "g2p_tiled", "g2p_blocks", "sored_tiled",
+           "p2g_tiled_ref", "g2p_tiled_ref"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +45,8 @@ def _lib():
     lib.gsmpm_g2p_tiled.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _F, _VP]
     lib.gsmpm_g2p_tiled.restype = ctypes.c_int
+    lib.gsmpm_g2p_blocks.argtypes = [_I]
+    lib.gsmpm_g2p_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -108,6 +110,12 @@ def g2p_tiled(ts: TiledState, ext: torch.Tensor, grid: GridConfig,
     build.check(lib, err, "g2p_tiled")
     g2p_tiled.launches += 1
     return out
+
+
+def g2p_blocks(nchunk: int) -> int:
+    """CUDA blocks of one K2 launch over nchunk chunks, as the launch
+    computes them (two chunks a block)."""
+    return _lib().gsmpm_g2p_blocks(nchunk)
 
 
 def _sored_lib():

@@ -178,6 +178,13 @@ def test_g2p_kernel_dense_tiles(cuda):
     assert torch.equal(got[:, ~live], ts.q[:, ~live])
 
 
+@pytest.mark.parametrize("nchunk,blocks", [(1, 1), (2, 1), (1112, 556),
+                                           (1303, 652)])
+def test_g2p_block_counts(cuda, nchunk, blocks):
+    """K2's launches report their CUDA blocks: two chunks a block."""
+    assert cuda_mpm.g2p_blocks(nchunk) == blocks
+
+
 def test_wrappers_reject_bad_inputs(cuda, tmp_path):
     cfg, su, ts, sig = _first_substep_inputs(tmp_path)
     with pytest.raises(ValueError):

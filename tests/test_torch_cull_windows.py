@@ -1,4 +1,5 @@
-"""The cull of the windowed reverse walks (K5 / K9), on the CPU.
+"""The cull of the windowed blend walks (K4 / K8 forward, K5 / K9
+backward), on the CPU.
 
 csrc/tile_blend.cu skips a staged candidate for a warp's 16 x 8 pixel
 group, and for a pixel, when the candidate's box misses it; the box is
@@ -6,9 +7,10 @@ derived from the candidate's F rows alone (``cuda_blend.window_boxes``,
 the kernel's expressions in plain torch).  Every (candidate, pixel) pair
 that passes the blend gate must lie inside the box, or the kernel would
 drop a contributor; checked here against the twins' own gate on crafted
-windows built through ``cuda_blend._build_F``.  The kernels are held
-against their twins in tests/test_torch_cuda.py.  No JAX: the box has no
-counterpart in gsmpm_tpu.
+windows built through ``cuda_blend._build_F``, and a forward walk that
+skips the pairs outside the box must give the unculled walk's bits.  The
+kernels are held against their twins in tests/test_torch_cuda.py.  No
+JAX: the box has no counterpart in gsmpm_tpu.
 """
 
 import numpy as np
