@@ -31,15 +31,23 @@
    geometry rendered with ``RasterConfig(packed=True)`` at drop-free caps,
    and its backward, held against the padded path (K4 / K5); K8 and K9
    against their twins on those inputs.
-7. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
+7. Slice 4, at the main path's width: apps.simulate's golden route
+   (incremental_cov; a tile cap below the boot occupancy; a cap at it with
+   the box pushed into new tiles, which overflows inside frame 1), a
+   checkpoint and a resumed run against an uninterrupted one, and
+   parallel/ on a one-rank NCCL group built in this process
+   (MeshSimEngine's tiled and psum frames against the single-device
+   frames, the tile-sharded render against the stream render, K1 / K2 /
+   K4 against their twins on that path's inputs).
+8. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
    CUDA blocks, the culled share of (slot, 16 x 8 pixel group) pairs, the
    walk depth and a rerun bit-equality check (K8 also against K4 and K9
    against K5 on the same windows); their bounds charge the gate to the
    walked pairs inside the cull box, with the all-walked bound beside
    them.
-8. Every path is driven with every launch counter set to 0 just before it
+9. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-9. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+10. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -86,6 +94,8 @@ FIT_SUBSTEPS = 30
 # frame and direction (K4 / K5 once per tier, or K3 / K7), never recomputed
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
+# the golden-route phase's push along +y (m/s after 5 substeps)
+PUSH_SPEED = 10.0
 # a kernel row's numbers beyond the required keys, copied into the kernels
 # line: the share of the bound, K1 and K2 at the fit's shapes and their
 # blocks, K3's cull, K4/K5 per tier, the culled walks' blocks, cull,
@@ -94,7 +104,8 @@ ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "fit_ms",
               "fit_plain_ms", "fit_bound_ms", "fit_bound_by", "fit_share",
               "fit_max_abs_err", "fit_rel_err", "fit_blocks",
               "culled_share", "bound_all_walked_ms", "kept_pairs",
-              "bit_equal", "depth_max", "depth_mean")
+              "bit_equal", "depth_max", "depth_mean", "mesh_rel_err",
+              "mesh_max_abs_err", "mesh_ms", "mesh_K")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -328,7 +339,7 @@ def kernel_phases(dev):
 
     # ---- K3 stream forward (input: frame 0 of the main path)
     rcfg = RasterConfig(stream=True)
-    w_xyz, w_cov = su.world_geometry(su.state)
+    w_xyz, w_cov = su.world(su.state.x, su.state.cov)
     pre = preprocess(w_xyz, w_cov, su.opacity, su.features, su.camera,
                      su.scene.sh_degree, rcfg)
     splanes, bounds, nd, lv = sr.stream_inputs(pre, su.camera, rcfg)
@@ -1568,6 +1579,413 @@ def small_fit_parity(dev, stream: bool = False):
     return err
 
 
+# ---------------------------------------------------------------------------
+# slice 4: the golden route, checkpoint / resume, the one-rank mesh
+# ---------------------------------------------------------------------------
+
+def _zero(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def _counts(wrappers):
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def _check_frames(frames, n, stats, what):
+    check(len(frames) == n + 1, f"{what}: {len(frames)} frames")
+    for f in frames:
+        check(f.shape == (MAIN_RES, MAIN_RES, 3), f"{what}: shape {f.shape}")
+        check(bool(np.isfinite(f).all()), f"{what}: non-finite frame")
+    check(all(d == 0 for d in stats["n_dropped"]),
+          f"{what}: n_dropped {stats['n_dropped']}")
+    motion = float(np.abs(frames[-1] - frames[0]).max())
+    check(motion > 1e-3, f"{what}: no motion ({motion})")
+    return motion
+
+
+def pushed_config(dev, output_path: str):
+    """The main path's configuration with an impulse along +y for its first
+    5 substeps, sized from the mean particle mass to throw the box at
+    ~PUSH_SPEED m/s: its particles drift into tiles that were empty at
+    bootstrap within the first frame.  Returns (config, boot occupancy,
+    the tiled engine's default TileConfig)."""
+    from gsmpm_tpu_torch.apps.simulate import prepare
+    from gsmpm_tpu_torch.config import BoundaryConditionConfig
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state
+
+    cfg = bench_config(output_path=output_path)
+    su = prepare(cfg, synthetic=MAIN_N, synthetic_res=MAIN_RES,
+                 device=str(dev), quiet=True)
+    ts = tiles.bootstrap(soa_from_state(su.state), su.model, su.grid, su.tc)
+    occ = int(torch.unique(ts.chunk_tile[ts.chunk_live == 1]).numel())
+    force = float(su.state.mass.mean()) * PUSH_SPEED / (5 * cfg.mpm.substep_dt)
+    bc = BoundaryConditionConfig(type="impulse", center=[1.0, 1.0, 1.0],
+                                 size=[1.0, 1.0, 1.0], force=[0.0, force, 0.0],
+                                 start_time=0.0, num_dt=5)
+    cfg.mpm.boundary_conditions = [bc]
+    return cfg, occ, su.tc
+
+
+def golden_route_phase(dev, wrappers):
+    """apps.simulate's route to the golden engine at the main path's width:
+    incremental_cov (golden for every frame), a tile cap below the
+    bootstrap occupancy, and a cap at it with the box pushed into new tiles
+    (the overflow comes at a rebucket inside frame 1, whose tiled
+    substeps are then redone on the golden engine).  Every frame written, n_dropped 0, motion, the route seen
+    in stats["engine"] and in the launches."""
+    from gsmpm_tpu_torch.apps.simulate import simulate
+
+    inc = bench_config(output_path=str(OUT_DIR / "golden_inc"))
+    inc.mpm.incremental_cov = True
+    pushed, occ, tc = pushed_config(dev, str(OUT_DIR / "golden_boot"))
+    mid = pushed_config(dev, str(OUT_DIR / "golden_mid"))[0]
+    cases = (("incremental_cov", inc, None, 1),
+             ("boot_overflow", pushed, tc._replace(n_occ_cap=occ - 1), 1),
+             ("mid_frame_overflow", mid, tc._replace(n_occ_cap=occ), 2))
+    out, frames_by, total = {}, {}, {}
+    for name, cfg, tile_cfg, n in cases:
+        stats = {}
+        _zero(wrappers)
+        t0 = time.perf_counter()
+        frames = simulate(cfg, synthetic=MAIN_N, frames=n, quiet=True,
+                          synthetic_res=MAIN_RES, device=str(dev),
+                          stats=stats, tile_config=tile_cfg)
+        wall = time.perf_counter() - t0
+        counts = _counts(wrappers)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        motion = _check_frames(frames, n, stats, name)
+        check(stats["engine"] == ["golden"] * n,
+              f"{name}: engines {stats['engine']}")
+        k1, k2 = counts["p2g_tiled"], counts["g2p_tiled"]
+        steps = stats["substeps_per_frame"]
+        if name == "mid_frame_overflow":
+            # frame 1 ran its substeps on the tiled engine (whose frame
+            # reports the overflow at its end), then again on golden
+            check(k1 == k2 == steps, f"{name}: K1/K2 launches {k1}/{k2}")
+        else:
+            check(k1 == k2 == 0, f"{name}: K1/K2 launches {k1}/{k2}")
+        check(counts["stream_blend"] >= n + 1,
+              f"{name}: K3 launches {counts['stream_blend']}")
+        sps = n * steps / sum(stats["sim_s"])
+        frames_by[name] = frames
+        out[name] = dict(frames=n, wall_s=wall, substeps_per_s=sps,
+                         sim_s=stats["sim_s"], render_s=stats["render_s"],
+                         engine=stats["engine"], motion=motion,
+                         tiled_substeps=k1, cap=(tile_cfg.occ_cap if tile_cfg
+                                                 else None))
+        print(f"golden route ({name}): {n} frame(s) x {steps} substeps, "
+              f"engines {stats['engine']}, {sps:.2f} substeps/s (sim "
+              f"{['%.3f' % t for t in stats['sim_s']]} s), render "
+              f"{['%.1f' % (1e3 * t) for t in stats['render_s']]} ms, "
+              f"tiled substeps (abandoned) {k1}, motion {motion:.3g}, "
+              f"wall {wall:.1f} s", flush=True)
+    # both overflow runs take frame 1 on the golden engine from the same
+    # start state: only index_add_'s float atomics differ.  They move a few
+    # pixels by up to ~0.4 (splats whose depths tie in the stream's 23-bit
+    # order swap), so the mean carries the gate: a redo from the abandoned
+    # tiled state would be a frame of motion (~2.5 cells) off everywhere.
+    diff = np.abs(frames_by["mid_frame_overflow"][1]
+                  - frames_by["boot_overflow"][1])
+    redo, redo_mean = float(diff.max()), float(diff.mean())
+    print(f"golden route: boot occupancy {occ} tiles; frame 1 redone after "
+          f"a mid-frame overflow vs golden from the start: mean diff "
+          f"{redo_mean:.3g} (tol 1e-5), max {redo:.3g}, pixels over 1e-2 "
+          f"{int((diff.max(-1) > 1e-2).sum())}", flush=True)
+    check(redo_mean <= 1e-5,
+          f"golden route: redone frame 1 differs by {redo_mean} (mean)")
+    out.update(redo_vs_boot_max_diff=redo, redo_vs_boot_mean_diff=redo_mean)
+    return total, out
+
+
+def resume_phase(dev, wrappers):
+    """--checkpoint_interval / --resume on the card: 2 frames in one run
+    (twice: the float atomics' run-to-run spread) against 1 frame +
+    checkpoint, then a resumed run to frame 2.  The resumed run draws
+    frame 1 again from the restored state, bit-equal to the frame the
+    interrupted run wrote; its frame-2 checkpoint is held to the
+    uninterrupted run's at the CPU test's tolerance (1e-5, here relative
+    to each field's max), its frame 2 image by the mean (1e-5; the float
+    atomics can swap a few tied splats, as in the golden-route phase)."""
+    import shutil
+
+    from gsmpm_tpu_torch.apps.simulate import simulate
+    from gsmpm_tpu_torch.io.checkpoint import restore_checkpoint
+
+    runs = {}
+    for name in ("resume_once", "resume_again", "resume_split"):
+        shutil.rmtree(OUT_DIR / name, ignore_errors=True)
+        runs[name] = bench_config(output_path=str(OUT_DIR / name))
+    once, again = (simulate(runs[name], synthetic=MAIN_N, frames=2,
+                            quiet=True, synthetic_res=MAIN_RES,
+                            device=str(dev), checkpoint_interval=1)
+                   for name in ("resume_once", "resume_again"))
+    split = simulate(runs["resume_split"], synthetic=MAIN_N, frames=1,
+                     quiet=True, synthetic_res=MAIN_RES, device=str(dev),
+                     checkpoint_interval=1)
+    stats = {}
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    resumed = simulate(runs["resume_split"], synthetic=MAIN_N, frames=2,
+                       quiet=True, synthetic_res=MAIN_RES, device=str(dev),
+                       stats=stats, resume=True, checkpoint_interval=1)
+    wall = time.perf_counter() - t0
+    counts = _counts(wrappers)
+    steps = stats["substeps_per_frame"]
+    check(len(resumed) == 2, f"resume: {len(resumed)} frames")
+    check(stats["engine"] == ["tiled"], f"resume: engines {stats['engine']}")
+    check(counts["p2g_tiled"] == counts["g2p_tiled"] == steps,
+          f"resume: transfer launches {counts}")
+    redraw = bool(np.array_equal(resumed[0], split[1]))
+    check(redraw, "resume: frame 1 from the restored state differs")
+    su = prepare_main(dev)
+
+    def frame2_state(name):
+        (st, _, t), step, _ = restore_checkpoint(
+            str(OUT_DIR / name / "checkpoints"), (su.state, su.model, 0.0))
+        check(step == 2, f"resume: {name} checkpoint step {step}")
+        return st, t
+
+    (s_once, t_once), (s_again, _), (s_res, t_res) = (
+        frame2_state(n) for n in ("resume_once", "resume_again",
+                                  "resume_split"))
+    check(t_res == t_once, f"resume: clock {t_res} vs {t_once}")
+    err_state = _rel_errs(s_res, s_once)
+    spread_state = _rel_errs(s_again, s_once)
+    err = float(np.abs(resumed[1] - once[2]).max())
+    err_mean = float(np.abs(resumed[1] - once[2]).mean())
+    spread = float(np.abs(again[2] - once[2]).max())
+    print(f"resume: frame 1 redrawn from the checkpoint bit-equal "
+          f"{redraw}; frame 2 vs the uninterrupted run: state relative err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err_state.items())
+          + f" (tol 1e-5), image mean diff {err_mean:.3g} (tol 1e-5), max "
+          f"{err:.3g}; a rerun of "
+          "the uninterrupted run: state "
+          + ", ".join(f"{k} {v:.3g}" for k, v in spread_state.items())
+          + f", image {spread:.3g}; {steps / stats['sim_s'][0]:.2f} "
+          f"substeps/s, wall {wall:.1f} s", flush=True)
+    check(max(err_state.values()) <= 1e-5,
+          f"resume: frame 2 state differs by {err_state}")
+    check(err_mean <= 1e-5, f"resume: frame 2 image differs by {err_mean}")
+    return counts, dict(wall_s=wall, substeps_per_s=steps / stats["sim_s"][0],
+                        frame2_max_diff=err, frame2_mean_diff=err_mean,
+                        rerun_max_diff=spread,
+                        frame2_state_rel_err=err_state,
+                        rerun_state_rel_err=spread_state,
+                        redraw_bit_equal=redraw)
+
+
+def prepare_main(dev):
+    """apps.simulate.prepare at the main path's configuration."""
+    from gsmpm_tpu_torch.apps.simulate import prepare
+
+    return prepare(bench_config(), synthetic=MAIN_N, synthetic_res=MAIN_RES,
+                   device=str(dev), quiet=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel_errs(got, want, fields=("x", "v", "F", "F_trial", "C")):
+    return {f: float((getattr(got, f) - getattr(want, f)).abs().max())
+            / max(1.0, float(getattr(want, f).abs().max())) for f in fields}
+
+
+def mesh_phase(dev, wrappers):
+    """parallel/ on a one-rank NCCL group built in this process: the
+    MeshSimEngine's tiled frame (K1 / K2 per rank, the grid all-reduced)
+    and psum frame against the single-device tiled and golden frames,
+    the mesh render (render_block_rows, K4) against K4's twin blending the
+    same windows (the stream render of the same state beside it), and K1,
+    K2, K4 against their twins on the mesh path's inputs.  K1 / K2
+    launches are exact per substep."""
+    import os
+
+    import torch.distributed as dist
+
+    from gsmpm_tpu_torch.apps.simulate import prepare
+    from gsmpm_tpu_torch.parallel.engines import (
+        MeshSimEngine, make_mesh_render_fn,
+    )
+    from gsmpm_tpu_torch.parallel.mesh import make_mesh, pad_particles, shard
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+    from gsmpm_tpu_torch.render.renderer import (
+        RasterConfig, assemble_blocks, block_origins, block_rows_candidates,
+        bump_caps_for_dropfree, preprocess, render_with_aux,
+    )
+    from gsmpm_tpu_torch.sim import cuda_mpm, tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
+    from gsmpm_tpu_torch.sim.solver import postprocess, run_substeps
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((("data", 1),), "cuda")
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        cfg = bench_config(output_path=str(OUT_DIR / "mesh"))
+        dt, steps = cfg.mpm.substep_dt, cfg.mpm.steps_per_frame
+        su = prepare(cfg, synthetic=MAIN_N, synthetic_res=MAIN_RES,
+                     device=str(dev), quiet=True)
+        st0, md0, _, _ = pad_particles(su.state, su.model, mesh.world_size)
+        st0, md0 = shard((st0, md0), mesh)
+        out, engines = {}, {}
+        for engine in ("tiled", "psum"):
+            eng = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,
+                                prefer=engine)
+            _zero(wrappers)
+            t0 = time.perf_counter()
+            st, t, _ = eng.frame(st0, md0, 0.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts(wrappers)
+            check(eng.engine == engine, f"mesh {engine}: fell back")
+            want = steps if engine == "tiled" else 0
+            check(counts["p2g_tiled"] == counts["g2p_tiled"] == want,
+                  f"mesh {engine}: transfer launches {counts}")
+            engines[engine] = (eng, st, counts)
+            out[engine] = dict(frame_s=wall, substeps_per_s=steps / wall,
+                               launches=counts)
+        # the single-device frames from the same start state
+        ts = tiles.bootstrap(soa_from_state(su.state), su.model, su.grid,
+                             su.tc)
+        ts, soa, _ = tiles.frame_tiled(ts, soa_from_state(su.state),
+                                       su.model, su.bcs, 0.0, steps, su.grid,
+                                       su.tc, dt)
+        single_tiled = state_from_soa(soa)
+        golden, _ = run_substeps(su.state, su.model, su.bcs, 0.0, steps,
+                                 su.grid, dt, checkpoint_policy=None)
+        golden = dataclasses.replace(golden, cov=postprocess(golden)[0])
+        for engine, want in (("tiled", single_tiled), ("psum", golden)):
+            errs = _rel_errs(engines[engine][1], want)
+            out[engine]["rel_err_vs_single"] = errs
+            # float atomics (K1, index_add_) over 100 substeps
+            check(max(errs.values()) <= 1e-4,
+                  f"mesh {engine} vs single device: {errs}")
+            print(f"mesh ({engine}, 1 NCCL rank): 1 frame x {steps} "
+                  f"substeps in {out[engine]['frame_s']:.3f} s "
+                  f"({out[engine]['substeps_per_s']:.2f} substeps/s), "
+                  f"launches K1 {engines[engine][2]['p2g_tiled']} K2 "
+                  f"{engines[engine][2]['g2p_tiled']}; relative err vs the "
+                  "single-device frame " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in errs.items())
+                  + " (tol 1e-4)", flush=True)
+
+        # K1 / K2 against their twins on the rank's chunks after the frame,
+        # given seeded motion (the falling box's C is ~1e-6: every term of
+        # the transfers must count)
+        eng_t, st_t, _ = engines["tiled"]
+        ts_loc = seeded_motion(eng_t._tiled[2])
+        tc = eng_t._tiled[1]
+        ts_loc, sig = tiles.particle_phase(ts_loc, md0, su.bcs, 0.0, dt)
+        win_k = cuda_mpm.p2g_tiled(ts_loc, sig, su.grid, tc, dt)
+        win_r = cuda_mpm.p2g_tiled_ref(ts_loc, sig, su.grid, tc, dt)
+        rel1 = float((window_components(win_k - win_r).abs().amax(dim=1)
+                      / window_components(win_r).abs().amax(dim=1)).max())
+        ext = tiles.grid_phase(win_k, su.model, su.bcs, 0.0, su.grid, tc, dt,
+                               mesh.group)
+        q_k = cuda_mpm.g2p_tiled(ts_loc, ext, su.grid, tc, dt)
+        q_r = cuda_mpm.g2p_tiled_ref(ts_loc, ext, su.grid, tc, dt)
+        rel2 = max(float((q_k[r0:r0 + n] - q_r[r0:r0 + n]).abs().max())
+                   / float(q_r[r0:r0 + n].abs().max())
+                   for r0, n in ((tiles.RX, 3), (tiles.RV, 3), (tiles.RC, 9),
+                                 (tiles.RFT, 9)))
+        check(rel1 <= 1e-5, f"mesh K1: relative err {rel1}")
+        check(rel2 <= 1e-5, f"mesh K2: relative err {rel2}")
+
+        # the tile-sharded render, drop-free caps, then K4 on its windows
+        def splats(x, cov, R, opac, feats):
+            return (*su.world(x, cov), opac, feats)
+
+        rcfg, renders, nd = RasterConfig(), 0, None
+        _zero(wrappers)
+        for _ in range(7):
+            render = make_mesh_render_fn(mesh, su.camera, su.bg,
+                                         su.scene.sh_degree, rcfg, splats)
+            img, nd = render(st_t.x, st_t.cov, None, su.opacity, su.features)
+            renders += 1
+            if int(nd) == 0:
+                break
+            rcfg = bump_caps_for_dropfree(rcfg, *su.world(st_t.x, st_t.cov),
+                                          su.opacity, su.camera)
+        k4_launches = _counts(wrappers)["blend_fwd"]
+        check(int(nd) == 0, f"mesh render: n_dropped {int(nd)}")
+        check(k4_launches == renders, f"mesh render: K4 launches "
+                                      f"{k4_launches} for {renders} renders")
+        render_ms = cuda_ms(lambda: render(st_t.x, st_t.cov, None,
+                                           su.opacity, su.features), 3, 1)
+        stream = RasterConfig(stream=True)
+        w_xyz, w_cov = su.world(st_t.x, st_t.cov)
+        for _ in range(7):  # the stream render at drop-free budgets
+            ref_img, snd = render_with_aux(w_xyz, w_cov, su.opacity,
+                                           su.features, su.camera, su.bg,
+                                           su.scene.sh_degree, stream)
+            if int(snd) == 0:
+                break
+            stream = bump_caps_for_dropfree(stream, w_xyz, w_cov, su.opacity,
+                                            su.camera)
+        check(int(snd) == 0, f"mesh: stream render n_dropped {int(snd)}")
+        # not gated: the stream render orders each tile's splats by a
+        # quantized depth, the two-stage selection by the exact depth
+        stream_diff = (img - ref_img).abs()
+        pre = preprocess(w_xyz, w_cov, su.opacity, su.features, su.camera,
+                         su.scene.sh_degree, rcfg)
+        order = torch.sort(torch.where(pre.valid, pre.depth, torch.inf),
+                           stable=True).indices
+        _, nbx, nby = block_origins(su.camera, rcfg)
+        cand, counts, origins = block_rows_candidates(pre, order, 0.0, nby,
+                                                      nbx, rcfg)
+        F, counts, meta = cb.blend_inputs(cand, counts, origins, rcfg)
+        out_k = cb.blend_fwd(counts, F, meta)
+        out_r = cb.blend_core_ref(counts, F, meta)
+        torch.cuda.synchronize()
+        err4 = float((out_k[:, 0:4] - out_r[:, 0:4]).abs().max())
+        done4 = float((out_k[:, 4] != out_r[:, 4]).float().mean())
+        # the mesh render's image against the K4 twin's blend of the same
+        # windows (both through the app's background composite)
+        rgb_r = out_r[:, 0:3] + out_r[:, 3:4] * su.bg[None, :, None]
+        twin_img = assemble_blocks(rgb_r.reshape(-1, 3, rcfg.block, rcfg.block)
+                                   .permute(0, 2, 3, 1), su.camera, rcfg)
+        img_err = float((img - twin_img).abs().max())
+        check(img_err <= 2e-3, f"mesh render vs K4's twin: {img_err}")
+        check(err4 <= 2e-3, f"mesh K4: max err {err4}")
+        check(done4 <= 1e-4, f"mesh K4: done flags differ {done4}")
+        ms4 = cuda_ms(lambda: cb.blend_fwd(counts, F, meta), 5)
+        out["render"] = dict(render_ms=render_ms, renders=renders,
+                             k_row=rcfg.k_row, k_block=rcfg.k_block,
+                             K=int(F.shape[2]), img_err_vs_twin=img_err,
+                             stream_max_diff=float(stream_diff.max()),
+                             stream_mean_diff=float(stream_diff.mean()),
+                             stream_pixels_over_1e2=int(
+                                 (stream_diff.amax(-1) > 1e-2).sum()),
+                             k4_ms=ms4, k4_err=err4, k4_done_diff=done4,
+                             k1_rel_err=rel1, k2_rel_err=rel2)
+        print(f"mesh render (1 NCCL rank): {renders} render(s) to drop-free "
+              f"caps k_row {rcfg.k_row} / k_block {rcfg.k_block}, "
+              f"{render_ms:.2f} ms a render, K4 launches {k4_launches}; vs "
+              f"K4's twin max diff {img_err:.3g} (tol 2e-3); vs the stream "
+              f"render of the same state (not gated) max "
+              f"{float(stream_diff.max()):.3g}, mean "
+              f"{float(stream_diff.mean()):.3g}; K4 on "
+              f"its {F.shape[0]} windows x K {F.shape[2]}: {ms4:.4f} ms, max "
+              f"err {err4:.3g}, done differ {done4:.3g}; K1 / K2 on the "
+              f"rank's chunks: relative err {rel1:.3g} / {rel2:.3g} (tol "
+              "1e-5)", flush=True)
+        counts_all = {k: max(out["tiled"]["launches"][k],
+                             out["psum"]["launches"][k])
+                      for k in out["tiled"]["launches"]}
+        counts_all["blend_fwd"] = k4_launches
+        return counts_all, out
+    finally:
+        dist.destroy_process_group()
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1640,6 +2058,22 @@ def main() -> int:
     rows += packed_rows
     sfit["small_parity"] = small_fit_parity(dev, stream=True)
 
+    # slice 4: the golden route, checkpoint / resume, the one-rank mesh
+    t0 = time.perf_counter()
+    golden_counts, golden = golden_route_phase(dev, wrappers)
+    resume_counts, resume = resume_phase(dev, wrappers)
+    mesh_counts, mesh = mesh_phase(dev, wrappers)
+    slice4_s = time.perf_counter() - t0
+    print(f"slice 4 phases: {slice4_s:.1f} s", flush=True)
+    for r in rows:
+        if r["name"] in ("p2g_tiled", "g2p_tiled"):
+            r["mesh_rel_err"] = mesh["render"][
+                "k1_rel_err" if r["name"] == "p2g_tiled" else "k2_rel_err"]
+        if r["name"] == "blend_fwd":
+            r.update(mesh_max_abs_err=mesh["render"]["k4_err"],
+                     mesh_ms=mesh["render"]["k4_ms"],
+                     mesh_K=mesh["render"]["K"])
+
     # each kernel's own path: the one its slice ported it for
     own_path = dict(stream_blend="simulate", stream_blend_bwd="stream_fit",
                     blend_packed_fwd="packed", blend_packed_bwd="packed")
@@ -1651,7 +2085,9 @@ def main() -> int:
             r["fit_share"] = r["fit_bound_ms"] / r["fit_ms"]
         by_path = {"simulate": sim_counts[name], "identify": fit_counts[name],
                    "stream_fit": sfit_counts[name],
-                   "packed": packed_counts[name]}
+                   "packed": packed_counts[name],
+                   "golden_route": golden_counts[name],
+                   "resume": resume_counts[name], "mesh": mesh_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
         check(by_path[own_path.get(name, "identify")] > 0,
               f"{name} not launched on its own path")
@@ -1670,7 +2106,9 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "stream_blend").update(fit_ms=k3_fit["ms"], fit_bound_ms=k3_fit["bound_ms"],
                       fit_culled_share=k3_fit["culled_share"])
     print(json.dumps({"main_path": main, "identify_path": fit,
-                      "stream_fit_path": sfit, "packed_path": packed}))
+                      "stream_fit_path": sfit, "packed_path": packed,
+                      "golden_route_path": golden, "resume_path": resume,
+                      "mesh_path": mesh, "slice4_s": slice4_s}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

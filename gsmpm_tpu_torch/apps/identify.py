@@ -249,7 +249,7 @@ def main(argv=None):
     p = build_parser()
     args, rest = p.parse_known_args(argv)
     if any(a.split("=", 1)[0] == "--mesh" for a in rest):
-        p.error("--mesh is not ported yet (ROADMAP queue A)")
+        p.error("--mesh is not ported yet for identify (ROADMAP A4)")
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
     identify(args)

@@ -1,20 +1,34 @@
 """Entry point: simulate a 3DGS scene as MPM particles and re-render it.
 
-Port of gsmpm_tpu/apps/simulate.py on one device, taking the JAX app's TPU
-route on every device: the tiled transfer engine (sim/tiles.py, kernels K1
-and K2) and the drop-free stream renderer (render/stream_raster.py, kernel
-K3).  Pipeline: load gaussians -> sim_area mask -> world2grid -> volumes ->
-MPM substeps per frame -> cov = F Sigma0 F^T -> grid2world -> rasterize ->
-PNG (+ mp4 when ffmpeg exists).
+Port of gsmpm_tpu/apps/simulate.py.  Pipeline: load gaussians -> sim_area
+mask -> world2grid -> volumes -> MPM substeps per frame -> cov = F Sigma0
+F^T -> grid2world -> rasterize -> PNG (+ mp4 when ffmpeg exists).
+
+On one device it takes the JAX app's TPU route on every device: the tiled
+transfer engine (sim/tiles.py, kernels K1 and K2) and the drop-free stream
+renderer (render/stream_raster.py, kernel K3).  As in the JAX app, a frame
+whose occupied tiles overflow the tile cap (at bootstrap or mid-frame) is
+redone from its start state on the golden engine (sim/solver.py), which
+then runs the rest of the simulation, and ``incremental_cov`` takes the
+golden engine throughout; the switch is announced.
+
+``--mesh data=N`` (under ``torchrun --nproc_per_node N``) shards the
+particles over N processes, one GPU each (parallel/): the tiled engine
+per rank with an all-reduced grid (or ``engine=psum``, the golden engine
+per shard), and the tile-sharded render (kernel K4).  Rank 0 writes the
+images, point clouds, video and checkpoints.
+
+``--checkpoint_interval K`` saves the full state (state, material model,
+clock; unpadded) every K frames under <output_path>/checkpoints, and
+``--resume`` continues from the latest one, under any mesh.
 
 Runs on CUDA unless ``device="cpu"`` (``--device cpu``) is given; on the
-CPU the kernels' plain twins run.  Not ported yet (ROADMAP queue A):
-multi-device ``--mesh``, ``--checkpoint_interval`` / ``--resume``, and the
-golden-engine fallback on occupied-tile-cap overflow, which raises here.
+CPU the kernels' plain twins run.
 
 Usage:
     python -m gsmpm_tpu_torch.apps.simulate --config_path cfg.json \
-        [--output_path out] [--synthetic N] [--frames K] [--device cpu]
+        [--output_path out] [--synthetic N] [--frames K] [--device cpu] \
+        [--checkpoint_interval K] [--resume] [--mesh none|data=N[,engine=E]]
 """
 
 from __future__ import annotations
@@ -30,6 +44,11 @@ import torch
 
 from gsmpm_tpu_torch.config import SimConfig
 from gsmpm_tpu_torch.io.cameras import load_cameras
+from gsmpm_tpu_torch.io.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from gsmpm_tpu_torch.io.video import encode_video, save_frame
 from gsmpm_tpu_torch.models.gaussians import GaussianScene, load_gaussians
 from gsmpm_tpu_torch.models.synthetic import synthetic_box_scene
@@ -56,9 +75,14 @@ from gsmpm_tpu_torch.sim.coupling import (
     world2grid,
 )
 from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
-from gsmpm_tpu_torch.sim.solver import postprocess
+from gsmpm_tpu_torch.sim.solver import postprocess, run_substeps
 from gsmpm_tpu_torch.sim.state import GridConfig, init_model, init_state
-from gsmpm_tpu_torch.sim.tiles import bootstrap, default_tile_config, frame_tiled
+from gsmpm_tpu_torch.sim.tiles import (
+    TileConfig,
+    bootstrap,
+    default_tile_config,
+    frame_tiled,
+)
 from gsmpm_tpu_torch.sim.volume import particle_volume
 from gsmpm_tpu_torch.utils import resolve_device
 
@@ -105,9 +129,9 @@ class SimSetup:
     features: torch.Tensor
     grid_extent: float
 
-    def world_geometry(self, st):
-        """Grid-space state -> world-space (means, 6-packed covs)."""
-        w_xyz, w_cov = grid2world(st.x, st.cov, self.scaling, self.pos_center,
+    def world(self, x, cov):
+        """Grid-space means and 6-packed covs -> world space."""
+        w_xyz, w_cov = grid2world(x, cov, self.scaling, self.pos_center,
                                   self.grid_extent)
         return (apply_inverse_rotations(w_xyz, self.mats),
                 apply_inverse_cov_rotations(w_cov, self.mats))
@@ -187,61 +211,161 @@ def prepare(cfg: SimConfig, synthetic: Optional[int] = None,
     )
 
 
+def parse_mesh(mesh: Optional[str]):
+    """--mesh auto | none | data=N[,engine=tiled|psum] -> (N, engine or
+    None).  ``auto`` is the torchrun world size (1 outside torchrun); N > 1
+    must equal it."""
+    from gsmpm_tpu_torch.parallel.engines import ENGINES, NOT_PORTED
+
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    ndata, prefer = world, None
+    for part in (mesh or "auto").lower().split(","):
+        part = part.strip()
+        if part.startswith("data="):
+            ndata = int(part.split("=", 1)[1])
+        elif part.startswith("engine="):
+            prefer = part.split("=", 1)[1]
+        elif part == "none":
+            ndata = 1
+        elif part not in ("auto", ""):
+            raise ValueError(f"unknown --mesh component: {part!r}")
+    if prefer in NOT_PORTED:
+        raise ValueError(f"--mesh engine={prefer} is not ported yet "
+                         "(ROADMAP A4); the port has engine=tiled|psum")
+    if prefer is not None and prefer not in ENGINES:
+        raise ValueError(f"unknown --mesh engine: {prefer!r}")
+    if ndata > 1 and ndata != world:
+        raise ValueError(f"--mesh data={ndata} needs {ndata} processes "
+                         f"(torchrun --nproc_per_node {ndata}); this run has "
+                         f"{world}")
+    return ndata, prefer
+
+
 def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
              frames: Optional[int] = None, quiet: bool = False,
              synthetic_res: int = 800, device: Optional[str] = "cuda",
-             stats: Optional[dict] = None):
+             stats: Optional[dict] = None, checkpoint_interval: int = 0,
+             resume: bool = False, mesh: Optional[str] = "auto",
+             tile_config: Optional[TileConfig] = None):
     """Simulate + render; returns the frames as (H, W, 3) float numpy arrays
-    (frame 0 is the initial state).
+    (the first is the initial or resumed state), on every rank.
 
     ``stats``, when a dict is given, receives per-frame host-clock times
     (``sim_s``, ``render_s``, each ended by a device synchronize), the
-    per-frame ``n_dropped`` and ``substeps_per_frame``.
+    per-frame ``n_dropped``, the engine of each simulated frame
+    (``engine``: "tiled" | "golden", or the mesh engine's "tiled" |
+    "psum") and ``substeps_per_frame``.  ``tile_config`` replaces the
+    tiled engine's default TileConfig (e.g. a smaller occupied-tile cap).
     """
     mpm = cfg.mpm
-    if mpm.incremental_cov:
-        raise NotImplementedError(
-            "incremental_cov (the golden engine's incremental covariance "
-            "update) is not ported yet (ROADMAP queue A item 3)"
-        )
     t_start = time.time()
+    ndata, prefer = parse_mesh(mesh)
+    use_mesh = ndata > 1
+    mesh_obj = None
+    if use_mesh:
+        from gsmpm_tpu_torch.parallel.mesh import make_mesh
+
+        mesh_obj = make_mesh((("data", ndata),), device)
+        device = mesh_obj.device
+    rank0 = mesh_obj is None or mesh_obj.rank == 0
+    quiet = quiet or not rank0
     su = prepare(cfg, synthetic, synthetic_res, device, quiet)
     dev = su.state.x.device
-    scene, model, bcs, grid, tc = su.scene, su.model, su.bcs, su.grid, su.tc
-    state = su.state
+    scene, model, bcs, grid = su.scene, su.model, su.bcs, su.grid
+    tc = tile_config or su.tc
+    state, opacity, features = su.state, su.opacity, su.features
     n_steps = mpm.steps_per_frame
-    # the drop-free sorted-segment stream rasterizer, as the JAX app
-    rcfg = RasterConfig(stream=True)
-
-    def do_render(st, R):
-        """Render; if any candidate was over the tier budgets, measure the
-        budgets at this frame's geometry, resize and re-render the SAME
-        frame, so no frame is saved truncated."""
-        nonlocal rcfg
-        w_xyz, w_cov = su.world_geometry(st)
-        shs = su.features
-        if mpm.rotate_sh and R is not None:
-            shs = rotate_sh(su.features, R.transpose(-1, -2), scene.sh_degree)
-        for attempt in range(_MAX_DROPFREE_REBUILDS + 1):
-            img, nd = render_with_aux(w_xyz, w_cov, su.opacity, shs,
-                                      su.camera, su.bg, scene.sh_degree, rcfg)
-            nd = int(nd)
-            if nd == 0 or attempt == _MAX_DROPFREE_REBUILDS:
-                return img, nd
-            rcfg = bump_caps_for_dropfree(rcfg, w_xyz, w_cov, su.opacity,
-                                          su.camera)
-            if not quiet:
-                print(f"render: {nd} candidates over the caps — resizing for "
-                      "a drop-free frame and re-rendering (stream_g2/g3/g4 "
-                      f"{rcfg.stream_g2}/{rcfg.stream_g3}/{rcfg.stream_g4})")
+    n_unpadded = state.x.shape[0]
 
     out_dir = cfg.render.output_path or "outputs/run"
     images_dir = os.path.join(out_dir, "images")
-    os.makedirs(images_dir, exist_ok=True)
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    if rank0:
+        os.makedirs(images_dir, exist_ok=True)
     num_frames = frames if frames is not None else cfg.render.num_frames
     if stats is not None:
-        stats.update(sim_s=[], render_s=[], n_dropped=[],
+        stats.update(sim_s=[], render_s=[], n_dropped=[], engine=[],
                      substeps_per_frame=n_steps)
+
+    # full-state resume: state, material model and clock, unpadded
+    t_sim, start_frame = 0.0, 1
+    if resume and latest_step(ckpt_dir) is not None:
+        (state, model, t_sim), fid0, _ = restore_checkpoint(
+            ckpt_dir, (state, model, t_sim))
+        start_frame = fid0 + 1
+        if not quiet:
+            print(f"resumed from checkpoint at frame {fid0}")
+
+    if use_mesh:
+        from gsmpm_tpu_torch.parallel.engines import (
+            MeshSimEngine, make_mesh_render_fn,
+        )
+        from gsmpm_tpu_torch.parallel.mesh import (
+            gather, pad_particles, shard, unpad,
+        )
+
+        state, model, extras, _ = pad_particles(
+            state, model, ndata, {"opacity": opacity, "features": features})
+        state, model, extras = shard((state, model, extras), mesh_obj)
+        opacity, features = extras["opacity"], extras["features"]
+        engine = MeshSimEngine(
+            mesh_obj, bcs, grid, mpm.substep_dt, n_steps,
+            incremental_cov=mpm.incremental_cov, rotate_sh=mpm.rotate_sh,
+            prefer=prefer, quiet=quiet, tile_config=tile_config)
+        if not quiet:
+            print(f"mesh: data={ndata}, sim engine: {engine.engine}, "
+                  "render: tile-sharded")
+
+        def full(tree):
+            """The unpadded full arrays of this rank's shards."""
+            return unpad(gather(tree, mesh_obj), n_unpadded)
+    else:
+        engine = "golden" if mpm.incremental_cov else "tiled"
+
+        def full(tree):
+            return tree
+
+    def splats(x, cov, R, opac, feats):
+        """Grid-space particles -> world-space splats (the inverse
+        transforms, SH rotated by R when rotate_sh)."""
+        w_xyz, w_cov = su.world(x, cov)
+        shs = feats
+        if mpm.rotate_sh and R is not None:
+            shs = rotate_sh(feats, R.transpose(-1, -2), scene.sh_degree)
+        return w_xyz, w_cov, opac, shs
+
+    # drop-free rendering: the stream rasterizer on one device; the
+    # tile-sharded two-stage selection (k_row / k_block caps) on a mesh
+    rcfg = RasterConfig(stream=not use_mesh)
+
+    def render_fn(rc):
+        if use_mesh:
+            return make_mesh_render_fn(mesh_obj, su.camera, su.bg,
+                                       scene.sh_degree, rc, splats)
+        return lambda *a: render_with_aux(*splats(*a), su.camera, su.bg,
+                                          scene.sh_degree, rc)
+
+    render_frame = render_fn(rcfg)
+
+    def do_render(st, R):
+        """Render; if any candidate was over the caps, measure the caps at
+        this frame's geometry, resize and re-render the SAME frame, so no
+        frame is saved truncated."""
+        nonlocal rcfg, render_frame
+        for attempt in range(_MAX_DROPFREE_REBUILDS + 1):
+            img, nd = render_frame(st.x, st.cov, R, opacity, features)
+            nd = int(nd)
+            if nd == 0 or attempt == _MAX_DROPFREE_REBUILDS:
+                return img, nd
+            w_xyz, w_cov, opac, _ = splats(*full((st.x, st.cov)), None,
+                                           full(opacity), None)
+            rcfg = bump_caps_for_dropfree(rcfg, w_xyz, w_cov, opac, su.camera)
+            render_frame = render_fn(rcfg)
+            if not quiet:
+                print(f"render: {nd} candidates over the caps — resizing for "
+                      "a drop-free frame and re-rendering (stream_g2/g3/g4 "
+                      f"{rcfg.stream_g2}/{rcfg.stream_g3}/{rcfg.stream_g4}, "
+                      f"k_row {rcfg.k_row}, k_block {rcfg.k_block})")
 
     def emit(fid, st, R):
         t0 = time.perf_counter()
@@ -250,53 +374,81 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
         if stats is not None:
             stats["render_s"].append(time.perf_counter() - t0)
             stats["n_dropped"].append(nd)
-        if nd:
+        if nd and not quiet:
             print(f"WARNING: frame {fid}: {nd} candidates still dropped "
                   "after cap rebuilds")
-        save_frame(frame, images_dir, fid)
+        if rank0:
+            save_frame(frame, images_dir, fid)
         return frame
 
-    frames_np = [emit(0, state, None)]
-    ts = bootstrap(soa_from_state(state), model, grid, tc)
-    t_sim = 0.0
-    for fid in range(1, num_frames + 1):
-        t0 = time.perf_counter()
-        ts, soa, t_sim = frame_tiled(
-            ts, soa_from_state(state), model, bcs, t_sim, n_steps, grid, tc,
-            mpm.substep_dt,
-        )
+    def golden_frame(st, t):
+        st, t = run_substeps(st, model, bcs, t, n_steps, grid,
+                             mpm.substep_dt, checkpoint_policy=None,
+                             incremental_cov=mpm.incremental_cov)
+        cov6, R = postprocess(st, rotate_sh=mpm.rotate_sh)
+        return dataclasses.replace(st, cov=cov6), t, R
+
+    def tiled_frame(st, t, ts):
+        """(ts, state, t, R), or None on a tile-cap overflow."""
+        if ts is None:
+            ts = bootstrap(soa_from_state(st), model, grid, tc)
+            if not bool(ts.ok):
+                return None
+        ts, soa, t = frame_tiled(ts, soa_from_state(st), model, bcs, t,
+                                 n_steps, grid, tc, mpm.substep_dt)
         if not bool(ts.ok):
-            raise RuntimeError(
-                f"frame {fid}: more occupied tiles than the tile cap "
-                f"({tc.occ_cap}); simulate's fallback to the golden engine is "
-                "not ported yet (ROADMAP queue A item 3)"
-            )
+            return None
         st = state_from_soa(soa)
         cov6, R = postprocess(st, rotate_sh=mpm.rotate_sh)
-        state = dataclasses.replace(st, cov=cov6)
+        return ts, dataclasses.replace(st, cov=cov6), t, R
+
+    frames_np = [emit(start_frame - 1, state, None)]
+    ts = None  # the tiled engine's persistent state, bootstrapped lazily
+    for fid in range(start_frame, num_frames + 1):
+        t0 = time.perf_counter()
+        if use_mesh:
+            state, t_sim, R = engine.frame(state, model, t_sim)
+        else:
+            out = tiled_frame(state, t_sim, ts) if engine == "tiled" else None
+            if out is not None:
+                ts, state, t_sim, R = out
+            else:
+                if engine == "tiled" and not quiet:
+                    print(f"frame {fid}: more occupied tiles than the tile "
+                          f"cap ({tc.occ_cap}); redoing the frame on the "
+                          "golden engine, which runs from here on",
+                          flush=True)
+                engine = "golden"
+                state, t_sim, R = golden_frame(state, t_sim)
         _sync(dev)
         if stats is not None:
             stats["sim_s"].append(time.perf_counter() - t0)
+            stats["engine"].append(engine.engine if use_mesh else engine)
         frames_np.append(emit(fid, state, R))
 
+        if checkpoint_interval and fid % checkpoint_interval == 0:
+            st_u, md_u = full((state, model))
+            if rank0:
+                save_checkpoint(ckpt_dir, fid, (st_u, md_u, t_sim),
+                                extra={"frame": fid})
         if cfg.render.save_pcd and fid % cfg.render.save_pcd_interval == 0:
-            w_xyz, _ = su.world_geometry(state)
-            scene.with_xyz_at(su.sim_idx, w_xyz).save_ply(os.path.join(
-                out_dir, "point_cloud", f"iteration_{fid}", "point_cloud.ply"
-            ))
+            w_xyz, _ = su.world(*full((state.x, state.cov)))
+            if rank0:
+                scene.with_xyz_at(su.sim_idx, w_xyz).save_ply(os.path.join(
+                    out_dir, "point_cloud", f"iteration_{fid}",
+                    "point_cloud.ply"))
         if not quiet:
             print(f"frame {fid}/{num_frames}  {time.perf_counter() - t0:.2f}s",
                   flush=True)
 
-    video_path = encode_video(images_dir, os.path.join(out_dir, "simulated"))
-    if video_path and not quiet:
-        print(f"wrote {video_path}")
+    if rank0:
+        video_path = encode_video(images_dir,
+                                  os.path.join(out_dir, "simulated"))
+        if video_path and not quiet:
+            print(f"wrote {video_path}")
     if not quiet:
         print(f"Done in {time.time() - t_start:.1f}s.")
     return frames_np
-
-
-_NOT_PORTED = ("--mesh", "--checkpoint_interval", "--resume")
 
 
 def main(argv=None):
@@ -306,17 +458,31 @@ def main(argv=None):
                         help="run on a generated scene with N gaussians")
     parser.add_argument("--frames", type=int, default=None,
                         help="override render.num_frames")
+    parser.add_argument("--checkpoint_interval", type=int, default=0,
+                        help="save full sim state every N frames")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint in output_path")
+    parser.add_argument("--mesh", type=str, default="auto",
+                        help='"auto" | "none" | "data=N[,engine=tiled|psum]": '
+                             "shard the particles over N processes "
+                             "(torchrun --nproc_per_node N); auto is the "
+                             "torchrun world size")
     parser.add_argument("--synthetic_res", type=int, default=800,
                         help="render resolution for --synthetic scenes")
     parser.add_argument("--device", type=str, default="cuda",
                         help='"cuda" (default) or "cpu" (the plain twins)')
     args, remaining = parser.parse_known_args(argv)
-    for flag in _NOT_PORTED:
-        if any(a.split("=", 1)[0] == flag for a in remaining):
-            parser.error(f"{flag} is not ported yet (ROADMAP queue A)")
+    try:
+        parse_mesh(args.mesh)
+    except ValueError as e:
+        parser.error(str(e))
     cfg = SimConfig.from_json(args.config_path).override_from_args(remaining)
     simulate(cfg, synthetic=args.synthetic, frames=args.frames,
-             synthetic_res=args.synthetic_res, device=args.device)
+             synthetic_res=args.synthetic_res, device=args.device,
+             checkpoint_interval=args.checkpoint_interval,
+             resume=args.resume, mesh=args.mesh)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -91,6 +91,10 @@ def t_matmul(A: Mat, B: Mat) -> Mat:
     )
 
 
+def add(A: Mat, B: Mat) -> Mat:
+    return tuple(a + b for a, b in zip(A, B))
+
+
 def sub(A: Mat, B: Mat) -> Mat:
     return tuple(a - b for a, b in zip(A, B))
 

@@ -1,0 +1,32 @@
+"""Multi-process parallelism with torch.distributed: the mesh, the sharded
+simulation engines and the tile-sharded render (port of gsmpm_tpu/parallel).
+
+One process per GPU (``torchrun --nproc_per_node N``), NCCL on CUDA and
+gloo on the CPU: particles are sharded over the ranks, the MPM grid is
+all-reduced every substep and the image's block rows are split over the
+ranks.  The halo engines and the sharded fit steps are not ported yet.
+"""
+
+from gsmpm_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather,
+    make_mesh,
+    pad_particles,
+    shard,
+    unpad,
+)
+from gsmpm_tpu_torch.parallel.sharded import (
+    make_sharded_frame_fn,
+    make_sharded_render_fn,
+)
+
+__all__ = [
+    "Mesh",
+    "gather",
+    "make_mesh",
+    "pad_particles",
+    "shard",
+    "unpad",
+    "make_sharded_frame_fn",
+    "make_sharded_render_fn",
+]

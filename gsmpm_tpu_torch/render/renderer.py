@@ -17,6 +17,9 @@ Port of gsmpm_tpu/render/renderer.py on its TPU routes (``impl="pallas"``):
 
 Every path is differentiable end to end.
 
+``render_block_rows`` is the JAX package's two-stage row / block selection
+(k_row, k_block), blended with kernel K4: the mesh render renders its
+rank's block rows with it (parallel/sharded.py).
 ``required_raster_caps`` / ``bump_caps_for_dropfree`` size the caps from a
 measured frame.  The XLA golden blend (``_render_xla``) is not ported; the
 port's CPU path runs the kernels' plain twins.
@@ -615,6 +618,90 @@ def _xla_stream_counts(pre: Preprocessed, camera: Camera, cfg: RasterConfig):
     blk_cnt = torch.stack([torch.sum(inter_y[r][None, :] & inter_x, dim=1)
                            for r in range(nby)])
     return row_cnt, blk_cnt
+
+
+def _xla_dropped_count(pre: Preprocessed, camera: Camera,
+                       cfg: RasterConfig) -> torch.Tensor:
+    """Candidates beyond render_block_rows' k_row / k_block caps."""
+    n = pre.pix_x.shape[0]
+    k_row = min(cfg.k_row, n)
+    k_blk = min(cfg.k_block, k_row)
+    row_cnt, blk_cnt = _xla_stream_counts(pre, camera, cfg)
+    return (torch.sum(torch.clamp_min(row_cnt - k_row, 0))
+            + torch.sum(torch.clamp_min(blk_cnt - k_blk, 0)))
+
+
+def _first_k(hit: torch.Tensor, k: int):
+    """Per row of the (..., L) mask hit: (the column indices of its first k
+    hits, in order, zero-filled (..., k); their count (...,)) -- lax.top_k
+    of -rank over the hits, lower index first."""
+    pos = torch.cumsum(hit.to(torch.int32), dim=-1) - 1
+    take = hit & (pos < k)
+    idx = torch.zeros(hit.shape[:-1] + (k + 1,), dtype=torch.int64,
+                      device=hit.device)
+    col = torch.arange(hit.shape[-1], device=hit.device).expand(hit.shape)
+    idx.scatter_(-1, torch.where(take, pos, k).to(torch.int64), col)
+    return idx[..., :k], torch.clamp_max(torch.sum(hit, dim=-1), k)
+
+
+def block_rows_candidates(pre: Preprocessed, order: torch.Tensor,
+                          y_start: float, nby_local: int, nbx: int,
+                          cfg: RasterConfig):
+    """The candidate windows of nby_local full block rows starting at
+    pixel row y_start: (cand (10, nby_local * nbx, K) depth-ordered planes,
+    counts (nblocks,), origins (nblocks, 2)), K = min(k_block, k_row, N).
+
+    gsmpm_tpu's two-stage selection (render_block_rows): per row the first
+    k_row depth-ordered gaussians (``order``) crossing the row's
+    y-interval, then per block the first k_block of those crossing its
+    x-interval; slots past a block's count get log opacity -1e30.
+    """
+    B = cfg.block
+    dev = pre.pix_x.device
+    n = pre.pix_x.shape[0]
+    k_row = min(cfg.k_row, n)
+    k_blk = min(cfg.k_block, k_row)
+    planes = _raw_planes_nosentinel(pre)[:, order]      # (10, N) by depth
+    f32 = dict(dtype=torch.float32, device=dev)
+    y0 = y_start + torch.arange(nby_local, **f32) * B
+    x0 = torch.arange(nbx, **f32) * B
+    sy, sr = planes[1], planes[9]
+    inter_y = ((sy + sr >= y0[:, None] - 0.5)
+               & (sy - sr <= y0[:, None] + B - 0.5) & pre.valid[order])
+    ridx, rcnt = _first_k(inter_y, k_row)               # (R, k_row)
+    rows = planes[:, ridx]                              # (10, R, k_row)
+    row_ok = torch.arange(k_row, device=dev) < rcnt[:, None]
+    cx, cr = rows[0][:, None, :], rows[9][:, None, :]
+    inter_x = ((cx + cr >= x0[None, :, None] - 0.5)
+               & (cx - cr <= x0[None, :, None] + B - 0.5)
+               & row_ok[:, None, :])                    # (R, nbx, k_row)
+    bidx, counts = _first_k(inter_x, k_blk)             # (R, nbx, k_blk)
+    cand = torch.gather(
+        rows[:, :, None, :].expand(10, nby_local, nbx, k_row), 3,
+        bidx[None].expand(10, -1, -1, -1),
+    ).reshape(10, nby_local * nbx, k_blk)
+    counts = counts.reshape(-1)
+    live = torch.arange(k_blk, device=dev)[None, :] < counts[:, None]
+    cand = torch.cat([cand[:5], torch.where(live, cand[5], -1e30)[None],
+                      cand[6:]])
+    origins = torch.stack([x0.repeat(nby_local),
+                           y0.repeat_interleave(nbx)], dim=-1)
+    return cand, counts, origins
+
+
+def render_block_rows(pre: Preprocessed, order: torch.Tensor, y_start: float,
+                      nby_local: int, nbx: int, bg: torch.Tensor,
+                      cfg: RasterConfig) -> torch.Tensor:
+    """Render nby_local full block rows starting at pixel row y_start:
+    (nby_local * nbx, B, B, 3) row-major blocks.  Each block's window
+    (block_rows_candidates) blends with kernel K4
+    (cuda_blend.blend_blocks), the counterpart of gsmpm_tpu's
+    ``_blend_candidates``."""
+    from gsmpm_tpu_torch.render.cuda_blend import blend_blocks
+
+    cand, counts, origins = block_rows_candidates(pre, order, y_start,
+                                                  nby_local, nbx, cfg)
+    return blend_blocks(cand, counts, origins, bg, cfg)
 
 
 def required_raster_caps(means3d: torch.Tensor, cov6: torch.Tensor,

@@ -114,7 +114,10 @@ class ImpulseBC:
     def apply_particles(self, x, v, mass, time, dt):
         if not (self.start_time <= time < self.end_time):
             return v
-        inside = torch.all(torch.abs(x - self.center) < self.size, dim=-1)
+        # massless slots (the tiled layout's padding, a mesh's fillers) get
+        # no impulse: F / 0 would put NaN into the grid through 0 * v
+        inside = (torch.all(torch.abs(x - self.center) < self.size, dim=-1)
+                  & (mass > 0))
         dv = self.force[None, :] / mass[:, None] * dt
         return torch.where(inside[:, None], v + dv, v)
 

@@ -61,13 +61,17 @@ def _need(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_tables(ts: TiledState, tc: TileConfig) -> None:
+def _check_tables(ts: TiledState, tc: TileConfig):
+    """(nchunk, NP) of ts: all of tc's chunks, or a rank's slice of them
+    under a mesh (parallel/tiled_sharded.py)."""
     dev = ts.q.device
     if dev.type != "cuda":
         raise RuntimeError(f"no CUDA kernel for tensors on {dev}")
-    _need(ts.q, "q", (QROWS, tc.np_rows), torch.float32, dev)
+    nchunk = ts.chunk_tile.shape[0]
+    _need(ts.q, "q", (QROWS, nchunk * tc.S), torch.float32, dev)
     for name in ("chunk_tile", "chunk_live"):
-        _need(getattr(ts, name), name, (tc.nchunk,), torch.int32, dev)
+        _need(getattr(ts, name), name, (nchunk,), torch.int32, dev)
+    return nchunk, nchunk * tc.S
 
 
 def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
@@ -75,14 +79,14 @@ def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
     """q (QROWS,NP) + stress (16,NP) -> octant windows (ntiles, 256, 64)."""
     if ts.q.device.type == "cpu":
         return p2g_tiled_ref(ts, sig, grid, tc, dt)
-    _check_tables(ts, tc)
-    _need(sig, "sig", (16, tc.np_rows), torch.float32, ts.q.device)
+    nchunk, np_rows = _check_tables(ts, tc)
+    _need(sig, "sig", (16, np_rows), torch.float32, ts.q.device)
     out = torch.empty((tc.ntiles, 8 * 4 * T_TILE, T_TILE * T_TILE),
                       dtype=torch.float32, device=ts.q.device)
     lib = _lib()
     err = lib.gsmpm_p2g_tiled(
         ts.q.data_ptr(), sig.data_ptr(), ts.chunk_tile.data_ptr(),
-        ts.chunk_live.data_ptr(), out.data_ptr(), tc.np_rows, tc.nchunk,
+        ts.chunk_live.data_ptr(), out.data_ptr(), np_rows, nchunk,
         tc.ntiles, tc.nt, tc.S, tc.n_grid, grid.dx, grid.inv_dx, dt,
         torch.cuda.current_stream(ts.q.device).cuda_stream,
     )
@@ -96,14 +100,14 @@ def g2p_tiled(ts: TiledState, ext: torch.Tensor, grid: GridConfig,
     """q (QROWS,NP) + octant grid (ntiles, 192, 64) -> new q (QROWS,NP)."""
     if ts.q.device.type == "cpu":
         return g2p_tiled_ref(ts, ext, grid, tc, dt)
-    _check_tables(ts, tc)
+    nchunk, np_rows = _check_tables(ts, tc)
     _need(ext, "ext", (tc.ntiles, 8 * 3 * T_TILE, T_TILE * T_TILE),
           torch.float32, ts.q.device)
     out = torch.empty_like(ts.q)
     lib = _lib()
     err = lib.gsmpm_g2p_tiled(
         ts.q.data_ptr(), ext.data_ptr(), ts.chunk_tile.data_ptr(),
-        ts.chunk_live.data_ptr(), out.data_ptr(), tc.np_rows, tc.nchunk,
+        ts.chunk_live.data_ptr(), out.data_ptr(), np_rows, nchunk,
         tc.nt, tc.S, tc.n_grid, grid.inv_dx, dt,
         torch.cuda.current_stream(ts.q.device).cuda_stream,
     )

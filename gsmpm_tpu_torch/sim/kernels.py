@@ -5,9 +5,12 @@ golden substep (``p2g_soa`` / ``grid_update_soa`` / ``g2p_soa`` /
 ``substep_soa``) and ``postprocess_soa`` (cov = F Sigma0 F^T).  The golden
 engine is plain torch on a dense (G^3,) grid: P2G is one ``index_add_`` of
 the 27 stencil nodes' (mass, momentum) payloads, G2P one gather.  It
-generates the fitting ground truth and is the fitting engine after a
-tiled-engine overflow; the tiled engine (sim/tiles.py) is the fast path.
-Node indices clamp to the domain, as the JAX package's halo fold does.
+generates the fitting ground truth, is the simulation engine with
+``incremental_cov`` and after a tiled-engine overflow, and runs each rank's
+particle shard under a mesh (``group``: the dense grid is all-reduced, the
+counterpart of the JAX engine's ``axis_name`` psum); the tiled engine
+(sim/tiles.py) is the fast path.  Node indices clamp to the domain, as the
+JAX package's halo fold does.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from gsmpm_tpu_torch.ops import m33
 from gsmpm_tpu_torch.ops.constitutive import (
@@ -106,12 +110,14 @@ def _node_ids(nodes, g: int) -> torch.Tensor:
                         for i, j, k in _OFFSETS])
 
 
-def p2g_soa(state: SoAState, stress: Tuple, grid: GridConfig, dt):
+def p2g_soa(state: SoAState, stress: Tuple, grid: GridConfig, dt,
+            group=None):
     """P2G onto the dense grid: (grid_mass (G^3,), 3 momentum planes).
 
     Mass, APIC momentum and the stress impulse of every stencil node, as
     the reference's p2g; all 27 x N contributions land with one
-    ``index_add_``."""
+    ``index_add_``.  With a process ``group`` the (4, G^3) grid is summed
+    over its ranks (one all-reduce), each rank holding a particle shard."""
     g = grid.n_grid
     fxs, ws, dws, nodes = _stencil(state.x, grid)
     v, C, sig = state.v, state.C, stress
@@ -137,6 +143,8 @@ def p2g_soa(state: SoAState, stress: Tuple, grid: GridConfig, dt):
     ids = _node_ids(nodes, g).reshape(-1)
     acc = torch.zeros((4, g * g * g), dtype=mass.dtype, device=mass.device)
     acc = acc.index_add(1, ids, vals.reshape(4, -1))
+    if group is not None:
+        dist.all_reduce(acc, group=group)
     return acc[0], (acc[1], acc[2], acc[3])
 
 
@@ -152,9 +160,12 @@ def grid_update_soa(grid_mass, grid_mom, gravity, dt):
     )
 
 
-def g2p_soa(state: SoAState, grid_v: Tuple, grid: GridConfig, dt) -> SoAState:
+def g2p_soa(state: SoAState, grid_v: Tuple, grid: GridConfig, dt,
+            incremental_cov: bool = False) -> SoAState:
     """Gather velocity, rebuild APIC C and grad v, advect x, and form
-    F_trial = (I + dt grad v) F (the reference's g2p)."""
+    F_trial = (I + dt grad v) F (the reference's g2p).  ``incremental_cov``
+    also advances cov += dt (grad v cov + cov grad v^T) on the upper-6
+    packing (the reference's update_cov)."""
     g = grid.n_grid
     fxs, ws, dws, nodes = _stencil(state.x, grid)
     ids = _node_ids(nodes, g)                           # (27, N)
@@ -178,18 +189,26 @@ def g2p_soa(state: SoAState, grid_v: Tuple, grid: GridConfig, dt) -> SoAState:
     coef = grid.inv_dx * 4.0
     new_C = tuple(c * coef for c in new_C)
     new_x = tuple(state.x[a] + dt * new_v[a] for a in range(3))
+    grad_v = tuple(grad_v)
     new_F_trial = m33.matmul(
-        m33.add_scaled_identity(m33.scale(tuple(grad_v), dt), 1.0), state.F
+        m33.add_scaled_identity(m33.scale(grad_v, dt), 1.0), state.F
     )
+    new_cov = state.cov
+    if incremental_cov:
+        cov_m = m33.from_upper6(state.cov)
+        delta = m33.add(m33.matmul(grad_v, cov_m), m33.matmul_t(cov_m, grad_v))
+        new_cov = m33.to_upper6(m33.add(cov_m, m33.scale(delta, dt)))
     return state._replace(x=new_x, v=tuple(new_v), C=new_C,
-                          F_trial=new_F_trial)
+                          F_trial=new_F_trial, cov=new_cov)
 
 
 def substep_soa(state: SoAState, model: MPMModel, bcs, time: float,
-                grid: GridConfig, dt: float, fitting: bool = False) -> SoAState:
+                grid: GridConfig, dt: float, fitting: bool = False,
+                incremental_cov: bool = False, group=None) -> SoAState:
     """One golden substep: particle BCs -> stress -> P2G -> grid update +
     grid BCs -> G2P.  ``fitting`` takes the Green StVK stress on F with no
-    particle BCs and advances F := F_trial (the fitting semantics)."""
+    particle BCs and advances F := F_trial (the fitting semantics);
+    ``incremental_cov`` and ``group`` go to g2p_soa and p2g_soa."""
     if not fitting and bcs.particle_ops:
         v_aos = m33.vec_to_aos(state.v)
         x_aos = m33.vec_to_aos(state.x)
@@ -206,7 +225,7 @@ def substep_soa(state: SoAState, model: MPMModel, bcs, time: float,
             active_materials=model.active_materials,
         )
         state = state._replace(F=new_F, yield_stress=new_yield)
-    grid_mass, grid_mom = p2g_soa(state, stress, grid, dt)
+    grid_mass, grid_mom = p2g_soa(state, stress, grid, dt, group)
     grid_v = grid_update_soa(grid_mass, grid_mom, model.gravity, dt)
     if bcs.grid_ops:
         g = grid.n_grid
@@ -217,7 +236,7 @@ def substep_soa(state: SoAState, model: MPMModel, bcs, time: float,
         for op in bcs.grid_ops:
             gv_aos = op.apply_grid(gv_aos, coords, time, dt, grid.dx)
         grid_v = tuple(gv_aos[:, r] for r in range(3))
-    state = g2p_soa(state, grid_v, grid, dt)
+    state = g2p_soa(state, grid_v, grid, dt, incremental_cov)
     if fitting:
         state = state._replace(F=state.F_trial)
     return state

@@ -3,8 +3,9 @@
 Port of gsmpm_tpu/sim/solver.py's ``run_substeps`` and ``postprocess``.
 The port's forward engine for simulation is the tiled one in sim/tiles.py;
 ``run_substeps`` drives the golden planes engine (sim/kernels.py), which
-generates the fitting ground truth and is the fitting engine after a
-tiled-engine overflow.
+generates the fitting ground truth, runs simulate's frames with
+``incremental_cov`` or after a tiled-engine overflow, and is the fitting
+engine after one.
 """
 
 from __future__ import annotations
@@ -28,8 +29,13 @@ from gsmpm_tpu_torch.sim.tiles import _advance
 def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
                  n_substeps: int, grid: GridConfig, dt: float,
                  fitting: bool = False,
-                 checkpoint_policy: Optional[str] = "substep"):
+                 checkpoint_policy: Optional[str] = "substep",
+                 incremental_cov: bool = False, group=None):
     """n_substeps of the golden engine; returns (state, time).
+
+    ``incremental_cov`` advances cov every substep (the reference's
+    update_cov); ``group`` all-reduces the dense grid over the ranks of a
+    process group, each holding a particle shard (parallel/sharded.py).
 
     ``checkpoint_policy="substep"`` recomputes each substep in the backward
     pass (``torch.utils.checkpoint``), keeping only the particle state
@@ -43,10 +49,11 @@ def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
         if remat:
             soa = torch.utils.checkpoint.checkpoint(
                 substep_soa, soa, model, bcs, time, grid, dt, fitting,
-                use_reentrant=False,
+                incremental_cov, group, use_reentrant=False,
             )
         else:
-            soa = substep_soa(soa, model, bcs, time, grid, dt, fitting)
+            soa = substep_soa(soa, model, bcs, time, grid, dt, fitting,
+                              incremental_cov, group)
         time = _advance(time, dt)
     return state_from_soa(soa), time
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from gsmpm_tpu_torch.ops.constitutive import (
@@ -557,10 +558,15 @@ def particle_phase(ts: TiledState, model: MPMModel, bcs, time: float,
 
 
 def grid_phase(windows: torch.Tensor, model: MPMModel, bcs, time: float,
-               grid: GridConfig, tc: TileConfig, dt: float) -> torch.Tensor:
+               grid: GridConfig, tc: TileConfig, dt: float,
+               group=None) -> torch.Tensor:
     """P2G windows -> fold -> grid update + grid BCs -> extract: the octant
-    velocity blocks (ntiles, 192, 64) the G2P kernel reads."""
+    velocity blocks (ntiles, 192, 64) the G2P kernel reads.  With a process
+    ``group`` the folded blocked grid is summed over its ranks first (one
+    all-reduce), each rank holding a slice of the chunks."""
     acc = fold_windows(windows, tc)
+    if group is not None:
+        dist.all_reduce(acc, group=group)
     grid_v = grid_update_soa(
         acc[:, :, :, 0:T_TILE],
         (acc[:, :, :, T_TILE:2 * T_TILE],
@@ -581,20 +587,26 @@ def substep_tiled(
     grid: GridConfig,
     tc: TileConfig,
     dt: float,
+    group=None,
+    rebucket_on_drift: bool = True,
 ) -> TiledState:
     """One MLS-MPM substep in the tiled layout.
 
     The reference's order: particle BCs -> stress -> P2G (kernel K1) -> fold
     -> grid update + grid BCs -> extract -> G2P (kernel K2).  ``time`` is a
     host float (float32 value).
+
+    ``group``: chunk-sharded multi-process mode (parallel/tiled_sharded.py)
+    -- ts holds this rank's chunks and the folded grid is all-reduced over
+    the group; rebucketing is then the caller's (rebucket_on_drift=False).
     """
     from gsmpm_tpu_torch.sim.cuda_mpm import g2p_tiled, p2g_tiled
 
-    if bool(ts.need_rebucket):  # one device->host read per substep
+    if rebucket_on_drift and bool(ts.need_rebucket):  # one host read
         ts = rebucket(ts, grid, tc)
     ts, sig = particle_phase(ts, model, bcs, time, dt)
     windows = p2g_tiled(ts, sig, grid, tc, dt)
-    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt)
+    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt, group)
     new_q = g2p_tiled(ts, win_in, grid, tc, dt)
     need = torch.max(new_q[RDRIFT]) > 0
     return dataclasses.replace(ts, q=new_q, need_rebucket=need)

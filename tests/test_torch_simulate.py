@@ -162,8 +162,18 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(tmp_path):
     moved = GaussianScene.from_ply(str(pcd))
     assert moved.num_gaussians == 256
     assert torch.isfinite(moved.xyz).all()
+    # --resume is accepted (no checkpoint under output_path: a fresh run)
+    tsim.main(["--config_path", path, "--synthetic", "256", "--frames", "1",
+               "--synthetic_res", "64", "--device", "cpu", "--resume"])
+    # the halo engines are not ported, nor is identify's --mesh
     with pytest.raises(SystemExit):
-        tsim.main(["--config_path", path, "--resume", "--device", "cpu"])
+        tsim.main(["--config_path", path, "--synthetic", "256",
+                   "--device", "cpu", "--mesh", "data=2,engine=halo"])
+    from gsmpm_tpu_torch.apps import identify as tident
+
+    with pytest.raises(SystemExit):
+        tident.main(["--synthetic", "64", "--device", "cpu",
+                     "--mesh", "data=2"])
 
 
 def test_png_codec_roundtrip():
