@@ -96,6 +96,11 @@ PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # the golden-route phase's push along +y (m/s after 5 substeps)
 PUSH_SPEED = 10.0
+# the golden route's redone frame against golden from the start, relative
+# to each field's max (at least 1): the CPU tests' tolerance for two
+# engines' float sums in other orders (C, the velocity moments scaled by
+# 4 / dx^2, 1e-4)
+GOLDEN_RTOL = dict(x=1e-5, v=1e-5, F=1e-5, F_trial=1e-5, C=1e-4)
 # a kernel row's numbers beyond the required keys, copied into the kernels
 # line: the share of the bound, K1 and K2 at the fit's shapes and their
 # blocks, K3's cull, K4/K5 per tier, the culled walks' blocks, cull,
@@ -1609,7 +1614,7 @@ def pushed_config(dev, output_path: str):
     5 substeps, sized from the mean particle mass to throw the box at
     ~PUSH_SPEED m/s: its particles drift into tiles that were empty at
     bootstrap within the first frame.  Returns (config, boot occupancy,
-    the tiled engine's default TileConfig)."""
+    the prepared SimSetup)."""
     from gsmpm_tpu_torch.apps.simulate import prepare
     from gsmpm_tpu_torch.config import BoundaryConditionConfig
     from gsmpm_tpu_torch.sim import tiles
@@ -1625,7 +1630,7 @@ def pushed_config(dev, output_path: str):
                                  size=[1.0, 1.0, 1.0], force=[0.0, force, 0.0],
                                  start_time=0.0, num_dt=5)
     cfg.mpm.boundary_conditions = [bc]
-    return cfg, occ, su.tc
+    return cfg, occ, su
 
 
 def golden_route_phase(dev, wrappers):
@@ -1633,25 +1638,43 @@ def golden_route_phase(dev, wrappers):
     incremental_cov (golden for every frame), a tile cap below the
     bootstrap occupancy, and a cap at it with the box pushed into new tiles
     (the overflow comes at a rebucket inside frame 1, whose tiled
-    substeps are then redone on the golden engine).  Every frame written, n_dropped 0, motion, the route seen
-    in stats["engine"] and in the launches."""
-    from gsmpm_tpu_torch.apps.simulate import simulate
+    substeps are then redone on the golden engine).  The cap is set by
+    replacing the app's default_tile_config for the run.  Every frame
+    written, n_dropped 0, motion, the route seen in stats["engine"] and in
+    the launches; the redone frame 1's state (its checkpoint) held to the
+    one the golden engine reaches from the start, beside a rerun of that
+    run (the float atomics' spread)."""
+    import shutil
+
+    from gsmpm_tpu_torch.apps import simulate as sim_app
+    from gsmpm_tpu_torch.io.checkpoint import restore_checkpoint
 
     inc = bench_config(output_path=str(OUT_DIR / "golden_inc"))
     inc.mpm.incremental_cov = True
-    pushed, occ, tc = pushed_config(dev, str(OUT_DIR / "golden_boot"))
+    pushed, occ, su = pushed_config(dev, str(OUT_DIR / "golden_boot"))
     mid = pushed_config(dev, str(OUT_DIR / "golden_mid"))[0]
+    again = pushed_config(dev, str(OUT_DIR / "golden_boot_again"))[0]
     cases = (("incremental_cov", inc, None, 1),
-             ("boot_overflow", pushed, tc._replace(n_occ_cap=occ - 1), 1),
-             ("mid_frame_overflow", mid, tc._replace(n_occ_cap=occ), 2))
+             ("boot_overflow", pushed, occ - 1, 1),
+             ("boot_overflow_again", again, occ - 1, 1),
+             ("mid_frame_overflow", mid, occ, 2))
+    default_tc = sim_app.default_tile_config
     out, frames_by, total = {}, {}, {}
-    for name, cfg, tile_cfg, n in cases:
+    for name, cfg, cap, n in cases:
+        shutil.rmtree(cfg.render.output_path, ignore_errors=True)
+        if cap is not None:
+            sim_app.default_tile_config = (
+                lambda g, m, cap=cap: default_tc(g, m)._replace(n_occ_cap=cap))
         stats = {}
         _zero(wrappers)
         t0 = time.perf_counter()
-        frames = simulate(cfg, synthetic=MAIN_N, frames=n, quiet=True,
-                          synthetic_res=MAIN_RES, device=str(dev),
-                          stats=stats, tile_config=tile_cfg)
+        try:
+            frames = sim_app.simulate(
+                cfg, synthetic=MAIN_N, frames=n, quiet=True,
+                synthetic_res=MAIN_RES, device=str(dev), stats=stats,
+                checkpoint_interval=0 if cap is None else 1)
+        finally:
+            sim_app.default_tile_config = default_tc
         wall = time.perf_counter() - t0
         counts = _counts(wrappers)
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
@@ -1673,29 +1696,54 @@ def golden_route_phase(dev, wrappers):
         out[name] = dict(frames=n, wall_s=wall, substeps_per_s=sps,
                          sim_s=stats["sim_s"], render_s=stats["render_s"],
                          engine=stats["engine"], motion=motion,
-                         tiled_substeps=k1, cap=(tile_cfg.occ_cap if tile_cfg
-                                                 else None))
+                         tiled_substeps=k1, cap=cap)
         print(f"golden route ({name}): {n} frame(s) x {steps} substeps, "
               f"engines {stats['engine']}, {sps:.2f} substeps/s (sim "
               f"{['%.3f' % t for t in stats['sim_s']]} s), render "
               f"{['%.1f' % (1e3 * t) for t in stats['render_s']]} ms, "
               f"tiled substeps (abandoned) {k1}, motion {motion:.3g}, "
               f"wall {wall:.1f} s", flush=True)
-    # both overflow runs take frame 1 on the golden engine from the same
-    # start state: only index_add_'s float atomics differ.  They move a few
-    # pixels by up to ~0.4 (splats whose depths tie in the stream's 23-bit
-    # order swap), so the mean carries the gate: a redo from the abandoned
-    # tiled state would be a frame of motion (~2.5 cells) off everywhere.
-    diff = np.abs(frames_by["mid_frame_overflow"][1]
-                  - frames_by["boot_overflow"][1])
+    # the overflow runs take frame 1 on the golden engine from the same
+    # start state: only index_add_'s float atomics differ, whose spread the
+    # boot case run twice shows.  The state carries the gate (the CPU
+    # tests' tolerance, GOLDEN_RTOL of each field's max); a redo from the
+    # abandoned tiled state would be a frame of motion off.  The images
+    # are held by their mean: the same state differences move a few pixels
+    # by up to a few hundredths.
+    s_mid, s_boot, s_again = (
+        restore_checkpoint(str(OUT_DIR / d / "checkpoints"),
+                           (su.state, su.model, 0.0), step=1)[0]
+        for d in ("golden_mid", "golden_boot", "golden_boot_again"))
+    check(s_mid[2] == s_boot[2] == s_again[2],
+          f"golden route: clocks {s_mid[2]}, {s_boot[2]}, {s_again[2]}")
+    err_state = _rel_errs(s_mid[0], s_boot[0])
+    spread_state = _rel_errs(s_again[0], s_boot[0])
+    boot1 = frames_by["boot_overflow"][1]
+    diff = np.abs(frames_by["mid_frame_overflow"][1] - boot1)
+    spread = np.abs(frames_by["boot_overflow_again"][1] - boot1)
     redo, redo_mean = float(diff.max()), float(diff.mean())
+
+    def listed(errs):
+        return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
     print(f"golden route: boot occupancy {occ} tiles; frame 1 redone after "
-          f"a mid-frame overflow vs golden from the start: mean diff "
-          f"{redo_mean:.3g} (tol 1e-5), max {redo:.3g}, pixels over 1e-2 "
-          f"{int((diff.max(-1) > 1e-2).sum())}", flush=True)
+          f"a mid-frame overflow vs golden from the start: state relative "
+          f"err {listed(err_state)} (tol {listed(GOLDEN_RTOL)}), image mean "
+          f"diff {redo_mean:.3g} (tol 1e-5), max {redo:.3g}, pixels over "
+          f"1e-2 {int((diff.max(-1) > 1e-2).sum())}; golden from the start "
+          f"run twice: state {listed(spread_state)}, image mean "
+          f"{float(spread.mean()):.3g}, max {float(spread.max()):.3g}, "
+          f"pixels over 1e-2 {int((spread.max(-1) > 1e-2).sum())}",
+          flush=True)
+    check(all(err_state[f] <= GOLDEN_RTOL[f] for f in err_state),
+          f"golden route: redone frame 1 state differs by {err_state}")
     check(redo_mean <= 1e-5,
           f"golden route: redone frame 1 differs by {redo_mean} (mean)")
-    out.update(redo_vs_boot_max_diff=redo, redo_vs_boot_mean_diff=redo_mean)
+    out.update(redo_vs_boot_max_diff=redo, redo_vs_boot_mean_diff=redo_mean,
+               redo_vs_boot_state_rel_err=err_state,
+               rerun_state_rel_err=spread_state,
+               rerun_max_diff=float(spread.max()),
+               rerun_mean_diff=float(spread.mean()))
     return total, out
 
 

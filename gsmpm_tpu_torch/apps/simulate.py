@@ -78,7 +78,6 @@ from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
 from gsmpm_tpu_torch.sim.solver import postprocess, run_substeps
 from gsmpm_tpu_torch.sim.state import GridConfig, init_model, init_state
 from gsmpm_tpu_torch.sim.tiles import (
-    TileConfig,
     bootstrap,
     default_tile_config,
     frame_tiled,
@@ -245,8 +244,7 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
              frames: Optional[int] = None, quiet: bool = False,
              synthetic_res: int = 800, device: Optional[str] = "cuda",
              stats: Optional[dict] = None, checkpoint_interval: int = 0,
-             resume: bool = False, mesh: Optional[str] = "auto",
-             tile_config: Optional[TileConfig] = None):
+             resume: bool = False, mesh: Optional[str] = "auto"):
     """Simulate + render; returns the frames as (H, W, 3) float numpy arrays
     (the first is the initial or resumed state), on every rank.
 
@@ -254,8 +252,7 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
     (``sim_s``, ``render_s``, each ended by a device synchronize), the
     per-frame ``n_dropped``, the engine of each simulated frame
     (``engine``: "tiled" | "golden", or the mesh engine's "tiled" |
-    "psum") and ``substeps_per_frame``.  ``tile_config`` replaces the
-    tiled engine's default TileConfig (e.g. a smaller occupied-tile cap).
+    "psum") and ``substeps_per_frame``.
     """
     mpm = cfg.mpm
     t_start = time.time()
@@ -272,7 +269,7 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
     su = prepare(cfg, synthetic, synthetic_res, device, quiet)
     dev = su.state.x.device
     scene, model, bcs, grid = su.scene, su.model, su.bcs, su.grid
-    tc = tile_config or su.tc
+    tc = su.tc
     state, opacity, features = su.state, su.opacity, su.features
     n_steps = mpm.steps_per_frame
     n_unpadded = state.x.shape[0]
@@ -311,7 +308,7 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
         engine = MeshSimEngine(
             mesh_obj, bcs, grid, mpm.substep_dt, n_steps,
             incremental_cov=mpm.incremental_cov, rotate_sh=mpm.rotate_sh,
-            prefer=prefer, quiet=quiet, tile_config=tile_config)
+            prefer=prefer, quiet=quiet)
         if not quiet:
             print(f"mesh: data={ndata}, sim engine: {engine.engine}, "
                   "render: tile-sharded")
@@ -421,8 +418,9 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
                 engine = "golden"
                 state, t_sim, R = golden_frame(state, t_sim)
         _sync(dev)
+        sim_s = time.perf_counter() - t0
         if stats is not None:
-            stats["sim_s"].append(time.perf_counter() - t0)
+            stats["sim_s"].append(sim_s)
             stats["engine"].append(engine.engine if use_mesh else engine)
         frames_np.append(emit(fid, state, R))
 
@@ -438,7 +436,8 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
                     out_dir, "point_cloud", f"iteration_{fid}",
                     "point_cloud.ply"))
         if not quiet:
-            print(f"frame {fid}/{num_frames}  {time.perf_counter() - t0:.2f}s",
+            print(f"frame {fid}/{num_frames}  {time.perf_counter() - t0:.2f}s "
+                  f"(sim {sim_s:.3f}s, {n_steps / sim_s:.2f} substeps/s)",
                   flush=True)
 
     if rank0:

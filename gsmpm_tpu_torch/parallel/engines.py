@@ -55,7 +55,7 @@ class MeshSimEngine:
     def __init__(self, mesh: Mesh, bcs, grid: GridConfig, substep_dt: float,
                  n_steps: int, incremental_cov: bool = False,
                  rotate_sh: bool = False, prefer: Optional[str] = None,
-                 quiet: bool = True, tile_config=None):
+                 quiet: bool = True):
         self.mesh = mesh
         self.bcs = bcs
         self.grid = grid
@@ -64,7 +64,6 @@ class MeshSimEngine:
         self.rotate_sh = rotate_sh
         self.incremental_cov = incremental_cov
         self.quiet = quiet
-        self.tile_config = tile_config
         self._psum_fn = None
         self._tiled = None  # [frame fn, tile config, this rank's TiledState]
         self.engine = self._select(prefer)
@@ -103,8 +102,7 @@ class MeshSimEngine:
         mesh = self.mesh
         if self._tiled is None:
             n = state.x.shape[0] * mesh.world_size
-            tc = self.tile_config or sharded_tile_config(
-                self.grid.n_grid, n, mesh.world_size)
+            tc = sharded_tile_config(self.grid.n_grid, n, mesh.world_size)
             fn = make_sharded_frame_tiled(
                 mesh, model, self.bcs, self.grid, tc, self.dt, self.n_steps,
                 rebucket_every=_largest_divisor_leq(self.n_steps, 10))

@@ -11,19 +11,14 @@ parallel/mesh.py:
 - the folded blocked grid of each rank is all-reduced once per substep
   (``substep_tiled(..., group=...)``); the grid update, the BCs and the
   window extraction then run replicated;
-- rebucketing is global: the chunks are all-gathered, rebucketed
-  identically on every rank and re-sliced.  It runs at the start of a
-  segment of ``rebucket_every`` substeps when some rank's G2P flagged
-  drift in the segment before: the flags are all-reduced (MAX) with the
-  hard-drift flag (a real particle whose stencil base left its window's
-  support), and read on the host once per segment, the same value on
-  every rank, so all ranks take the same branch.  The JAX engine
-  rebuckets at every segment; rebucketing a layout whose particles kept
-  their tiles leaves it as it was, so the two differ only where a particle
-  changed tile inside the safe margin, in the order of the grid's sums.
-- ``ok`` goes False on a tile-cap overflow at a rebucket or on hard drift;
-  the caller (parallel/engines.py) then redoes the frame on the psum
-  engine.
+- rebucketing is global, at the start of every segment of
+  ``rebucket_every`` substeps, as in the JAX engine: the chunks are
+  all-gathered, rebucketed identically on every rank and re-sliced;
+- ``ok`` goes False on a tile-cap overflow at a rebucket or on hard drift
+  (a real particle whose stencil base left its window's support, a flag
+  all-reduced with MAX at the end of each segment), the same on every
+  rank; the caller (parallel/engines.py) reads it once a frame and then
+  redoes the frame on the psum engine.
 """
 
 from __future__ import annotations
@@ -124,29 +119,20 @@ def make_sharded_frame_tiled(mesh: Mesh, model: MPMModel, bcs,
         return shard_tiled(full, mesh, tc)
 
     def frame(ts_loc: TiledState, time: float):
-        # both flags are replicated: bootstrap's, or the last frame's
-        # all-reduced ones
-        ok = bool(ts_loc.ok)
-        need = bool(ts_loc.need_rebucket)
+        ok = ts_loc.ok
         for _ in range(n_substeps // seg):
-            if need:
-                ts_loc = gathered_rebucket(ts_loc)
-                ok = ok and bool(ts_loc.ok)
+            ts_loc = gathered_rebucket(ts_loc)
+            ok = ok & ts_loc.ok
             for _ in range(seg):
                 ts_loc = substep_tiled(ts_loc, model, bcs, time, grid, tc,
                                        dt, group=mesh.group,
                                        rebucket_on_drift=False)
                 time = _advance(time, dt)
-            flags = torch.stack([
-                ts_loc.need_rebucket,
-                _hard_drift(ts_loc.q, grid, tc, ts_loc.chunk_tile),
-            ]).to(torch.int32)
-            dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=mesh.group)
-            need, bad = (bool(f) for f in flags.tolist())  # one host read
-            ok = ok and not bad
-        ts_loc = dataclasses.replace(
-            ts_loc, need_rebucket=torch.tensor(need, device=ts_loc.q.device),
-            ok=torch.tensor(ok, device=ts_loc.q.device))
+            bad = _hard_drift(ts_loc.q, grid, tc,
+                              ts_loc.chunk_tile).to(torch.int32).reshape(1)
+            dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=mesh.group)
+            ok = ok & (bad[0] == 0)
+        ts_loc = dataclasses.replace(ts_loc, ok=ok)
         # original-order view: local scatter + all-reduce (orig is global)
         q_full = to_original_order(ts_loc, tc.n_particles).contiguous()
         dist.all_reduce(q_full, group=mesh.group)

@@ -11,11 +11,13 @@
   its XLA engine for every frame).
 
 The frames go through two renderers: the JAX app's XLA blend and the
-port's stream blend, which differ by up to 2e-3 where a pixel's
-transmittance crosses t_min (tests/test_torch_stream_raster.py holds the
-stream render to JAX's own at that tolerance).  The pushed scene renders at
-48^2, where the two agree to 2e-4 on every frame; at 64^2 three pixels of
-its frame 0, drawn before any substep, differ by 3.3e-3.
+port's stream blend.  The golden-engine-only scene agrees to 2e-4; the
+pushed scene's frames are held to the JAX package's own stream-vs-XLA
+tolerance (tests/test_torch_stream_raster.py) but at one pixel, where a
+splat's alpha sits on the alpha_min skip threshold and one blend adds it,
+the other not (that pixel to alpha_min); its particle state after every
+frame (both apps' checkpoints) is held to 1e-5 of each field's max (C
+1e-4), so the route check does not rest on the renderers.
 """
 
 import dataclasses
@@ -41,7 +43,7 @@ from gsmpm_tpu_torch.sim import boundary as tb
 from gsmpm_tpu_torch.sim.solver import run_substeps as t_run_substeps
 from gsmpm_tpu_torch.sim.state import GridConfig as TGridConfig
 from gsmpm_tpu_torch.sim.state import init_model as t_init_model
-from gsmpm_tpu_torch.sim.tiles import default_tile_config
+from gsmpm_tpu_torch.io.checkpoint import restore_checkpoint
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -104,7 +106,7 @@ PUSHED = {"mpm": dict(SMALL["mpm"], n_grid=32, boundary_conditions=[
     {"type": "impulse", "center": [1.0, 1.0, 1.0], "size": [1.0, 1.0, 1.0],
      "force": [0.0, 50.0, 0.0], "start_time": 0.0, "num_dt": 5}])}
 N_PUSHED = 2048
-RES_PUSHED = 48
+RES_PUSHED = 64
 BOOT_OCC = 9
 
 
@@ -145,10 +147,19 @@ def test_incremental_cov_app_matches_jax(tmp_path):
 
 @pytest.fixture(scope="module")
 def jax_pushed(tmp_path_factory):
+    """The JAX app's frames and checkpoint directory (one a frame)."""
     root = tmp_path_factory.mktemp("pushed")
-    return jax_simulate(SimConfig.from_json(_config(root, "jax", PUSHED)),
-                        synthetic=N_PUSHED, frames=2, quiet=True, mesh="none",
-                        synthetic_res=RES_PUSHED)
+    frames = jax_simulate(SimConfig.from_json(_config(root, "jax", PUSHED)),
+                          synthetic=N_PUSHED, frames=2, quiet=True,
+                          mesh="none", synthetic_res=RES_PUSHED,
+                          checkpoint_interval=1)
+    return frames, str(root / "jax" / "checkpoints")
+
+
+STATE_FIELDS = ("x", "v", "F", "F_trial", "C", "cov")
+# tests/test_torch_parallel.py's: C, the velocity field's moments scaled by
+# 4 / dx^2, 1e-4
+RTOL = dict(x=1e-5, v=1e-5, F=1e-5, F_trial=1e-5, C=1e-4, cov=1e-5)
 
 
 @pytest.mark.parametrize("cap,engines", [
@@ -156,19 +167,49 @@ def jax_pushed(tmp_path_factory):
     (BOOT_OCC, ["tiled", "golden"]),        # overflows in frame 2
 ], ids=["boot", "mid_frame"])
 def test_tile_cap_overflow_redoes_the_frame_on_golden(tmp_path, jax_pushed,
-                                                      cap, engines, capsys):
+                                                      cap, engines, capsys,
+                                                      monkeypatch):
     path = _config(tmp_path, "port", PUSHED)
-    n_sim = tsim.prepare(TSimConfig.from_json(path), N_PUSHED, RES_PUSHED,
-                         "cpu", True).state.x.shape[0]
-    tc = default_tile_config(32, n_sim)._replace(n_occ_cap=cap)
+    su = tsim.prepare(TSimConfig.from_json(path), N_PUSHED, RES_PUSHED,
+                      "cpu", True)
+    real = tsim.default_tile_config
+    monkeypatch.setattr(tsim, "default_tile_config",
+                        lambda g, n: real(g, n)._replace(n_occ_cap=cap))
     stats = {}
     got = tsim.simulate(TSimConfig.from_json(path), synthetic=N_PUSHED,
                         frames=2, quiet=False, synthetic_res=RES_PUSHED,
-                        device="cpu", stats=stats, tile_config=tc)
+                        device="cpu", stats=stats, checkpoint_interval=1)
     assert stats["engine"] == engines
     switch = [l for l in capsys.readouterr().out.splitlines()
               if "golden engine" in l]
     assert len(switch) == 1 and f"({cap})" in switch[0]
     assert stats["n_dropped"] == [0, 0, 0]
-    _same_frames(got, jax_pushed)
+    want, jax_ckpt = jax_pushed
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        # stream blend vs XLA blend: the JAX package's own tolerance
+        # (tests/test_torch_stream_raster.py), except at a pixel where a
+        # splat's alpha sits on the alpha_min = 1/255 skip threshold (frame
+        # 0's pixel (30, 29): alpha 1/255 + 4e-9), which the XLA blend
+        # (opacity * exp(power)) adds and the stream blend (exp(power +
+        # log opacity)) skips: at most alpha_min of that pixel
+        diff = np.abs(a - np.asarray(b))
+        over = diff > 2e-3 + 1e-3 * np.abs(np.asarray(b))
+        assert int(over.sum()) <= 1 and diff.max() <= 1.0 / 255.0
+        assert diff.mean() < 5e-6
+    assert np.abs(got[-1] - got[0]).max() > 1e-3  # the scene moved
     assert len(list((tmp_path / "port" / "images").glob("*.png"))) == 3
+    template = (su.state, su.model, 0.0)
+    for fid in (1, 2):
+        (st, _, t), _, _ = restore_checkpoint(
+            str(tmp_path / "port" / "checkpoints"), template, step=fid)
+        (st_j, _, t_j), _, _ = restore_checkpoint(jax_ckpt, template,
+                                                  step=fid)
+        assert t == t_j
+        for name in STATE_FIELDS:
+            want_f = getattr(st_j, name)
+            # the port's engines' and the XLA engine's f32 sums in other
+            # orders over 10-20 substeps: RTOL of the field's max (>= 1)
+            err = float((getattr(st, name) - want_f).abs().max()) \
+                / max(1.0, float(want_f.abs().max()))
+            assert err <= RTOL[name], (fid, name, err)

@@ -65,7 +65,8 @@ def sim_inputs(n=N_SIM, seed=4):
     xyz = rng.uniform(0.6, 1.4, size=(n, 3)).astype(np.float32)
     cov6 = np.tile(np.asarray([1e-4, 0, 0, 1e-4, 0, 1e-4], np.float32), (n, 1))
     # a body thrown at 14 m/s: its particles cross into the next tiles and
-    # the tiled engines rebucket mid-frame (at substep 20 of 30)
+    # the single-device tiled engine rebuckets on drift mid-frame (at
+    # substep 20 of 30)
     v = (np.asarray([11.0, 8.0, 3.0]) + rng.normal(size=(n, 3)))
     return xyz, cov6, v.astype(np.float32)
 
@@ -123,13 +124,13 @@ def _case_psum(mesh):
     return dict(state=_np_state(tmesh.unpad(tmesh.gather(st, mesh), n)), t=t)
 
 
-def _tiled_setup(mesh, tc=None):
+def _tiled_setup(mesh):
     from gsmpm_tpu_torch.parallel.tiled_sharded import sharded_tile_config
 
     state, model, bcs, grid = t_problem()
     n = state.x.shape[0]
     st, md, _, _ = tmesh.pad_particles(state, model, mesh.world_size)
-    tc = tc or sharded_tile_config(G, st.x.shape[0], mesh.world_size)
+    tc = sharded_tile_config(G, st.x.shape[0], mesh.world_size)
     return n, st, md, bcs, grid, tc
 
 
@@ -157,7 +158,8 @@ def _case_tiled(mesh):
     out = state_from_soa(unpack_q(q, soa_from_state(st)))
     out = dataclasses.replace(out, cov=postprocess(out)[0])
     return dict(state=_np_state(tmesh.unpad(out, n)), t=t, ok=bool(ts.ok),
-                rebuckets=len(rebuckets), nchunk_local=int(ts.chunk_tile.shape[0]), nchunk=tc.nchunk)
+                rebuckets=len(rebuckets),
+                nchunk_local=int(ts.chunk_tile.shape[0]), nchunk=tc.nchunk)
 
 
 def _case_render(mesh):
@@ -177,17 +179,28 @@ def _case_render(mesh):
 def _case_overflow(mesh):
     from gsmpm_tpu_torch.parallel.engines import MeshSimEngine
 
-    n, st, md, bcs, grid, tc = _tiled_setup(mesh)
+    from gsmpm_tpu_torch.parallel import tiled_sharded
+
+    n, st, md, bcs, grid, _ = _tiled_setup(mesh)
     # an occupied-tile cap below the 8 tiles the particles occupy (plus
     # the chunks that make nchunk a multiple of the ranks): bootstrap
     # overflows and the frame is redone on psum
-    small = tc._replace(n_occ_cap=1)
-    small = small._replace(n_occ_cap=1 + (-small.nchunk) % mesh.world_size)
-    eng = MeshSimEngine(mesh, bcs, grid, DT, SUBSTEPS, prefer="tiled",
-                        tile_config=small)
-    st_l, md_l = tmesh.shard((st, md), mesh)
-    out, t, _ = eng.frame(st_l, md_l, 0.0)
-    return dict(engine=eng.engine, cap=small.occ_cap,
+    real, caps = tiled_sharded.sharded_tile_config, []
+
+    def small_cap(n_grid, n_particles, ndev):
+        tc = real(n_grid, n_particles, ndev)._replace(n_occ_cap=1)
+        tc = tc._replace(n_occ_cap=1 + (-tc.nchunk) % ndev)
+        caps.append(tc.occ_cap)
+        return tc
+
+    tiled_sharded.sharded_tile_config = small_cap
+    try:
+        eng = MeshSimEngine(mesh, bcs, grid, DT, SUBSTEPS, prefer="tiled")
+        st_l, md_l = tmesh.shard((st, md), mesh)
+        out, t, _ = eng.frame(st_l, md_l, 0.0)
+    finally:
+        tiled_sharded.sharded_tile_config = real
+    return dict(engine=eng.engine, caps=caps,
                 state=_np_state(tmesh.unpad(tmesh.gather(out, mesh), n)))
 
 
@@ -404,10 +417,13 @@ def test_psum_frame_matches_single_and_jax(ranks, single, jax_golden):
 def test_tiled_sharded_frame_matches_single(ranks, single, jax_golden):
     world, _, res = ranks
     got = res["tiled"]
-    assert got["ok"] and got["t"] == single["t"] and got["rebuckets"] == 1
+    # one gathered rebucket at the start of each 10-substep segment, as in
+    # gsmpm_tpu's engine
+    assert got["ok"] and got["t"] == single["t"]
+    assert got["rebuckets"] == SUBSTEPS // 10
     assert got["nchunk_local"] * world == got["nchunk"]
-    # K1 / K2 twins per rank, rebucketed per segment instead of per
-    # substep: the grid sums in another order
+    # K1 / K2 twins per rank, rebucketed per segment instead of on drift:
+    # the grid sums in another order
     _close(got["state"], single["tiled"], f"tiled x{world} vs port")
     _close(got["state"], jax_golden, f"tiled x{world} vs gsmpm_tpu")
 
@@ -439,7 +455,8 @@ def test_render_block_rows_matches_jax(single):
 def test_forced_cap_overflow_redoes_the_frame_on_psum(ranks):
     world, _, res = ranks
     got = res["overflow"]
-    assert got["engine"] == "psum" and got["cap"] < 8
+    assert got["engine"] == "psum"
+    assert len(got["caps"]) == 1 and got["caps"][0] < 8
     # redone from the same start state: the psum engine's frame exactly
     for f in STATE_FIELDS:
         np.testing.assert_array_equal(got["state"][f],
