@@ -101,6 +101,16 @@ PUSH_SPEED = 10.0
 # engines' float sums in other orders (C, the velocity moments scaled by
 # 4 / dx^2, 1e-4)
 GOLDEN_RTOL = dict(x=1e-5, v=1e-5, F=1e-5, F_trial=1e-5, C=1e-4)
+# a mesh fit step against a single-device fit frame, beside twice the
+# spread of two single-device runs: K1's float atomics move the state by
+# ~1e-6 of its scale and flip depth ties in the render, so two runs of the
+# bench fit frame on an H100 differ by up to ~2e-3 of the loss and by
+# 0.27-0.38 at single pixels (the image's largest difference is printed,
+# not held), and the sharded step's rows render (exact depth order) sits
+# up to ~4e-3 of the loss from the two-tier render (quantized depth).  Of
+# each value: the loss 2e-2, the tied gradients 1e-3 (the CPU tests'
+# gradient tolerance), the updated pair 1e-6 (~8 float32 ulps of logE ~ 4)
+MESH_FIT_REL = dict(loss=2e-2, g_logE=1e-3, g_y=1e-3, logE=1e-6, y=1e-6)
 # a kernel row's numbers beyond the required keys, copied into the kernels
 # line: the share of the bound, K1 and K2 at the fit's shapes and their
 # blocks, K3's cull, K4/K5 per tier, the culled walks' blocks, cull,
@@ -110,7 +120,9 @@ ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "fit_ms",
               "fit_max_abs_err", "fit_rel_err", "fit_blocks",
               "culled_share", "bound_all_walked_ms", "kept_pairs",
               "bit_equal", "depth_max", "depth_mean", "mesh_rel_err",
-              "mesh_max_abs_err", "mesh_ms", "mesh_K")
+              "mesh_max_abs_err", "mesh_ms", "mesh_K",
+              "mesh_fit_max_abs_err", "mesh_fit_rel_err", "mesh_fit_ms",
+              "mesh_fit_K")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1585,6 +1597,247 @@ def small_fit_parity(dev, stream: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# slice 5: the multi-device fit steps on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+def _fit_summary(loss, img, grads, logE, y, secs, counts):
+    """A fit step's numbers: loss, image, the tied gradient (the finite
+    per-particle gradient summed), the updated scalar pair."""
+    def tied(g):
+        return float(torch.where(torch.isfinite(g), g, 0.0).sum())
+
+    return dict(loss=float(loss), image=img.detach(), g_logE=tied(grads[0]),
+                g_y=tied(grads[1]), logE=float(logE[0]), y=float(y[0]),
+                s=secs, launches=counts)
+
+
+def _fit_diffs(a, b):
+    diff = (a["image"] - b["image"]).abs()
+    return dict(loss=abs(a["loss"] - b["loss"]), image=float(diff.max()),
+                image_mean=float(diff.mean()),
+                g_logE=abs(a["g_logE"] - b["g_logE"]),
+                g_y=abs(a["g_y"] - b["g_y"]), logE=abs(a["logE"] - b["logE"]),
+                y=abs(a["y"] - b["y"]))
+
+
+def _blend_twins(dev, F, counts, meta):
+    """K4 and K5 (a seeded cotangent) against their twins on one window
+    set: (K4 max abs err on rgb / T, K5 worst relative err per dF row
+    group, K4 ms, K5 ms)."""
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+
+    out_k = cb.blend_fwd(counts, F, meta)
+    out_r = cb.blend_core_ref(counts, F, meta)
+    g = torch.zeros_like(out_k)
+    g[:, 0:4] = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(F.shape[0], 4, meta.P)).astype(np.float32)).to(dev)
+    dF_k = cb.blend_bwd(F, out_k, g, meta)
+    dF_r = cb.blend_core_bwd_ref(F, out_k, g, meta)
+    torch.cuda.synchronize()
+    err4 = float((out_k[:, 0:4] - out_r[:, 0:4]).abs().max())
+    rel5 = max(float((dF_k[:, r] - dF_r[:, r]).abs().max())
+               / max(float(dF_r[:, r].abs().max()), 1e-30)
+               for r in (slice(0, 6), slice(6, 7), slice(8, 11)))
+    ms4 = cuda_ms(lambda: cb.blend_fwd(counts, F, meta), 5)
+    ms5 = cuda_ms(lambda: cb.blend_bwd(F, out_k, g, meta), 5)
+    return err4, rel5, ms4, ms5
+
+
+def mesh_fit_phase(dev, ident, gt, cams, wrappers):
+    """parallel/sharded.py's fit steps on a one-rank NCCL group built in
+    this process, at identify's configuration from the steady fit frame's
+    start state (frame 1, its camera and target): the sharded step
+    (SystemIdentifier(mesh=data 1 x tile 1): K1 / K2 / K6 on the rank's
+    shard, the grid all-reduced, the rows render K4 / K5 through the
+    differentiable all-gathers), the camera-DP step on one camera (the
+    two-tier render) and the sharded step with the occupied-tile cap forced
+    below the blob's tiles (sim_ok False, redone on golden).  Each is held
+    against two single-device fit_frame runs from the same state and
+    parameters (MESH_FIT_REL); the image's largest difference is printed
+    beside the two single runs' and beside the rows render against the
+    two-tier render of the same state.  Launches per step are exact; K4 /
+    K5 are held against their twins on the rows render's windows.  A
+    one-rank group cannot show a device-count factor: the CPU tests carry
+    that (tests/test_torch_parallel_fit.py)."""
+    import os
+
+    import torch.distributed as dist
+
+    from gsmpm_tpu_torch.parallel.mesh import make_mesh
+    from gsmpm_tpu_torch.parallel.sharded import (
+        make_camera_dp_fit_step, stack_cameras,
+    )
+    from gsmpm_tpu_torch.render import cuda_blend as cb
+    from gsmpm_tpu_torch.render.renderer import (
+        block_origins, block_rows_candidates, preprocess,
+    )
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.fitting import SystemIdentifier
+
+    cam, target = cams[1], gt[1]
+    logE0, y0 = ident.model.logE.clone(), ident.model.y.clone()
+    state0 = ident.reset_state()
+    fcfg = ident.fit_cfg
+    per_step = {w.__name__: 0 for w in wrappers}
+    per_step.update({k: v * FIT_SUBSTEPS for k, v in PER_SUBSTEP.items()})
+    tiers = 2 if ident.raster_cfg.k_dense > 0 else 1
+
+    def timed(fn):
+        _zero(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _counts(wrappers)
+
+    def expect(counts, what, **kw):
+        want = dict(per_step, **kw)
+        check(counts == want, f"{what}: launches {counts}, expected {want}")
+
+    singles = []
+    for _ in range(2):
+        ident._set_params(logE0.clone(), y0.clone())
+        (loss, _, _, img), secs, counts = timed(
+            lambda: ident.fit_frame(state0, 0.0, cam, target))
+        expect(counts, "single fit frame", blend_fwd=tiers, blend_bwd=tiers)
+        singles.append(_fit_summary(loss, img, ident.last_grads,
+                                    ident.model.logE, ident.model.y, secs,
+                                    counts))
+    ident._set_params(logE0, y0)
+    spread = _fit_diffs(*singles)
+
+    def close(got, what):
+        d = _fit_diffs(got, singles[0])
+        tol = {k: 2 * spread[k] + rel * abs(singles[0][k])
+               for k, rel in MESH_FIT_REL.items()}
+        bad = {k: (d[k], tol[k]) for k in tol if d[k] > tol[k]}
+        check(not bad, f"{what} vs single fit_frame: {bad} (spread "
+                       f"{spread})")
+        return d
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        out = dict(single=[{k: v for k, v in r.items() if k != "image"}
+                           for r in singles], spread=spread)
+        mesh = make_mesh((("data", 1), ("tile", 1)), "cuda")
+        sid = SystemIdentifier(ident.scene, ident.mpm_cfg,
+                               init_velocity=ident.init_velocity,
+                               fit_cfg=fcfg, raster_cfg=ident.raster_cfg,
+                               bg=ident.bg, mesh=mesh)
+        sid.reset_state()  # its BCs and grid transform (ident's)
+        # settle the rows render's k_row / k_block caps on this frame
+        sid._set_params(logE0.clone(), y0.clone())
+        sid.fit_frame(state0, 0.0, cam, target)
+        rebuilds = sid._total_rebuilds
+        sid._set_params(logE0.clone(), y0.clone())
+        (loss, st_s, _, img), secs, counts = timed(
+            lambda: sid.fit_frame(state0, 0.0, cam, target))
+        check(sid._total_rebuilds == rebuilds and sid.n_dropped_last == 0,
+              "sharded step: caps resized or dropped in the measured step")
+        check(sid.sim_engine == "tiled_vjp", f"engine {sid.sim_engine}")
+        expect(counts, "sharded step", blend_fwd=1, blend_bwd=1)
+        sharded = _fit_summary(loss, img, sid.last_grads, sid.model.logE,
+                               sid.model.y, secs, counts)
+        d_sh = close(sharded, "sharded step")
+        # the routes' own image difference: the two-tier render of the
+        # state that the sharded step rendered with its rows render
+        with torch.no_grad():
+            route_img, _ = ident._render_state(st_s, cam)
+        route = float((img - route_img).abs().max())
+
+        mesh_c = make_mesh((("cam", 1),), "cuda")
+        opacity, features = ident._appearance()
+        step = make_camera_dp_fit_step(
+            mesh_c, ident.model, ident.bcs, ident.grid, fcfg.frame_dt,
+            fcfg.substeps_per_frame, ident.bg, opacity, features,
+            ident.scene.sh_degree, ident.scaling, ident.pos_center,
+            ident.mpm_cfg.grid_extent, raster_cfg=ident.raster_cfg,
+            lr_logE=fcfg.lr_logE, lr_y=fcfg.lr_y, grad_clip=fcfg.grad_clip,
+            tie_params=fcfg.tie_params, sim_engine="tiled_vjp")
+        dp, secs, counts = timed(lambda: step(
+            logE0, y0, state0, 0.0, stack_cameras([cam]), target[None]))
+        check(dp.sim_ok and dp.n_dropped == 0,
+              f"camera-DP: sim_ok {dp.sim_ok}, n_dropped {dp.n_dropped}")
+        expect(counts, "camera-DP step", blend_fwd=tiers, blend_bwd=tiers)
+        camdp = _fit_summary(dp.loss, dp.image, dp.grads, dp.logE, dp.y,
+                             secs, counts)
+        d_dp = close(camdp, "camera-DP step")
+
+        # K4 / K5 against their twins on the rows render's windows
+        xyz, cov = ident._world_geometry(st_s)
+        pre = preprocess(xyz, cov, opacity, features, cam,
+                         ident.scene.sh_degree, sid.raster_cfg)
+        order = torch.sort(torch.where(pre.valid, pre.depth, torch.inf),
+                           stable=True).indices
+        _, nbx, nby = block_origins(cam, sid.raster_cfg)
+        cand, cnts, origins = block_rows_candidates(pre, order, 0.0, nby, nbx,
+                                                    sid.raster_cfg)
+        F, cnts, meta = cb.blend_inputs(cand, cnts, origins, sid.raster_cfg)
+        err4, rel5, ms4, ms5 = _blend_twins(dev, F, cnts, meta)
+        check(err4 <= 2e-3, f"mesh fit K4: max err {err4}")
+        check(rel5 <= 1e-4, f"mesh fit K5: rel err {rel5}")
+
+        # the occupied-tile cap below the blob's tiles: sim_ok False on the
+        # rank, the step redone on golden (no tiled kernel after the failed
+        # forward's K1 / K2 per substep)
+        real = tiles.default_tile_config
+        tiles.default_tile_config = \
+            lambda g, n: real(g, n)._replace(n_occ_cap=1)
+        try:
+            sid._set_params(logE0.clone(), y0.clone())
+            (loss_g, _, _, img_g), secs_g, counts = timed(
+                lambda: sid.fit_frame(state0, 0.0, cam, target))
+        finally:
+            tiles.default_tile_config = real
+        check(sid.sim_engine == "golden", f"overflow: engine {sid.sim_engine}")
+        check(np.isfinite(float(loss_g)) and bool(torch.isfinite(img_g).all()),
+              f"golden redo: loss {float(loss_g)}")
+        expect(counts, "overflow step", p2g_tiled=FIT_SUBSTEPS,
+               g2p_tiled=FIT_SUBSTEPS, sored_tiled=0, blend_fwd=1,
+               blend_bwd=1)
+        golden = _fit_summary(loss_g, img_g, sid.last_grads, sid.model.logE,
+                              sid.model.y, secs_g, counts)
+        d_go = _fit_diffs(golden, sharded)
+        out.update(
+            sharded={k: v for k, v in sharded.items() if k != "image"},
+            camdp={k: v for k, v in camdp.items() if k != "image"},
+            golden_redo={k: v for k, v in golden.items() if k != "image"},
+            diff_sharded=d_sh, diff_camdp=d_dp, route_image=route,
+            golden_vs_tiled=d_go, rows_K=int(F.shape[2]),
+            rows_windows=int(F.shape[0]), k4_err=err4, k5_rel=rel5,
+            k4_ms=ms4, k5_ms=ms5, k_row=sid.raster_cfg.k_row,
+            k_block=sid.raster_cfg.k_block)
+        fmt = lambda d: ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+        print(f"mesh fit (1 NCCL rank), {MAIN_N} gaussians, {FIT_RES}^2, "
+              f"{FIT_SUBSTEPS} substeps, tied: single fit_frame "
+              f"{singles[0]['s']:.3f} / {singles[1]['s']:.3f} s, sharded step "
+              f"{sharded['s']:.3f} s, camera-DP step {camdp['s']:.3f} s, "
+              f"golden redo after the forced overflow {secs_g:.3f} s; "
+              f"single-run spread {fmt(spread)}; sharded vs single "
+              f"{fmt(d_sh)} (the rows render vs the two-tier render of its "
+              f"state: image {route:.3g}); camera-DP vs single {fmt(d_dp)} "
+              f"(tol twice the spread plus, of each value, {MESH_FIT_REL}; "
+              "the image not held); "
+              f"golden redo vs sharded (not gated) {fmt(d_go)}; tied "
+              f"gradient single {singles[0]['g_logE']:.6g} / "
+              f"{singles[1]['g_logE']:.6g}, sharded {sharded['g_logE']:.6g},"
+              f" camera-DP {camdp['g_logE']:.6g}; launches per step "
+              f"{ {k: v for k, v in sharded['launches'].items() if v} }; "
+              f"K4 / K5 on the rows render's {F.shape[0]} windows x K "
+              f"{F.shape[2]} (caps k_row {sid.raster_cfg.k_row} / k_block "
+              f"{sid.raster_cfg.k_block}): {ms4:.4f} / {ms5:.4f} ms, K4 max "
+              f"err {err4:.3g} (tol 2e-3), K5 rel err {rel5:.3g} (tol "
+              "1e-4)", flush=True)
+        counts_all = {k: sharded["launches"][k] + camdp["launches"][k]
+                      + golden["launches"][k] for k in per_step}
+        return counts_all, out
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # slice 4: the golden route, checkpoint / resume, the one-rank mesh
 # ---------------------------------------------------------------------------
 
@@ -2078,7 +2331,7 @@ def main() -> int:
 
     # slice 2: the identification path
     ident, fit_counts, fit = identify_path(dev, wrappers)
-    fit["steady"], first, _, _ = steady_fit(dev, ident, wrappers)
+    fit["steady"], first, fit_gt, fit_cams = steady_fit(dev, ident, wrappers)
     fit["profile"] = fit_profile(dev, ident, first, fit["steady"])
     blend_rows, fit["blend_tiers"] = blend_phases(dev, ident, first)
     rows += blend_rows + [sored_phase(dev, ident, first)]
@@ -2088,7 +2341,13 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
             "rel_err", "blocks") if k in fit_row})
     fit["small_parity"] = small_fit_parity(dev)
-    del ident, first
+
+    # slice 5: the multi-device fit steps, on a one-rank NCCL group
+    t0 = time.perf_counter()
+    mesh_fit_counts, mesh_fit = mesh_fit_phase(dev, ident, fit_gt, fit_cams,
+                                               wrappers)
+    mesh_fit["phase_s"] = time.perf_counter() - t0
+    del ident, first, fit_gt, fit_cams
     torch.cuda.empty_cache()
 
     # slice 3: the stream-rendered fit (path A) and the packed render (B)
@@ -2120,7 +2379,14 @@ def main() -> int:
         if r["name"] == "blend_fwd":
             r.update(mesh_max_abs_err=mesh["render"]["k4_err"],
                      mesh_ms=mesh["render"]["k4_ms"],
-                     mesh_K=mesh["render"]["K"])
+                     mesh_K=mesh["render"]["K"],
+                     mesh_fit_max_abs_err=mesh_fit["k4_err"],
+                     mesh_fit_ms=mesh_fit["k4_ms"],
+                     mesh_fit_K=mesh_fit["rows_K"])
+        if r["name"] == "blend_bwd":
+            r.update(mesh_fit_rel_err=mesh_fit["k5_rel"],
+                     mesh_fit_ms=mesh_fit["k5_ms"],
+                     mesh_fit_K=mesh_fit["rows_K"])
 
     # each kernel's own path: the one its slice ported it for
     own_path = dict(stream_blend="simulate", stream_blend_bwd="stream_fit",
@@ -2135,7 +2401,8 @@ def main() -> int:
                    "stream_fit": sfit_counts[name],
                    "packed": packed_counts[name],
                    "golden_route": golden_counts[name],
-                   "resume": resume_counts[name], "mesh": mesh_counts[name]}
+                   "resume": resume_counts[name], "mesh": mesh_counts[name],
+                   "mesh_fit": mesh_fit_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
         check(by_path[own_path.get(name, "identify")] > 0,
               f"{name} not launched on its own path")
@@ -2156,7 +2423,8 @@ def main() -> int:
     print(json.dumps({"main_path": main, "identify_path": fit,
                       "stream_fit_path": sfit, "packed_path": packed,
                       "golden_route_path": golden, "resume_path": resume,
-                      "mesh_path": mesh, "slice4_s": slice4_s}))
+                      "mesh_path": mesh, "slice4_s": slice4_s,
+                      "mesh_fit_path": mesh_fit}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

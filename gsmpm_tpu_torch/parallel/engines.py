@@ -17,7 +17,8 @@ not-ok is redone from the same start state on the psum engine, which
 stays in use from then on, and the switch is announced.
 
 The halo engines (``halo``, ``halo_tiled``, ``halo_tiled2d``) are not
-ported yet (ROADMAP A4).  Where the JAX package would pick
+ported yet (ROADMAP A4).  System identification on a mesh takes its own
+engines (``tiled_vjp``, ``golden``) in parallel/sharded.py's fit steps.  Where the JAX package would pick
 ``halo_tiled`` (TPU, n_grid >= 96) the port picks ``tiled``: another
 engine, the same result.
 """

@@ -4,10 +4,23 @@ Port of gsmpm_tpu/parallel/mesh.py.  The JAX mesh is single-controller
 SPMD over the devices of one program; the port's is multi-process
 ``torch.distributed``: one process per GPU (``torchrun --nproc_per_node N``),
 each holding a contiguous block of the particles.  ``make_mesh`` joins the
-default process group (NCCL on CUDA, gloo on the CPU), ``shard`` slices
-this rank's block of every per-particle tensor and ``gather`` is the
-all-gather along the particle axis; they replace the JAX package's
-``particle_pspec`` and ``_gather_particles``.
+default process group (NCCL on CUDA, gloo on the CPU) and gives every mesh
+axis its own process group (the ranks that differ only in that axis's
+index, row-major as the JAX mesh lays its devices); ``shard`` slices this
+rank's block of every per-particle tensor and ``gather`` is the all-gather
+along the particle axis; they replace the JAX package's ``particle_pspec``
+and ``_gather_particles``.
+
+The fit steps (parallel/sharded.py) differentiate through collectives.
+``all_reduce_sum`` and ``all_gather_grad`` are autograd Functions with the
+adjoints that give the single-device gradient of a loss that every rank
+computes alike: the adjoint of an all-reduce is the all-reduce of the
+cotangents (each rank's cotangent carries only its own reads of the sum),
+the adjoint of an all-gather is this rank's slice of the cotangent (every
+rank holds the whole, equal cotangent).  Summing the gathered cotangents
+instead, as ``torch.distributed.nn.functional.all_gather`` and the
+transpose of JAX's ``all_gather`` do, multiplies the gradient by the
+axis size.
 
 Padding to a multiple of the mesh size uses physically inert fillers:
 mass = vol = 0 contributes nothing to P2G and opacity = 0 nothing to the
@@ -30,7 +43,9 @@ from gsmpm_tpu_torch.utils import resolve_device
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place in the mesh: axis names and sizes (row-major
-    over the ranks), rank, world size, device and process group."""
+    over the ranks), rank, world size, device and process group (the
+    world's), and per axis this rank's index and the group of the ranks
+    that share every other index."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
@@ -38,6 +53,52 @@ class Mesh:
     world_size: int
     device: torch.device
     group: object
+    coords: Tuple[int, ...]
+    axis_groups: Tuple[object, ...]
+
+    def _axis(self, axis: str) -> int:
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh axes {self.axis_names} have no {axis!r}")
+        return self.axis_names.index(axis)
+
+    def axis_size(self, axis: Optional[str] = None) -> int:
+        """Ranks along axis (None: the world)."""
+        if axis is None:
+            return self.world_size
+        return self.sizes[self._axis(axis)]
+
+    def axis_index(self, axis: Optional[str] = None) -> int:
+        """This rank's index along axis (None: its rank)."""
+        return self.rank if axis is None else self.coords[self._axis(axis)]
+
+    def axis_group(self, axis: Optional[str] = None):
+        """The process group along axis (None: the world's)."""
+        return self.group if axis is None else \
+            self.axis_groups[self._axis(axis)]
+
+
+def _axis_groups(sizes: Tuple[int, ...], rank: int, world: int):
+    """(this rank's index along each axis, its group along each axis).
+    Every rank creates every group, in the same order, as
+    ``dist.new_group`` requires; an axis that spans the world takes the
+    world's group."""
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+    coords = tuple((rank // st) % n for st, n in zip(strides, sizes))
+    groups = []
+    for n, st in zip(sizes, strides):
+        if n == world:
+            groups.append(dist.group.WORLD)
+            continue
+        mine = None
+        for base in range(world):
+            if (base // st) % n:
+                continue
+            ranks = [base + k * st for k in range(n)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        groups.append(mine)
+    return coords, tuple(groups)
 
 
 def make_mesh(axes: Tuple[Tuple[str, int], ...] = (("data", -1),),
@@ -73,8 +134,10 @@ def make_mesh(axes: Tuple[Tuple[str, int], ...] = (("data", -1),),
     if math.prod(sizes) != world:
         raise ValueError(f"mesh {dict(zip(names, sizes))} needs "
                          f"{math.prod(sizes)} processes, the group has {world}")
-    return Mesh(names, tuple(sizes), dist.get_rank(), world, dev,
-                dist.group.WORLD)
+    rank = dist.get_rank()
+    coords, groups = _axis_groups(tuple(sizes), rank, world)
+    return Mesh(names, tuple(sizes), rank, world, dev, dist.group.WORLD,
+                coords, groups)
 
 
 # ---------------------------------------------------------------------------
@@ -189,29 +252,102 @@ def unpad(tree, n: int):
     return _map_particles(tree, _leading(tree), lambda t: t[:n])
 
 
-def shard(tree, mesh: Mesh):
+def shard(tree, mesh: Mesh, axis: Optional[str] = None):
     """This rank's contiguous block of every per-particle tensor: those
     whose leading dimension is that of tree's first tensor, a multiple of
-    the world size."""
+    the size of ``axis`` (None: the world)."""
     n = _leading(tree)
-    if n % mesh.world_size:
-        raise ValueError(f"{n} particles do not split over {mesh.world_size} "
-                         "ranks: pad them first (pad_particles)")
-    nl = n // mesh.world_size
-    return _map_particles(tree, n, lambda t: t[mesh.rank * nl:
-                                                (mesh.rank + 1) * nl])
+    size, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    if n % size:
+        raise ValueError(f"{n} particles do not split over {size} ranks: "
+                         "pad them first (pad_particles)")
+    nl = n // size
+    return _map_particles(tree, n, lambda t: t[i * nl:(i + 1) * nl])
 
 
-def all_gather_cat(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
-    """Every rank's t concatenated along dim, in rank order."""
+def all_gather_cat(t: torch.Tensor, mesh: Mesh, dim: int = 0,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """Every rank's t along ``axis`` (None: the world) concatenated along
+    dim, in rank order."""
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, t, group=mesh.group)
+    parts = [torch.empty_like(t) for _ in range(mesh.axis_size(axis))]
+    dist.all_gather(parts, t, group=mesh.axis_group(axis))
     return torch.cat(parts, dim=dim)
 
 
-def gather(tree, mesh: Mesh):
+def gather(tree, mesh: Mesh, axis: Optional[str] = None):
     """The full arrays of every per-particle tensor of this rank's shard
     (as shard picks them): the all-gather along the particle axis."""
     return _map_particles(tree, _leading(tree),
-                          lambda t: all_gather_cat(t, mesh))
+                          lambda t: all_gather_cat(t, mesh, axis=axis))
+
+
+def broadcast_object(obj, mesh: Mesh):
+    """Rank 0's obj on every rank: host decisions (a resized raster
+    config) that must agree across the mesh."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=mesh.group,
+                               device=mesh.device)
+    return box[0]
+
+
+def all_ranks(flag: bool, mesh: Mesh) -> bool:
+    """True when flag is True on every rank (an all-reduce MIN)."""
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(t[0])
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives
+# ---------------------------------------------------------------------------
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank read the same sum: its total cotangent is the sum of
+        # the ranks' cotangents
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of t over the ranks of group; differentiable when autograd
+    records t, else summed in place (no copy)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllReduceSum.apply(t, group)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, size, index):
+        t = t.contiguous()
+        ctx.n, ctx.index = t.shape[0], index
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the consumer is replicated: every rank holds the whole cotangent,
+        # this rank's part of it is its slice (a sum over the ranks would
+        # count it once per rank)
+        return g[ctx.index * ctx.n:(ctx.index + 1) * ctx.n], None, None, None
+
+
+def all_gather_grad(t: torch.Tensor, mesh: Mesh,
+                    axis: Optional[str] = None) -> torch.Tensor:
+    """Every rank's t along ``axis`` (None: the world) concatenated along
+    dim 0, differentiable for a consumer that every rank runs alike."""
+    return _AllGather.apply(t, mesh.axis_group(axis), mesh.axis_size(axis),
+                            mesh.axis_index(axis))

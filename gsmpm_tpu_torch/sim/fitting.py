@@ -1,6 +1,6 @@
 """System identification: learn E, nu by gradient descent through sim+render.
 
-Port of gsmpm_tpu/sim/fitting.py on one device.  Per-particle logE, y with
+Port of gsmpm_tpu/sim/fitting.py.  Per-particle logE, y with
 E = 10^logE and nu = 0.49 sigmoid(y), updated by clipped SGD (lr 0.8 /
 1.6).  One observed frame: ``substeps_per_frame`` differentiable substeps,
 the windowed drop-free render, the L1 + SSIM loss, backward, SGD.
@@ -16,6 +16,12 @@ K5, the two-tier windows once a resize set k_dense) or, with
 frame whose render dropped candidates is re-run after the caps (or the
 stream's tier budgets) are resized from the measured geometry, so no
 truncated gradient is applied.
+
+With a ``mesh`` (parallel/mesh.py, one process per device) ``fit_frame``
+runs the sharded fit step of parallel/sharded.py: particles over the data
+axis (padded with inert fillers to its size), block rows over the tile
+axis.  Its update is the single-device update; the model, the state and
+the image stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -94,9 +100,37 @@ def sgd_learn(logE, y, g_logE, g_y, cfg: FitConfig):
     return logE - cfg.lr_logE * g_logE, y - cfg.lr_y * g_y
 
 
-def _detach_state(s: MPMState) -> MPMState:
+def detach_state(s: MPMState) -> MPMState:
     return MPMState(**{f.name: getattr(s, f.name).detach()
                        for f in dataclasses.fields(s)})
+
+
+def world_geometry(state: MPMState, scaling, pos_center, grid_extent: float):
+    """(xyz_w, cov_w) of a post-substep state: the render geometry,
+    cov = F Sigma0 F^T taken back to world space."""
+    F = state.F
+    cov6 = upper_from_mat(F @ mat_from_upper(state.init_cov)
+                          @ F.transpose(-1, -2))
+    return grid2world(state.x, cov6, scaling, pos_center, grid_extent)
+
+
+def fit_substeps(engine: str, state: MPMState, model, bcs, t: float,
+                 n_sub: int, grid: GridConfig, dt: float, group=None):
+    """(state, t, ok) after n_sub differentiable fitting substeps on
+    ``engine``: "tiled_vjp" (the tiled layout with the hand-written
+    transfer VJPs; ok False on an occupied-tile-cap overflow) or "golden"
+    (sim/solver.py, checkpointed per substep).  With a process ``group``,
+    state is this rank's particle shard and the grid is summed over the
+    group's ranks; ok is then this rank's."""
+    if engine == "tiled_vjp":
+        soa, t, ok = run_substeps_tiled_fitting(
+            soa_from_state(state), model, bcs, t, n_sub, grid, dt,
+            group=group)
+        return state_from_soa(soa), t, bool(ok)
+    state, t = run_substeps(state, model, bcs, t, n_sub, grid, dt,
+                            fitting=True, checkpoint_policy="substep",
+                            group=group)
+    return state, t, True
 
 
 _APPEARANCE = ("xyz", "features_dc", "features_rest", "opacity", "scaling")
@@ -114,7 +148,13 @@ class SystemIdentifier:
         fit_cfg: FitConfig = FitConfig(),
         raster_cfg: RasterConfig = RasterConfig(),
         bg: Optional[torch.Tensor] = None,
+        mesh=None,
+        data_axis: str = "data",
+        tile_axis: str = "tile",
     ):
+        """mesh: a parallel.mesh.Mesh; fit_frame then runs the sharded fit
+        step (particles over ``data_axis``, block rows over ``tile_axis``
+        when the mesh has it), every rank calling it alike."""
         self.scene = scene
         self.device = scene.xyz.device
         self.mpm_cfg = dataclasses.replace(mpm_cfg, fitting=True)
@@ -123,6 +163,10 @@ class SystemIdentifier:
         self.bg = (torch.ones(3, device=self.device) if bg is None
                    else bg.to(self.device))
         self.grid = GridConfig(mpm_cfg.n_grid, mpm_cfg.grid_extent)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.tile_axis = tile_axis
+        self._pad_mult = 1 if mesh is None else mesh.axis_size(data_axis)
         n = scene.num_gaussians
         self.n_orig = n
         self.init_velocity = (
@@ -135,6 +179,10 @@ class SystemIdentifier:
                                              float(self.model.logE.mean())),
                              torch.full_like(self.model.y,
                                              float(self.model.y.mean())))
+        if self._pad_mult > 1:
+            from gsmpm_tpu_torch.parallel.mesh import pad_model
+
+            self.model = pad_model(self.model, self._pad_mult)
         # "tiled_vjp" on CUDA, "golden" elsewhere; a test may set it
         self._sim_engine = None
         self.n_dropped_last = 0
@@ -168,6 +216,10 @@ class SystemIdentifier:
                                   self.mpm_cfg.grid_extent)
             state = init_state(g_xyz, g_cov, vol, self.mpm_cfg,
                                self.init_velocity)
+        if self._pad_mult > 1:
+            from gsmpm_tpu_torch.parallel.mesh import pad_state
+
+            state = pad_state(state, self._pad_mult)
         dev = self.device
         self.bcs = BCSet(grid_ops=(StickyGroundBC(
             torch.tensor([1.0, 0.6, 1.0], device=dev),
@@ -175,19 +227,26 @@ class SystemIdentifier:
         return state
 
     def _appearance(self):
-        return self.scene.get_opacity().reshape(-1), self.scene.get_features()
+        """(opacity, features) padded to the model's size: fillers have
+        opacity 0 and blend to nothing."""
+        opacity = self.scene.get_opacity().reshape(-1)
+        features = self.scene.get_features()
+        k = self.model.logE.shape[0] - opacity.shape[0]
+        if k:
+            opacity = torch.cat([opacity, opacity.new_zeros(k)])
+            features = torch.cat(
+                [features, features.new_zeros((k,) + features.shape[1:])])
+        return opacity, features
 
     def _world_geometry(self, state: MPMState):
-        """(xyz_w, cov_w) of a post-substep state: the render geometry."""
-        F = state.F
-        cov6 = upper_from_mat(F @ mat_from_upper(state.init_cov)
-                              @ F.transpose(-1, -2))
-        return grid2world(state.x, cov6, self.scaling, self.pos_center,
-                          self.mpm_cfg.grid_extent)
+        return world_geometry(state, self.scaling, self.pos_center,
+                              self.mpm_cfg.grid_extent)
 
-    def _measure_and_bump(self, state: MPMState, camera: Camera) -> None:
+    def _measure_and_bump(self, state: MPMState, camera: Camera,
+                          mesh=None) -> None:
         """Resize the rasterizer caps from the measured maxima at the
-        dropped frame's end-of-frame geometry (+25-50% headroom)."""
+        dropped frame's end-of-frame geometry (+25-50% headroom); on a
+        ``mesh`` every rank takes rank 0's resize."""
         with torch.no_grad():
             xyz_w, cov_w = self._world_geometry(state)
             opacity, _ = self._appearance()
@@ -204,24 +263,44 @@ class SystemIdentifier:
                   f"{cfg.n_dense}->{new.n_dense}, k_row {cfg.k_row}->"
                   f"{new.k_row}, k_block {cfg.k_block}->{new.k_block}); "
                   "re-running the frame")
+        if mesh is not None:
+            from gsmpm_tpu_torch.parallel.mesh import broadcast_object
+
+            new = broadcast_object(new, mesh)
         self.raster_cfg = new
         self._k_bumps += 1
         self._total_rebuilds += 1
 
-    # --- the differentiable frame ---
+    def _drop_free(self, attempt, camera: Camera, mesh=None):
+        """Run ``attempt() -> (result, ok, n_dropped, end state)`` until a
+        try is drop-free: an engine overflow (ok False) moves the run to
+        the golden engine for good, a drop resizes the caps from the
+        measured geometry, and the same frame is re-run either way, so no
+        truncated gradient is applied.  On a ``mesh`` every rank must read
+        the same ok and n_dropped.  Returns the last try's result."""
+        while True:
+            result, ok, nd, state2 = attempt()
+            if not ok:
+                print("fitting: tiled-VJP sim engine overflow — falling "
+                      "back to the golden planes engine")
+                self._sim_engine = "golden"
+                continue
+            self.n_dropped_last = nd
+            if nd == 0:
+                self._k_bumps = 0  # the budget bounds consecutive failures
+                break
+            if self._k_bumps >= self._max_cap_rebuilds:
+                break
+            self._measure_and_bump(state2, camera, mesh)
+        if self.n_dropped_last and not self._drop_warned:
+            print(f"WARNING: fitting render still dropped "
+                  f"{self.n_dropped_last} candidates after {self._k_bumps} "
+                  "cap rebuilds — gradients are biased against a truncated "
+                  "image")
+            self._drop_warned = True
+        return result
 
-    def _substeps(self, state: MPMState, t: float, model, n_sub: int,
-                  engine: str):
-        """(state, t, ok) after n_sub fitting substeps on ``engine``."""
-        dt = self.fit_cfg.frame_dt / self.fit_cfg.substeps_per_frame
-        if engine == "tiled_vjp":
-            soa, t, ok = run_substeps_tiled_fitting(
-                soa_from_state(state), model, self.bcs, t, n_sub, self.grid,
-                dt)
-            return state_from_soa(soa), t, bool(ok)
-        state, t = run_substeps(state, model, self.bcs, t, n_sub, self.grid,
-                                dt, fitting=True, checkpoint_policy="substep")
-        return state, t, True
+    # --- the differentiable frame ---
 
     def frame_loss(self, logE, y, state: MPMState, t: float, camera: Camera,
                    gt):
@@ -232,8 +311,11 @@ class SystemIdentifier:
         mu, lam = mu_lam_from_logE_y(logE, y)
         model = dataclasses.replace(self.model, logE=logE, y=y, mu=mu,
                                     lam=lam)
-        state2, t2, ok = self._substeps(
-            state, t, model, self.fit_cfg.substeps_per_frame, self.sim_engine)
+        fcfg = self.fit_cfg
+        state2, t2, ok = fit_substeps(
+            self.sim_engine, state, model, self.bcs, t,
+            fcfg.substeps_per_frame, self.grid,
+            fcfg.frame_dt / fcfg.substeps_per_frame)
         if not ok:
             return None, state2, t2, None, 0, False
         xyz_w, cov_w = self._world_geometry(state2)
@@ -248,40 +330,61 @@ class SystemIdentifier:
 
         Returns (loss, new_state, new_t, rendered_image), all detached;
         updates self.model's logE / y."""
-        while True:
+        if self.mesh is not None:
+            return self._fit_frame_sharded(state, t, camera, gt)
+
+        def attempt():
             logE = self.model.logE.detach().requires_grad_(True)
             y = self.model.y.detach().requires_grad_(True)
             with torch.enable_grad():
                 loss, state2, t2, img, nd, ok = self.frame_loss(
                     logE, y, state, t, camera, gt)
-            if not ok:
-                print("fitting: tiled-VJP sim engine overflow — falling "
-                      "back to the golden planes engine")
-                self._sim_engine = "golden"
-                continue
-            self.n_dropped_last = nd
-            if nd == 0:
-                self._k_bumps = 0  # the budget bounds consecutive failures
-                break
-            if self._k_bumps >= self._max_cap_rebuilds:
-                break
-            # drop-free or nothing: resize from the measured maxima at this
-            # geometry and re-run the same frame; the truncated gradient is
-            # never applied
-            self._measure_and_bump(_detach_state(state2), camera)
+            return ((loss, state2, t2, img, logE, y), ok, nd,
+                    detach_state(state2))
+
+        loss, state2, t2, img, logE, y = self._drop_free(attempt, camera)
         g_logE, g_y = torch.autograd.grad(loss, (logE, y))
-        if self.n_dropped_last and not self._drop_warned:
-            print(f"WARNING: fitting render still dropped "
-                  f"{self.n_dropped_last} candidates after {self._k_bumps} "
-                  "cap rebuilds — gradients are biased against a truncated "
-                  "image")
-            self._drop_warned = True
         with torch.no_grad():
             new_logE, new_y = sgd_learn(logE.detach(), y.detach(), g_logE,
                                         g_y, self.fit_cfg)
             self._set_params(new_logE, new_y)
         self.last_grads = (g_logE, g_y)
-        return loss.detach(), _detach_state(state2), t2, img.detach()
+        return loss.detach(), detach_state(state2), t2, img.detach()
+
+    def _fit_frame_sharded(self, state: MPMState, t: float, camera: Camera,
+                           gt):
+        """fit_frame on the mesh: the sharded fit step of
+        parallel/sharded.py, the whole padded state in and out, each rank
+        stepping its block along the data axis."""
+        from gsmpm_tpu_torch.parallel.mesh import gather, shard
+        from gsmpm_tpu_torch.parallel.sharded import make_sharded_fit_step
+
+        mesh, axis, fcfg = self.mesh, self.data_axis, self.fit_cfg
+        opacity, features = self._appearance()
+        st_l, logE_l, y_l, opac_l, feat_l = shard(
+            (state, self.model.logE, self.model.y, opacity, features), mesh,
+            axis)
+
+        def attempt():
+            # built at the engine and caps in use (a closure: no compile)
+            step = make_sharded_fit_step(
+                mesh, self.model, self.bcs, self.grid, fcfg.frame_dt,
+                fcfg.substeps_per_frame, camera, self.bg, opac_l, feat_l,
+                self.scene.sh_degree, self.scaling, self.pos_center,
+                self.mpm_cfg.grid_extent, lr_logE=fcfg.lr_logE,
+                lr_y=fcfg.lr_y, grad_clip=fcfg.grad_clip, data_axis=axis,
+                tile_axis=self.tile_axis, tie_params=fcfg.tie_params,
+                rcfg=self.raster_cfg, sim_engine=self.sim_engine)
+            out = step(logE_l, y_l, st_l, t, gt)
+            state2 = gather(out.state, mesh, axis)
+            return (out, state2), out.sim_ok, out.n_dropped, state2
+
+        out, state2 = self._drop_free(attempt, camera, mesh)
+        logE, y, g_logE, g_y = gather((out.logE, out.y) + out.grads, mesh,
+                                      axis)
+        self._set_params(logE, y)
+        self.last_grads = (g_logE, g_y)
+        return out.loss, state2, out.t, out.image
 
     # --- readout ---
 

@@ -18,7 +18,6 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.distributed as dist
 
 from gsmpm_tpu_torch.ops import m33
 from gsmpm_tpu_torch.ops.constitutive import (
@@ -117,7 +116,8 @@ def p2g_soa(state: SoAState, stress: Tuple, grid: GridConfig, dt,
     Mass, APIC momentum and the stress impulse of every stencil node, as
     the reference's p2g; all 27 x N contributions land with one
     ``index_add_``.  With a process ``group`` the (4, G^3) grid is summed
-    over its ranks (one all-reduce), each rank holding a particle shard."""
+    over its ranks (one all-reduce, differentiable while autograd records
+    it), each rank holding a particle shard."""
     g = grid.n_grid
     fxs, ws, dws, nodes = _stencil(state.x, grid)
     v, C, sig = state.v, state.C, stress
@@ -144,7 +144,9 @@ def p2g_soa(state: SoAState, stress: Tuple, grid: GridConfig, dt,
     acc = torch.zeros((4, g * g * g), dtype=mass.dtype, device=mass.device)
     acc = acc.index_add(1, ids, vals.reshape(4, -1))
     if group is not None:
-        dist.all_reduce(acc, group=group)
+        from gsmpm_tpu_torch.parallel.mesh import all_reduce_sum
+
+        acc = all_reduce_sum(acc, group)
     return acc[0], (acc[1], acc[2], acc[3])
 
 

@@ -35,7 +35,8 @@ def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
 
     ``incremental_cov`` advances cov every substep (the reference's
     update_cov); ``group`` all-reduces the dense grid over the ranks of a
-    process group, each holding a particle shard (parallel/sharded.py).
+    process group, each holding a particle shard (parallel/sharded.py),
+    through a differentiable all-reduce while autograd records the run.
 
     ``checkpoint_policy="substep"`` recomputes each substep in the backward
     pass (``torch.utils.checkpoint``), keeping only the particle state

@@ -30,7 +30,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.utils.checkpoint
 
 from gsmpm_tpu_torch.ops.constitutive import (
@@ -563,10 +562,13 @@ def grid_phase(windows: torch.Tensor, model: MPMModel, bcs, time: float,
     """P2G windows -> fold -> grid update + grid BCs -> extract: the octant
     velocity blocks (ntiles, 192, 64) the G2P kernel reads.  With a process
     ``group`` the folded blocked grid is summed over its ranks first (one
-    all-reduce), each rank holding a slice of the chunks."""
+    all-reduce, differentiable while autograd records it), each rank
+    holding a slice of the chunks or its own particle shard."""
     acc = fold_windows(windows, tc)
     if group is not None:
-        dist.all_reduce(acc, group=group)
+        from gsmpm_tpu_torch.parallel.mesh import all_reduce_sum
+
+        acc = all_reduce_sum(acc, group)
     grid_v = grid_update_soa(
         acc[:, :, :, 0:T_TILE],
         (acc[:, :, :, T_TILE:2 * T_TILE],
@@ -672,10 +674,13 @@ def frame_tiled(
 
 
 def _fitting_transfer(q, aux, ct, cf, cl, model: MPMModel, bcs, time: float,
-                      grid: GridConfig, tc: TileConfig, dt: float):
+                      grid: GridConfig, tc: TileConfig, dt: float,
+                      group=None):
     """The differentiable body of a fitting substep on an already bucketed
     q: Green StVK stress on F -> P2G -> grid phase -> G2P -> F := F_trial.
-    The transfers are the hand-written VJPs of sim/transfer_vjp.py."""
+    The transfers are the hand-written VJPs of sim/transfer_vjp.py; with a
+    process ``group`` the folded grid is summed over its ranks (each
+    holding a particle shard) in the grid phase."""
     from gsmpm_tpu_torch.sim.transfer_vjp import g2p_fit, p2g_fit
 
     F = tuple(q[RF + i] for i in range(9))
@@ -685,7 +690,7 @@ def _fitting_transfer(q, aux, ct, cf, cl, model: MPMModel, bcs, time: float,
         torch.zeros((16 - 9, q.shape[1]), dtype=q.dtype, device=q.device),
     ])
     windows = p2g_fit(q, sig, ct, cf, cl, grid, tc, dt)
-    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt)
+    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt, group)
     new_q = g2p_fit(q, win_in, ct, cf, cl, grid, tc, dt)
     # the fitting path advances F directly, no return map
     return torch.cat([new_q[:RF], new_q[RFT:RFT + 9], new_q[RF + 9:]])
@@ -699,6 +704,7 @@ def substep_tiled_fitting(
     grid: GridConfig,
     tc: TileConfig,
     dt: float,
+    group=None,
 ) -> TiledState:
     """One differentiable fitting substep in the tiled layout.
 
@@ -709,13 +715,19 @@ def substep_tiled_fitting(
     forward pass computed and is never recomputed: while autograd records,
     only ``_fitting_transfer`` is checkpointed (recomputed in the backward
     pass), whose float atomics may round differently the second time.
+
+    ``group``: particle-sharded fitting (parallel/sharded.py) -- ts buckets
+    this rank's own particles over the whole grid, the folded grid is
+    all-reduced over the group inside the checkpointed transfer (the
+    recompute repeats the collective, in the same order on every rank) and
+    each rank rebuckets its shard on its own drift flag (no collective).
     """
     if bool(ts.need_rebucket):  # one device->host read per substep
         s2 = rebucket(ts, grid, tc)
         # sticky: a later successful rebucket must not mask an overflow
         ts = dataclasses.replace(s2, ok=s2.ok & ts.ok)
     args = (ts.q, ts.aux, ts.chunk_tile, ts.chunk_first, ts.chunk_live,
-            model, bcs, time, grid, tc, dt)
+            model, bcs, time, grid, tc, dt, group)
     if torch.is_grad_enabled():
         new_q = torch.utils.checkpoint.checkpoint(
             _fitting_transfer, *args, use_reentrant=False)
@@ -734,6 +746,7 @@ def run_substeps_tiled_fitting(
     grid: GridConfig,
     dt: float,
     tc: Optional[TileConfig] = None,
+    group=None,
 ):
     """Differentiable fitting window in the tiled layout.
 
@@ -742,14 +755,16 @@ def run_substeps_tiled_fitting(
     frame on the golden engine (sim/solver.py:run_substeps).  While
     autograd records, each substep is checkpointed: only the particle rows
     are kept between substeps and the grid is recomputed in the backward
-    pass, the JAX package's memory policy.
+    pass, the JAX package's memory policy.  ``group``: soa is this rank's
+    particle shard and the grid is summed over the group's ranks
+    (substep_tiled_fitting); ok is this rank's, the caller reduces it.
     """
     n = soa.mass.shape[0]
     if tc is None:
         tc = default_tile_config(grid.n_grid, n)
     ts = bootstrap(soa, model, grid, tc)
     for _ in range(n_substeps):
-        ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt)
+        ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt, group)
         time = _advance(time, dt)
     q = to_original_order(ts, n)
     return unpack_q(q, soa), time, ts.ok

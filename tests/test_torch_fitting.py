@@ -308,5 +308,6 @@ def test_identify_end_to_end_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "Loaded observations: 2 frames x 2 cameras" in out
     assert np.isfinite(ident3.optimized_E)
+    # --mesh takes auto | none (the mesh itself: test_torch_parallel_fit.py)
     with pytest.raises(SystemExit):
-        tidentify.main(["--mesh", "auto"])
+        tidentify.main(["--mesh", "data=2"])
