@@ -39,15 +39,23 @@
    (MeshSimEngine's tiled and psum frames against the single-device
    frames, the tile-sharded render against the stream render, K1 / K2 /
    K4 against their twins on that path's inputs).
-8. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
+8. Slice 6, the halo engines, on a one-rank NCCL group of their own at
+   the bench's secondary shape (the 245,760-gaussian box on the 100^3
+   grid, 100 substeps): auto-selection picks halo_tiled; one
+   MeshSimEngine frame each of halo, halo_tiled and halo_tiled2d (1 x 1)
+   with no fallback, exact K1 / K2 launches (100 each for the tiled pair,
+   0 for halo), 0 bytes through the neighbour exchange, within 1e-4 of
+   the single-device tiled (or golden) frame; K1 / K2 against their twins
+   on the halo_tiled path's inputs; substeps/s of each.
+9. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
    CUDA blocks, the culled share of (slot, 16 x 8 pixel group) pairs, the
    walk depth and a rerun bit-equality check (K8 also against K4 and K9
    against K5 on the same windows); their bounds charge the gate to the
    walked pairs inside the cull box, with the all-walked bound beside
    them.
-9. Every path is driven with every launch counter set to 0 just before it
+10. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-10. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+11. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -122,7 +130,7 @@ ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "fit_ms",
               "bit_equal", "depth_max", "depth_mean", "mesh_rel_err",
               "mesh_max_abs_err", "mesh_ms", "mesh_K",
               "mesh_fit_max_abs_err", "mesh_fit_rel_err", "mesh_fit_ms",
-              "mesh_fit_K")
+              "mesh_fit_K", "halo_rel_err")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2288,6 +2296,130 @@ def mesh_phase(dev, wrappers):
 
 
 
+def halo_phase(dev, wrappers):
+    """The halo engines (slice 6) on a one-rank NCCL group of their own, at
+    the bench's secondary shape: 245,760 gaussians on the 100^3 grid, 100
+    substeps a frame.  One MeshSimEngine frame each of halo, halo_tiled
+    and halo_tiled2d (1 x 1): no fallback, K1 / K2 launches exact (100
+    each for the tiled pair, 0 for halo), 0 bytes through the neighbour
+    exchange on one rank, the frame within 1e-4 of each field's max of the
+    single-device frame from the same state (tiles.frame_tiled, or golden
+    run_substeps for halo); auto-selection picks halo_tiled; K1 and K2
+    against their twins on the halo_tiled path's inputs."""
+    import os
+
+    import torch.distributed as dist
+
+    from gsmpm_tpu_torch.apps.simulate import prepare
+    from gsmpm_tpu_torch.parallel import mesh as pmesh
+    from gsmpm_tpu_torch.parallel.engines import MeshSimEngine
+    from gsmpm_tpu_torch.parallel.halo_tiled import _exchange_accum_tiles, \
+        _exchange_edges_tiles
+    from gsmpm_tpu_torch.sim import cuda_mpm, tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
+    from gsmpm_tpu_torch.sim.solver import postprocess, run_substeps
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh((("data", 1),), "cuda")
+        cfg = bench_config(n_grid=100, output_path=str(OUT_DIR / "halo"))
+        dt, steps = cfg.mpm.substep_dt, cfg.mpm.steps_per_frame
+        su = prepare(cfg, synthetic=MAIN_N, synthetic_res=MAIN_RES,
+                     device=str(dev), quiet=True)
+        st0, md0 = pmesh.shard((su.state, su.model), mesh)
+        auto = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,
+                             state=st0).engine
+        check(auto == "halo_tiled", f"halo: auto-selection picked {auto}")
+        out, engines = dict(auto=auto), {}
+        for engine in ("halo", "halo_tiled", "halo_tiled2d"):
+            eng = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,
+                                prefer=engine, state=st0)
+            _zero(wrappers)
+            pmesh.neighbor_ppermute.bytes_sent = 0
+            t0 = time.perf_counter()
+            st, _, _ = eng.frame(st0, md0, 0.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts(wrappers)
+            sent = pmesh.neighbor_ppermute.bytes_sent
+            check(eng.engine == engine, f"halo {engine}: fell back")
+            want = 0 if engine == "halo" else steps
+            check(counts["p2g_tiled"] == counts["g2p_tiled"] == want,
+                  f"halo {engine}: transfer launches {counts}")
+            check(sent == 0, f"halo {engine}: {sent} bytes sent on one rank")
+            engines[engine] = (eng, st)
+            out[engine] = dict(frame_s=wall, substeps_per_s=steps / wall,
+                               launches=counts, bytes_sent=sent,
+                               geometry=str(eng._geometry[:-1]))
+        ts = tiles.bootstrap(soa_from_state(su.state), su.model, su.grid,
+                             su.tc)
+        ts, soa, _ = tiles.frame_tiled(ts, soa_from_state(su.state),
+                                       su.model, su.bcs, 0.0, steps, su.grid,
+                                       su.tc, dt)
+        check(bool(ts.ok), "halo: the single-device tiled frame overflowed")
+        single_tiled = state_from_soa(soa)
+        golden, _ = run_substeps(su.state, su.model, su.bcs, 0.0, steps,
+                                 su.grid, dt, checkpoint_policy=None)
+        golden = dataclasses.replace(golden, cov=postprocess(golden)[0])
+        for engine, (_, st) in engines.items():
+            errs = _rel_errs(st, golden if engine == "halo" else single_tiled)
+            out[engine]["rel_err_vs_single"] = errs
+            check(max(errs.values()) <= 1e-4,
+                  f"halo {engine} vs single device: {errs}")
+            o = out[engine]
+            print(f"halo ({engine}, 1 NCCL rank, n_grid 100): 1 frame x "
+                  f"{steps} substeps in {o['frame_s']:.3f} s "
+                  f"({o['substeps_per_s']:.2f} substeps/s), launches K1 "
+                  f"{o['launches']['p2g_tiled']} K2 "
+                  f"{o['launches']['g2p_tiled']}, bytes sent {o['bytes_sent']}"
+                  f"; relative err vs the single-device "
+                  f"{'golden' if engine == 'halo' else 'tiled'} frame "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (tol 1e-4); {o['geometry']}", flush=True)
+
+        # K1 / K2 against their twins on the halo_tiled path's inputs: the
+        # rank's slots after the frame, bucketed as a segment buckets them,
+        # given seeded motion, through the grid phase with the halo hooks
+        eng = engines["halo_tiled"][0]
+        soa, aux, mat, _ = eng._halo[1]
+        tstarts, _, tc = eng._geometry[:3]
+        model_l = dataclasses.replace(md0, mu=aux[0], lam=aux[1],
+                                      viscosity=aux[2], material=mat)
+        ts_loc = seeded_motion(tiles.bootstrap(soa, model_l, su.grid, tc))
+        ts_loc, sig = tiles.particle_phase(ts_loc, model_l, su.bcs, 0.0, dt)
+        win_k = cuda_mpm.p2g_tiled(ts_loc, sig, su.grid, tc, dt)
+        win_r = cuda_mpm.p2g_tiled_ref(ts_loc, sig, su.grid, tc, dt)
+        rel1 = float((window_components(win_k - win_r).abs().amax(dim=1)
+                      / window_components(win_r).abs().amax(dim=1)).max())
+        t0_, t1_ = tstarts[0], tstarts[1]
+        ext = tiles.grid_phase(
+            win_k, model_l, su.bcs, 0.0, su.grid, tc, dt,
+            grid_reduce=lambda a: _exchange_accum_tiles(a, t0_, t1_, mesh,
+                                                        None),
+            grid_exchange=lambda g: _exchange_edges_tiles(g, t0_, t1_, mesh,
+                                                          None))
+        q_k = cuda_mpm.g2p_tiled(ts_loc, ext, su.grid, tc, dt)
+        q_r = cuda_mpm.g2p_tiled_ref(ts_loc, ext, su.grid, tc, dt)
+        rel2 = max(float((q_k[r0:r0 + n] - q_r[r0:r0 + n]).abs().max())
+                   / float(q_r[r0:r0 + n].abs().max())
+                   for r0, n in ((tiles.RX, 3), (tiles.RV, 3), (tiles.RC, 9),
+                                 (tiles.RFT, 9)))
+        check(rel1 <= 1e-5, f"halo K1: relative err {rel1}")
+        check(rel2 <= 1e-5, f"halo K2: relative err {rel2}")
+        live = int((ts_loc.chunk_live == 1).sum())
+        print(f"halo_tiled path: K1 / K2 on the rank's {live} live chunks "
+              f"of {tc.nchunk} (tile cap {tc.occ_cap}): relative err "
+              f"{rel1:.3g} / {rel2:.3g} (tol 1e-5)", flush=True)
+        out.update(k1_rel_err=rel1, k2_rel_err=rel2)
+        counts_all = {k: max(out[e]["launches"][k] for e in engines)
+                      for k in out["halo_tiled"]["launches"]}
+        return counts_all, out
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2372,10 +2504,16 @@ def main() -> int:
     mesh_counts, mesh = mesh_phase(dev, wrappers)
     slice4_s = time.perf_counter() - t0
     print(f"slice 4 phases: {slice4_s:.1f} s", flush=True)
+    # slice 6: the halo engines, on a one-rank NCCL group
+    t0 = time.perf_counter()
+    halo_counts, halo = halo_phase(dev, wrappers)
+    halo["phase_s"] = time.perf_counter() - t0
+    print(f"halo phase: {halo['phase_s']:.1f} s", flush=True)
     for r in rows:
         if r["name"] in ("p2g_tiled", "g2p_tiled"):
-            r["mesh_rel_err"] = mesh["render"][
-                "k1_rel_err" if r["name"] == "p2g_tiled" else "k2_rel_err"]
+            key = "k1_rel_err" if r["name"] == "p2g_tiled" else "k2_rel_err"
+            r["mesh_rel_err"] = mesh["render"][key]
+            r["halo_rel_err"] = halo[key]
         if r["name"] == "blend_fwd":
             r.update(mesh_max_abs_err=mesh["render"]["k4_err"],
                      mesh_ms=mesh["render"]["k4_ms"],
@@ -2402,7 +2540,8 @@ def main() -> int:
                    "packed": packed_counts[name],
                    "golden_route": golden_counts[name],
                    "resume": resume_counts[name], "mesh": mesh_counts[name],
-                   "mesh_fit": mesh_fit_counts[name]}
+                   "mesh_fit": mesh_fit_counts[name],
+                   "halo": halo_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
         check(by_path[own_path.get(name, "identify")] > 0,
               f"{name} not launched on its own path")
@@ -2424,7 +2563,7 @@ def main() -> int:
                       "stream_fit_path": sfit, "packed_path": packed,
                       "golden_route_path": golden, "resume_path": resume,
                       "mesh_path": mesh, "slice4_s": slice4_s,
-                      "mesh_fit_path": mesh_fit}))
+                      "mesh_fit_path": mesh_fit, "halo_path": halo}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

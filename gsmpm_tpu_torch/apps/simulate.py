@@ -13,10 +13,14 @@ then runs the rest of the simulation, and ``incremental_cov`` takes the
 golden engine throughout; the switch is announced.
 
 ``--mesh data=N`` (under ``torchrun --nproc_per_node N``) shards the
-particles over N processes, one GPU each (parallel/): the tiled engine
-per rank with an all-reduced grid (or ``engine=psum``, the golden engine
-per shard), and the tile-sharded render (kernel K4).  Rank 0 writes the
-images, point clouds, video and checkpoints.
+particles over N processes, one GPU each (parallel/), with the engine
+picked in gsmpm_tpu's order or named by ``engine=``: ``halo_tiled`` /
+``halo_tiled2d`` (slabs or rectangles of tiles owned per rank, K1 / K2 on
+each rank's particles, boundary slabs exchanged with the neighbours),
+``tiled`` (K1 / K2 on each rank's chunks, the grid all-reduced), ``halo``
+(cell slabs, the golden engine per rank) or ``psum`` (the golden engine
+per shard, the grid all-reduced); the render is tile-sharded (kernel K4).
+Rank 0 writes the images, point clouds, video and checkpoints.
 
 ``--checkpoint_interval K`` saves the full state (state, material model,
 clock; unpadded) every K frames under <output_path>/checkpoints, and
@@ -211,10 +215,10 @@ def prepare(cfg: SimConfig, synthetic: Optional[int] = None,
 
 
 def parse_mesh(mesh: Optional[str]):
-    """--mesh auto | none | data=N[,engine=tiled|psum] -> (N, engine or
-    None).  ``auto`` is the torchrun world size (1 outside torchrun); N > 1
-    must equal it."""
-    from gsmpm_tpu_torch.parallel.engines import ENGINES, NOT_PORTED
+    """--mesh auto | none | data=N[,engine=halo|halo_tiled|halo_tiled2d|
+    tiled|psum] -> (N, engine or None).  ``auto`` is the torchrun world
+    size (1 outside torchrun); N > 1 must equal it."""
+    from gsmpm_tpu_torch.parallel.engines import ENGINES
 
     world = int(os.environ.get("WORLD_SIZE", 1))
     ndata, prefer = world, None
@@ -228,9 +232,6 @@ def parse_mesh(mesh: Optional[str]):
             ndata = 1
         elif part not in ("auto", ""):
             raise ValueError(f"unknown --mesh component: {part!r}")
-    if prefer in NOT_PORTED:
-        raise ValueError(f"--mesh engine={prefer} is not ported yet "
-                         "(ROADMAP A4); the port has engine=tiled|psum")
     if prefer is not None and prefer not in ENGINES:
         raise ValueError(f"unknown --mesh engine: {prefer!r}")
     if ndata > 1 and ndata != world:
@@ -308,7 +309,7 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
         engine = MeshSimEngine(
             mesh_obj, bcs, grid, mpm.substep_dt, n_steps,
             incremental_cov=mpm.incremental_cov, rotate_sh=mpm.rotate_sh,
-            prefer=prefer, quiet=quiet)
+            prefer=prefer, quiet=quiet, state=state)
         if not quiet:
             print(f"mesh: data={ndata}, sim engine: {engine.engine}, "
                   "render: tile-sharded")
@@ -462,10 +463,12 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="resume from the latest checkpoint in output_path")
     parser.add_argument("--mesh", type=str, default="auto",
-                        help='"auto" | "none" | "data=N[,engine=tiled|psum]": '
-                             "shard the particles over N processes "
-                             "(torchrun --nproc_per_node N); auto is the "
-                             "torchrun world size")
+                        help='"auto" | "none" | "data=N[,engine=halo|'
+                             'halo_tiled|halo_tiled2d|tiled|psum]": shard '
+                             "the particles over N processes (torchrun "
+                             "--nproc_per_node N); auto is the torchrun "
+                             "world size; without engine= the engine is "
+                             "picked in gsmpm_tpu's order")
     parser.add_argument("--synthetic_res", type=int, default=800,
                         help="render resolution for --synthetic scenes")
     parser.add_argument("--device", type=str, default="cuda",

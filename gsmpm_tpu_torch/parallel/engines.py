@@ -1,41 +1,53 @@
 """Multi-process engine selection for apps/simulate.
 
-Port of gsmpm_tpu/parallel/engines.py with its ``tiled`` and ``psum``
-engines.  ``MeshSimEngine`` puts both behind one
-(state, model, t) -> (state, t, R) step on this rank's particle shard:
+Port of gsmpm_tpu/parallel/engines.py.  ``MeshSimEngine`` puts the mesh
+engines behind one (state, model, t) -> (state, t, R) step on this rank's
+particle shard:
 
-- ``tiled`` -- CUDA default: the chunk-sharded tiled engine
-  (parallel/tiled_sharded.py, kernels K1 / K2 on each rank's chunks, one
-  blocked-grid all-reduce per substep);
+- ``halo_tiled`` -- CUDA, n_grid >= 96: x-tile slabs owned per rank,
+  kernels K1 / K2 on each rank's particles, boundary tile-slabs exchanged
+  with the neighbours (parallel/halo_tiled.py);
+- ``halo_tiled2d`` -- the same on (x, y) tile rectangles of a 2-D mesh,
+  where x-slabs do not fit (parallel/halo_tiled2d.py);
+- ``tiled`` -- CUDA below n_grid 96: the chunk-sharded tiled engine
+  (parallel/tiled_sharded.py, K1 / K2 on each rank's chunks, one
+  blocked-grid all-reduce a substep);
+- ``halo`` -- elsewhere at n_grid >= 64: x-slabs of cells, the golden
+  engine on each rank, halo strips exchanged (parallel/halo.py);
 - ``psum`` -- everywhere else, and with ``incremental_cov``: the golden
   engine on the particle shard with the dense grid all-reduced
-  (parallel/sharded.py).  Always valid; also the redo path when the tiled
+  (parallel/sharded.py).  Always valid; also the redo path when another
   engine's ``ok`` flag trips.
 
-Fallback semantics are the JAX package's: a frame whose engine reports
-not-ok is redone from the same start state on the psum engine, which
-stays in use from then on, and the switch is announced.
-
-The halo engines (``halo``, ``halo_tiled``, ``halo_tiled2d``) are not
-ported yet (ROADMAP A4).  System identification on a mesh takes its own
-engines (``tiled_vjp``, ``golden``) in parallel/sharded.py's fit steps.  Where the JAX package would pick
-``halo_tiled`` (TPU, n_grid >= 96) the port picks ``tiled``: another
-engine, the same result.
+A halo engine whose scene is too narrow for its slabs falls through to the
+next engine in the order.  Fallback semantics are the JAX package's: a
+frame whose engine reports not-ok is redone from the same start state on
+the psum engine, which stays in use from then on, and the switch is
+announced.  System identification on a mesh takes its own engines
+(``tiled_vjp``, ``golden``) in parallel/sharded.py's fit steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
-from gsmpm_tpu_torch.parallel.mesh import Mesh, gather
+import numpy as np
+
+from gsmpm_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_cat,
+    all_ranks,
+    gather,
+    reshape_mesh,
+)
 from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
 from gsmpm_tpu_torch.sim.solver import postprocess
 from gsmpm_tpu_torch.sim.state import GridConfig
 from gsmpm_tpu_torch.sim.tiles import bootstrap, unpack_q
 
-ENGINES = ("tiled", "psum")
-NOT_PORTED = ("halo", "halo_tiled", "halo_tiled2d")
+ENGINES = ("halo", "halo_tiled", "halo_tiled2d", "tiled", "psum")
+HALO_ENGINES = ("halo", "halo_tiled", "halo_tiled2d")
 
 
 def _largest_divisor_leq(n: int, cap: int) -> int:
@@ -45,18 +57,50 @@ def _largest_divisor_leq(n: int, cap: int) -> int:
     return 1
 
 
+def engine_order(prefer: Optional[str], device_type: str, n_grid: int,
+                 incremental_cov: bool) -> List[str]:
+    """The engines to try, in gsmpm_tpu's order (the port's CUDA where the
+    JAX package has its TPU): ``prefer`` alone when given; on CUDA without
+    incremental_cov, halo_tiled, halo_tiled2d, tiled, psum at n_grid >= 96
+    and tiled, psum below; elsewhere halo, halo_tiled2d, psum at n_grid
+    >= 64 without incremental_cov; else psum."""
+    if prefer is not None:
+        if prefer not in ENGINES:
+            raise ValueError(f"engine {prefer!r}: the port has {ENGINES}")
+        return [prefer]
+    if device_type == "cuda" and not incremental_cov:
+        return (["halo_tiled", "halo_tiled2d", "tiled", "psum"]
+                if n_grid >= 96 else ["tiled", "psum"])
+    if n_grid >= 64 and not incremental_cov:
+        return ["halo", "halo_tiled2d", "psum"]
+    return ["psum"]
+
+
+def mesh_2d_shape(ndev: int):
+    """(dx, dy) of the halo_tiled2d mesh over ndev ranks (dy the largest
+    divisor <= sqrt(ndev)), or None for a prime count above 2, which would
+    be 1-D (the 1-D engine already declined)."""
+    dy = _largest_divisor_leq(ndev, int(np.sqrt(ndev)))
+    if dy < 2 and ndev > 2:
+        return None
+    return ndev // dy, dy
+
+
 class MeshSimEngine:
     """Forward-sim engine over a mesh with selection and fallback.
 
     frame(state, model, t) -> (state', t', R) on this rank's particle
-    shard (R is None unless rotate_sh).  ``engine`` names the path in use
-    ("tiled" | "psum"); it may change to "psum" after a fallback.
+    shard (R is None unless rotate_sh).  ``engine`` names the path in use;
+    it may change to "psum" after a fallback.  ``state`` (this rank's shard
+    of the start state) is needed when a halo engine is in the order: the
+    slab quantiles are taken over every rank's gathered x, the same bytes
+    and so the same starts and engine on every rank.
     """
 
     def __init__(self, mesh: Mesh, bcs, grid: GridConfig, substep_dt: float,
                  n_steps: int, incremental_cov: bool = False,
                  rotate_sh: bool = False, prefer: Optional[str] = None,
-                 quiet: bool = True):
+                 quiet: bool = True, state=None):
         self.mesh = mesh
         self.bcs = bcs
         self.grid = grid
@@ -67,19 +111,51 @@ class MeshSimEngine:
         self.quiet = quiet
         self._psum_fn = None
         self._tiled = None  # [frame fn, tile config, this rank's TiledState]
-        self.engine = self._select(prefer)
+        # [(frame fn, bootstrap fn, slots a rank), this rank's slots]
+        self._halo = None
+        self._geometry = None  # the halo engine's starts and configs
+        self.engine = self._select(prefer, state)
 
-    def _select(self, prefer: Optional[str]) -> str:
-        """``engine=`` when given; else ``tiled`` on CUDA without
-        incremental_cov (the JAX package's TPU order minus the halo
-        engines), else ``psum``."""
-        if prefer is not None:
-            if prefer not in ENGINES:
-                raise ValueError(f"engine {prefer!r}: the port has {ENGINES}")
-            return prefer
-        if self.mesh.device.type == "cuda" and not self.incremental_cov:
-            return "tiled"
+    # --- selection -------------------------------------------------------
+
+    def _select(self, prefer: Optional[str], state) -> str:
+        order = engine_order(prefer, self.mesh.device.type,
+                             self.grid.n_grid, self.incremental_cov)
+        x = None
+        for name in order:
+            if name not in HALO_ENGINES:
+                return name
+            if x is None:
+                if state is None:
+                    raise ValueError(f"engine {name} needs the start state "
+                                     "(MeshSimEngine(..., state=))")
+                x = all_gather_cat(state.x, self.mesh).cpu().numpy()
+            geometry = self._halo_geometry(name, x)
+            if geometry is not None:  # else too narrow: fall through
+                self._geometry = geometry
+                return name
         return "psum"
+
+    def _halo_geometry(self, name: str, x: np.ndarray):
+        from gsmpm_tpu_torch.parallel import halo, halo_tiled, halo_tiled2d
+
+        g, ext, ndev = self.grid.n_grid, self.grid.grid_extent, \
+            self.mesh.world_size
+        if name == "halo":
+            return halo.quantile_slab_starts(x[:, 0], g, ext, ndev)
+        if name == "halo_tiled":
+            return halo_tiled.quantile_tile_starts(x[:, 0], g, ext, ndev)
+        shape = mesh_2d_shape(ndev)
+        if shape is None:
+            return None
+        res = halo_tiled2d.quantile_tile_starts_2d(x[:, :2], g, ext, *shape)
+        if res is None:
+            return None
+        # every rank lays out the same 2-D mesh, in the same order
+        mesh2 = reshape_mesh(self.mesh, (("hx", shape[0]), ("hy", shape[1])))
+        return (*res, mesh2)
+
+    # --- engines ---------------------------------------------------------
 
     def _post(self, state):
         cov6, R = postprocess(state, rotate_sh=self.rotate_sh)
@@ -128,13 +204,77 @@ class MeshSimEngine:
             unpack_q(q, soa_from_state(state))))
         return new_state, t2, R
 
+    def _halo_engine(self):
+        """(frame fn taking (slots, model, t), bootstrap of the gathered
+        state and model -> (every rank's slots, ok), slots a rank) of the
+        halo engine in use."""
+        from gsmpm_tpu_torch.parallel import halo, halo_tiled, halo_tiled2d
+
+        me = _largest_divisor_leq(self.n_steps, 10)
+        args = (self.bcs, self.grid)
+        if self.engine == "halo":
+            starts, hc = self._geometry
+            fn = halo.make_halo_frame(self.mesh, None, *args, hc, self.dt,
+                                      self.n_steps, migrate_every=me)
+            return ((lambda slots, model, t: fn(*slots, starts, model, t)),
+                    (lambda st, md: halo.bootstrap_slots(
+                        st, md, starts, self.grid, hc)), hc.cap)
+        if self.engine == "halo_tiled":
+            tstarts, hc, tc = self._geometry
+            fn = halo_tiled.make_halo_tiled_frame(
+                self.mesh, None, *args, hc, tc, self.dt, self.n_steps,
+                migrate_every=me)
+            return ((lambda slots, model, t: fn(*slots, tstarts, model, t)),
+                    (lambda st, md: halo_tiled.bootstrap_slots_tiled(
+                        st, md, tstarts, self.grid, hc)[0]), hc.cap)
+        txs, tys, hc2, tc, mesh2 = self._geometry
+        dx, dy = mesh2.sizes
+        fn = halo_tiled2d.make_halo_tiled2d_frame(
+            mesh2, "hx", "hy", *args, hc2, tc, self.dt, self.n_steps,
+            migrate_every=me)
+        return ((lambda slots, model, t: fn(*slots, txs, tys, model, t)),
+                (lambda st, md: halo_tiled2d.bootstrap_slots_2d(
+                    st, md, txs, tys, self.grid, hc2, dx, dy)), hc2.cap)
+
+    def _frame_halo(self, state, model, t):
+        """One frame of the halo engine in use, or None when the caller
+        must redo it on psum.  The rank's slots carry over to the next
+        frame; a not-ok frame drops them."""
+        from gsmpm_tpu_torch.parallel.halo import original_view, rank_segment
+
+        mesh = self.mesh
+        if self._halo is None:
+            self._halo = [self._halo_engine(), None]
+        (fn, boot, cap), slots = self._halo
+        if slots is None:
+            # partition every rank's particles replicated, keep this rank's
+            *every, ok0 = boot(*gather((state, model), mesh))
+            if not all_ranks(bool(ok0), mesh):
+                return None  # slot capacity overflow at bootstrap
+            slots = rank_segment(every, mesh.rank, cap)
+        *slots, full, t2, ok = fn(slots, model, t)
+        if not ok:
+            self._halo[1] = None
+            return None
+        self._halo[1] = tuple(slots)
+        nl = state.x.shape[0]
+        out = state_from_soa(original_view(full, (mesh.rank + 1) * nl,
+                                           mesh.rank * nl))
+        new_state, R = self._post(dataclasses.replace(
+            out, init_cov=state.init_cov))
+        return new_state, t2, R
+
     def frame(self, state, model, t):
-        if self.engine == "tiled":
-            out = self._frame_tiled(state, model, t)
+        if self.engine != "psum":
+            out = (self._frame_tiled(state, model, t)
+                   if self.engine == "tiled"
+                   else self._frame_halo(state, model, t))
             if out is not None:
                 return out
             if not self.quiet and self.mesh.rank == 0:
-                print("(tiled engine cap overflow: falling back to the "
+                what = ("cap overflow" if self.engine == "tiled"
+                        else "drift/overflow")
+                print(f"({self.engine} engine {what}: falling back to the "
                       "psum-sharded engine)", flush=True)
             self.engine = "psum"
         return self._frame_psum(state, model, t)

@@ -76,6 +76,11 @@ class Mesh:
         return self.group if axis is None else \
             self.axis_groups[self._axis(axis)]
 
+    def axis_stride(self, axis: Optional[str] = None) -> int:
+        """Global-rank distance between neighbours along axis (None: 1)."""
+        return 1 if axis is None else \
+            math.prod(self.sizes[self._axis(axis) + 1:])
+
 
 def _axis_groups(sizes: Tuple[int, ...], rank: int, world: int):
     """(this rank's index along each axis, its group along each axis).
@@ -125,6 +130,17 @@ def make_mesh(axes: Tuple[Tuple[str, int], ...] = (("data", -1),),
     if dist.get_backend() != backend:
         raise RuntimeError(f"the process group runs {dist.get_backend()}, a "
                            f"{dev.type} mesh needs {backend}")
+    return _lay_out(axes, dev)
+
+
+def reshape_mesh(mesh: Mesh, axes: Tuple[Tuple[str, int], ...]) -> Mesh:
+    """The ranks of mesh laid out on other (name, size) axes, on the same
+    device and world group (the halo_tiled2d engine's ("hx", "hy") mesh
+    over a 1-D data mesh).  Every rank must call it, in the same order."""
+    return _lay_out(axes, mesh.device)
+
+
+def _lay_out(axes, dev: torch.device) -> Mesh:
     world = dist.get_world_size()
     names = tuple(a[0] for a in axes)
     sizes = [a[1] for a in axes]
@@ -296,6 +312,44 @@ def all_ranks(flag: bool, mesh: Mesh) -> bool:
     t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=mesh.device)
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.group)
     return bool(t[0])
+
+
+def neighbor_ppermute(left_out: torch.Tensor, right_out: torch.Tensor,
+                      mesh: Mesh, axis: Optional[str] = None):
+    """The non-cyclic neighbour shifts of JAX's ``ppermute`` along axis
+    (None: the world): rank d's left_out goes to d - 1 and its right_out to
+    d + 1.  Returns (from_left, from_right): what the left neighbour sent
+    rightwards and what the right neighbour sent leftwards, zeros where
+    there is no neighbour (as ``ppermute`` fills a device no pair targets).
+
+    One ``batch_isend_irecv`` on the axis's group, peers by global rank;
+    every rank of the axis takes part (an edge rank with its one pair), a
+    one-rank axis sends nothing.  ``neighbor_ppermute.bytes_sent`` counts
+    the bytes this rank sends."""
+    n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    left_out, right_out = left_out.contiguous(), right_out.contiguous()
+    from_left, from_right = torch.zeros_like(right_out), \
+        torch.zeros_like(left_out)
+    if n == 1:
+        return from_left, from_right
+    group, stride = mesh.axis_group(axis), mesh.axis_stride(axis)
+    ops = []
+    if i > 0:
+        ops += [dist.P2POp(dist.isend, left_out, mesh.rank - stride, group),
+                dist.P2POp(dist.irecv, from_left, mesh.rank - stride, group)]
+        neighbor_ppermute.bytes_sent += left_out.numel() * \
+            left_out.element_size()
+    if i < n - 1:
+        ops += [dist.P2POp(dist.isend, right_out, mesh.rank + stride, group),
+                dist.P2POp(dist.irecv, from_right, mesh.rank + stride, group)]
+        neighbor_ppermute.bytes_sent += right_out.numel() * \
+            right_out.element_size()
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return from_left, from_right
+
+
+neighbor_ppermute.bytes_sent = 0
 
 
 # ---------------------------------------------------------------------------

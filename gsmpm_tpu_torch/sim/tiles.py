@@ -558,14 +558,24 @@ def particle_phase(ts: TiledState, model: MPMModel, bcs, time: float,
 
 def grid_phase(windows: torch.Tensor, model: MPMModel, bcs, time: float,
                grid: GridConfig, tc: TileConfig, dt: float,
-               group=None) -> torch.Tensor:
+               group=None, grid_reduce=None,
+               grid_exchange=None) -> torch.Tensor:
     """P2G windows -> fold -> grid update + grid BCs -> extract: the octant
     velocity blocks (ntiles, 192, 64) the G2P kernel reads.  With a process
     ``group`` the folded blocked grid is summed over its ranks first (one
     all-reduce, differentiable while autograd records it), each rank
-    holding a slice of the chunks or its own particle shard."""
+    holding a slice of the chunks or its own particle shard.
+
+    The spatial-decomposition hooks (parallel/halo_tiled.py):
+    ``grid_reduce(acc)`` replaces the all-reduce of the folded (T,T,T,32,64)
+    grid with the neighbours' boundary-slab accumulation, and
+    ``grid_exchange(grid_v)`` runs on the three (T,T,T,8,64) velocity
+    planes after the grid BCs (mask the tiles this rank does not own, fetch
+    the owners' boundary velocities)."""
     acc = fold_windows(windows, tc)
-    if group is not None:
+    if grid_reduce is not None:
+        acc = grid_reduce(acc)
+    elif group is not None:
         from gsmpm_tpu_torch.parallel.mesh import all_reduce_sum
 
         acc = all_reduce_sum(acc, group)
@@ -578,6 +588,8 @@ def grid_phase(windows: torch.Tensor, model: MPMModel, bcs, time: float,
     )  # 3 planes of (T,T,T,8,64)
     if bcs.grid_ops:
         grid_v = _apply_grid_bcs_blocked(grid_v, bcs, time, dt, grid, tc)
+    if grid_exchange is not None:
+        grid_v = grid_exchange(grid_v)
     return extract_windows(torch.cat(grid_v, dim=3), tc)
 
 
@@ -591,6 +603,8 @@ def substep_tiled(
     dt: float,
     group=None,
     rebucket_on_drift: bool = True,
+    grid_reduce=None,
+    grid_exchange=None,
 ) -> TiledState:
     """One MLS-MPM substep in the tiled layout.
 
@@ -601,6 +615,8 @@ def substep_tiled(
     ``group``: chunk-sharded multi-process mode (parallel/tiled_sharded.py)
     -- ts holds this rank's chunks and the folded grid is all-reduced over
     the group; rebucketing is then the caller's (rebucket_on_drift=False).
+    ``grid_reduce`` / ``grid_exchange``: the spatial-decomposition hooks of
+    grid_phase (parallel/halo_tiled.py), in place of the all-reduce.
     """
     from gsmpm_tpu_torch.sim.cuda_mpm import g2p_tiled, p2g_tiled
 
@@ -608,7 +624,8 @@ def substep_tiled(
         ts = rebucket(ts, grid, tc)
     ts, sig = particle_phase(ts, model, bcs, time, dt)
     windows = p2g_tiled(ts, sig, grid, tc, dt)
-    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt, group)
+    win_in = grid_phase(windows, model, bcs, time, grid, tc, dt, group,
+                        grid_reduce, grid_exchange)
     new_q = g2p_tiled(ts, win_in, grid, tc, dt)
     need = torch.max(new_q[RDRIFT]) > 0
     return dataclasses.replace(ts, q=new_q, need_rebucket=need)
@@ -660,14 +677,19 @@ def frame_tiled(
     grid: GridConfig,
     tc: TileConfig,
     dt: float,
+    grid_reduce=None,
+    grid_exchange=None,
 ):
     """One frame of substeps with a PERSISTENT tiled state.
 
     Returns (ts, soa, time); ts.ok False means the occupied-tile cap
-    overflowed during the frame.
+    overflowed during the frame.  ``grid_reduce`` / ``grid_exchange`` go to
+    every substep (substep_tiled).
     """
     for _ in range(n_substeps):
-        ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
+        ts = substep_tiled(ts, model, bcs, time, grid, tc, dt,
+                           grid_reduce=grid_reduce,
+                           grid_exchange=grid_exchange)
         time = _advance(time, dt)
     q = to_original_order(ts, tc.n_particles)
     return ts, unpack_q(q, soa_template), time
