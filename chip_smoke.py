@@ -41,7 +41,7 @@
    K4 against their twins on that path's inputs).
 8. Slice 6, the halo engines, on a one-rank NCCL group of their own at
    the bench's secondary shape (the 245,760-gaussian box on the 100^3
-   grid, 100 substeps): auto-selection picks halo_tiled; one
+   grid, 100 substeps): auto-selection picks tiled (ROADMAP C); one
    MeshSimEngine frame each of halo, halo_tiled and halo_tiled2d (1 x 1)
    with no fallback, exact K1 / K2 launches (100 each for the tiled pair,
    0 for halo), 0 bytes through the neighbour exchange, within 1e-4 of
@@ -2304,8 +2304,11 @@ def halo_phase(dev, wrappers):
     each for the tiled pair, 0 for halo), 0 bytes through the neighbour
     exchange on one rank, the frame within 1e-4 of each field's max of the
     single-device frame from the same state (tiles.frame_tiled, or golden
-    run_substeps for halo); auto-selection picks halo_tiled; K1 and K2
-    against their twins on the halo_tiled path's inputs."""
+    run_substeps for halo); auto-selection picks tiled (the port's CUDA
+    order, ROADMAP C); K1 and K2 against their twins on the halo_tiled
+    path's inputs.  It renders nothing: the frame a halo engine returns
+    goes through the same tile-sharded mesh render (render_block_rows, K4)
+    that mesh_phase holds against K4's twin."""
     import os
 
     import torch.distributed as dist
@@ -2331,7 +2334,7 @@ def halo_phase(dev, wrappers):
         st0, md0 = pmesh.shard((su.state, su.model), mesh)
         auto = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,
                              state=st0).engine
-        check(auto == "halo_tiled", f"halo: auto-selection picked {auto}")
+        check(auto == "tiled", f"halo: auto-selection picked {auto}")
         out, engines = dict(auto=auto), {}
         for engine in ("halo", "halo_tiled", "halo_tiled2d"):
             eng = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,

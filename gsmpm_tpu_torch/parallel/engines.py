@@ -4,27 +4,31 @@ Port of gsmpm_tpu/parallel/engines.py.  ``MeshSimEngine`` puts the mesh
 engines behind one (state, model, t) -> (state, t, R) step on this rank's
 particle shard:
 
-- ``halo_tiled`` -- CUDA, n_grid >= 96: x-tile slabs owned per rank,
-  kernels K1 / K2 on each rank's particles, boundary tile-slabs exchanged
-  with the neighbours (parallel/halo_tiled.py);
-- ``halo_tiled2d`` -- the same on (x, y) tile rectangles of a 2-D mesh,
-  where x-slabs do not fit (parallel/halo_tiled2d.py);
-- ``tiled`` -- CUDA below n_grid 96: the chunk-sharded tiled engine
+- ``tiled`` -- CUDA: the chunk-sharded tiled engine
   (parallel/tiled_sharded.py, K1 / K2 on each rank's chunks, one
   blocked-grid all-reduce a substep);
 - ``halo`` -- elsewhere at n_grid >= 64: x-slabs of cells, the golden
   engine on each rank, halo strips exchanged (parallel/halo.py);
+- ``halo_tiled2d`` -- elsewhere after ``halo``, when x-slabs do not fit:
+  (x, y) tile rectangles of a 2-D mesh, K1 / K2 (their twins on the CPU)
+  on each rank's particles (parallel/halo_tiled2d.py);
 - ``psum`` -- everywhere else, and with ``incremental_cov``: the golden
   engine on the particle shard with the dense grid all-reduced
   (parallel/sharded.py).  Always valid; also the redo path when another
-  engine's ``ok`` flag trips.
+  engine's ``ok`` flag trips;
+- ``halo_tiled`` -- by name only: x-tile slabs owned per rank, K1 / K2
+  on each rank's particles, boundary tile-slabs exchanged with the
+  neighbours (parallel/halo_tiled.py).
 
-A halo engine whose scene is too narrow for its slabs falls through to the
-next engine in the order.  Fallback semantics are the JAX package's: a
-frame whose engine reports not-ok is redone from the same start state on
-the psum engine, which stays in use from then on, and the switch is
-announced.  System identification on a mesh takes its own engines
-(``tiled_vjp``, ``golden``) in parallel/sharded.py's fit steps.
+gsmpm_tpu puts halo_tiled and halo_tiled2d ahead of tiled on its TPU at
+n_grid >= 96; on four H100s halo_tiled ran slower than tiled, so the
+port keeps tiled first on CUDA (ROADMAP C).  A halo engine whose scene
+is too narrow for its slabs falls through to the next engine in the
+order.  Fallback semantics are the JAX package's: a frame whose engine
+reports not-ok is redone from the same start state on the psum engine,
+which stays in use from then on, and the switch is announced.  System
+identification on a mesh takes its own engines (``tiled_vjp``,
+``golden``) in parallel/sharded.py's fit steps.
 """
 
 from __future__ import annotations
@@ -59,18 +63,17 @@ def _largest_divisor_leq(n: int, cap: int) -> int:
 
 def engine_order(prefer: Optional[str], device_type: str, n_grid: int,
                  incremental_cov: bool) -> List[str]:
-    """The engines to try, in gsmpm_tpu's order (the port's CUDA where the
-    JAX package has its TPU): ``prefer`` alone when given; on CUDA without
-    incremental_cov, halo_tiled, halo_tiled2d, tiled, psum at n_grid >= 96
-    and tiled, psum below; elsewhere halo, halo_tiled2d, psum at n_grid
-    >= 64 without incremental_cov; else psum."""
+    """The engines to try: ``prefer`` alone when given; on CUDA without
+    incremental_cov, tiled, psum at every n_grid (gsmpm_tpu's TPU order
+    starts with halo_tiled, halo_tiled2d at n_grid >= 96; ROADMAP C);
+    elsewhere, as gsmpm_tpu, halo, halo_tiled2d, psum at n_grid >= 64
+    without incremental_cov; else psum."""
     if prefer is not None:
         if prefer not in ENGINES:
             raise ValueError(f"engine {prefer!r}: the port has {ENGINES}")
         return [prefer]
     if device_type == "cuda" and not incremental_cov:
-        return (["halo_tiled", "halo_tiled2d", "tiled", "psum"]
-                if n_grid >= 96 else ["tiled", "psum"])
+        return ["tiled", "psum"]
     if n_grid >= 64 and not incremental_cov:
         return ["halo", "halo_tiled2d", "psum"]
     return ["psum"]

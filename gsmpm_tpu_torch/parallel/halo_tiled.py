@@ -65,6 +65,25 @@ from gsmpm_tpu_torch.sim.tiles import (
 _W = 2  # exchanged tile-slab width a direction (the window and a drift)
 
 
+def _axis_quantile_starts(coord: np.ndarray, nt: int, inv_dx: float,
+                          ndev: int) -> Optional[np.ndarray]:
+    """Equal-count quantile tile starts along one coordinate, or None when
+    the slabs cannot all be >= 2 tiles wide."""
+    tiles = np.clip((coord * inv_dx).astype(np.int64) // T_TILE, 0, nt - 1)
+    qs = np.quantile(tiles, np.linspace(0.0, 1.0, ndev + 1))
+    starts = np.round(qs).astype(np.int64)
+    starts[0], starts[-1] = 0, nt
+    # >= 2 tiles a slab: push up, then back down (a scene in a sub-range
+    # of the axis still gives valid slabs, with lighter edge ranks)
+    for d in range(1, ndev):
+        starts[d] = max(starts[d], starts[d - 1] + 2)
+    for d in range(ndev - 1, 0, -1):
+        starts[d] = min(starts[d], starts[d + 1] - 2)
+    if (np.diff(starts) < 2).any():
+        return None
+    return starts
+
+
 def quantile_tile_starts(
     x: np.ndarray, n_grid: int, grid_extent: float, ndev: int,
     cap_slack: float = 1.5,
@@ -82,18 +101,8 @@ def quantile_tile_starts(
         return None
     x = np.asarray(x)
     n = x.shape[0]
-    inv_dx = n_grid / grid_extent
-    tiles = np.clip((x * inv_dx).astype(np.int64) // T_TILE, 0, nt - 1)
-    qs = np.quantile(tiles, np.linspace(0.0, 1.0, ndev + 1))
-    starts = np.round(qs).astype(np.int64)
-    starts[0], starts[-1] = 0, nt
-    # >= 2 tiles a slab: push up, then back down (a scene in a sub-range
-    # of x still gives valid slabs, with lighter edge ranks)
-    for d in range(1, ndev):
-        starts[d] = max(starts[d], starts[d - 1] + 2)
-    for d in range(ndev - 1, 0, -1):
-        starts[d] = min(starts[d], starts[d + 1] - 2)
-    if (np.diff(starts) < 2).any():
+    starts = _axis_quantile_starts(x, nt, n_grid / grid_extent, ndev)
+    if starts is None:
         return None
     cap = int(-(-int(n * cap_slack) // (128 * ndev)) * 128)
     hc = HaloConfig(ndev=ndev, n_grid=n_grid, cap=cap, margin=T_TILE)

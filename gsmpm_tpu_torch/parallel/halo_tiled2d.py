@@ -27,8 +27,6 @@ It is the 1-D machinery once per axis, on that axis's process group:
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -44,6 +42,7 @@ from gsmpm_tpu_torch.parallel.halo import (
     segment_plan,
 )
 from gsmpm_tpu_torch.parallel.halo_tiled import (
+    _axis_quantile_starts,
     _exchange_accum_tiles,
     _fetch_edges_stacked,
     _own_mask_stacked,
@@ -54,23 +53,6 @@ from gsmpm_tpu_torch.parallel.mesh import Mesh
 from gsmpm_tpu_torch.sim.kernels import SoAState, soa_from_state
 from gsmpm_tpu_torch.sim.state import GridConfig, MPMModel
 from gsmpm_tpu_torch.sim.tiles import T_TILE, TileConfig
-
-
-def _axis_quantile_starts(coord: np.ndarray, nt: int, inv_dx: float,
-                          ndev: int) -> Optional[np.ndarray]:
-    """Equal-count quantile tile starts along one coordinate (the 1-D
-    quantile_tile_starts core)."""
-    tiles = np.clip((coord * inv_dx).astype(np.int64) // T_TILE, 0, nt - 1)
-    qs = np.quantile(tiles, np.linspace(0.0, 1.0, ndev + 1))
-    starts = np.round(qs).astype(np.int64)
-    starts[0], starts[-1] = 0, nt
-    for d in range(1, ndev):
-        starts[d] = max(starts[d], starts[d - 1] + 2)
-    for d in range(ndev - 1, 0, -1):
-        starts[d] = min(starts[d], starts[d + 1] - 2)
-    if (np.diff(starts) < 2).any():
-        return None
-    return starts
 
 
 def quantile_tile_starts_2d(xy: np.ndarray, n_grid: int, grid_extent: float,

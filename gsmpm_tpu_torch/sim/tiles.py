@@ -677,19 +677,14 @@ def frame_tiled(
     grid: GridConfig,
     tc: TileConfig,
     dt: float,
-    grid_reduce=None,
-    grid_exchange=None,
 ):
     """One frame of substeps with a PERSISTENT tiled state.
 
     Returns (ts, soa, time); ts.ok False means the occupied-tile cap
-    overflowed during the frame.  ``grid_reduce`` / ``grid_exchange`` go to
-    every substep (substep_tiled).
+    overflowed during the frame.
     """
     for _ in range(n_substeps):
-        ts = substep_tiled(ts, model, bcs, time, grid, tc, dt,
-                           grid_reduce=grid_reduce,
-                           grid_exchange=grid_exchange)
+        ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
         time = _advance(time, dt)
     q = to_original_order(ts, tc.n_particles)
     return ts, unpack_q(q, soa_template), time

@@ -18,6 +18,9 @@ single-device port, on the same numpy-seeded inputs.
 - two ``MeshSimEngine`` frames of halo (2 ranks), halo_tiled (2 and 4) and
   halo_tiled2d (2 x 2) against 20 golden substeps of the single-device
   port and against gsmpm_tpu's engine (tests/test_halo.py's tolerance);
+- halo_tiled on a scene whose one rank drifts past its tile windows'
+  margin within a segment: that rank rebuckets as gsmpm_tpu does, against
+  the single device and gsmpm_tpu;
 - neighbour migration forced by a bulk drift, and the gathered fallback:
   mass and momentum conserved, every particle kept;
 - the selection order, and its fall-through on a scene too narrow;
@@ -48,7 +51,8 @@ FIELDS = ("x", "v", "F_trial")
 TOL = dict(x=(2e-4, 2e-5), v=(5e-3, 5e-4), F_trial=(5e-4, 5e-5))
 # scene name -> (particles, n_grid, spread along y too, seed)
 SCENES = dict(halo=(1024, 64, False, 0), tiled32=(1024, 32, False, 1),
-              tiled64=(1024, 64, False, 2), tiled2d=(1024, 32, True, 3))
+              tiled64=(1024, 64, False, 2), tiled2d=(1024, 32, True, 3),
+              drift=(1024, 32, False, 4))
 TILE_CAP = 40  # occupied tiles a rank, for CPU speed (the scenes use <= 33)
 FAULT_CAP = 10  # rank 0's box fits in it, rank 1's spread does not
 APP_TILE_CAP = 80  # the app scene occupies 65 tiles at n_grid 64
@@ -71,9 +75,12 @@ def _one_torch_thread():
 # ---------------------------------------------------------------------------
 
 def scene_arrays(name):
-    """(x, cov6, v) of a scene: spread along x (and y), a bulk velocity."""
+    """(x, cov6, v) of a scene: spread along x (and y), a bulk velocity;
+    "drift" is drift_arrays()."""
     n, _, spread_y, seed = SCENES[name]
     rng = np.random.default_rng(seed)
+    if name == "drift":
+        return drift_arrays(n, rng)
     ext = 2.0
     x = np.stack([
         rng.uniform(0.05 * ext, 0.95 * ext, n),
@@ -84,6 +91,23 @@ def scene_arrays(name):
     cov = np.tile(np.array([1e-4, 0, 0, 1e-4, 0, 1e-4], np.float32), (n, 1))
     v = np.tile(np.array([[0.8, -0.6 if spread_y else 0.0, -0.5]],
                          np.float32), (n, 1))
+    return x, cov, v
+
+
+def drift_arrays(n, rng):
+    """Two blobs at n_grid 32, one in each x-slab of 2 ranks: the upper one
+    moves +z at 110-130 m/s (up to 0.42 cells a substep of 2e-4 s),
+    stretching along z, so that its particles leave their tile windows'
+    drift margin within a segment and would leave the windows' support
+    before its end without a rebucket (a particle's transfer then clamped
+    to the window reads the velocity of another z); the lower one rests."""
+    h = n // 2
+    lo = rng.uniform((0.3, 0.9, 0.9), (0.7, 1.1, 1.1), (h, 3))
+    hi = rng.uniform((1.3, 0.9, 0.9), (1.7, 1.1, 1.1), (n - h, 3))
+    x = np.concatenate([lo, hi]).astype(np.float32)
+    cov = np.tile(np.array([1e-4, 0, 0, 1e-4, 0, 1e-4], np.float32), (n, 1))
+    v = np.zeros_like(x)
+    v[h:, 2] = 120.0 + 100.0 * (x[h:, 2] - 1.0)
     return x, cov, v
 
 
@@ -267,6 +291,20 @@ def _engine_frames(mesh, engine, scene):
                 state=_np_state(tmesh.gather(st, mesh)))
 
 
+def _case_drift(mesh):
+    """halo_tiled's frames on the drift scene, counting the rank's
+    rebuckets (one a segment bootstraps, the rest on drift)."""
+    from gsmpm_tpu_torch.sim import tiles
+
+    real, calls = tiles.rebucket, []
+    tiles.rebucket = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        out = _engine_frames(mesh, "halo_tiled", "drift")
+    finally:
+        tiles.rebucket = real
+    return dict(out, rebuckets=len(calls))
+
+
 def _case_migrate(mesh):
     """make_halo_frame on the drifting scene: neighbour migration, and the
     gathered fallback (buffers of one row)."""
@@ -395,6 +433,7 @@ def _worker(rank, world, port, out_path, root):
             res[engine] = _engine_frames(mesh, engine, scene)
         res["select"] = _case_select(mesh)
         if world == 2:
+            res["drift"] = _case_drift(mesh)
             res["migrate"] = _case_migrate(mesh)
             res["fault"] = _case_fault(mesh)
             res["app"] = _case_app(mesh, root)
@@ -629,7 +668,8 @@ JAX_JOBS = (
     {"exchanges2": (_jax_exchanges, (2,)),
      "exchanges4": (_jax_exchanges, (4,)),
      "halo2": (_jax_engine_frames, (2, "halo", "halo")),
-     "fault": (_jax_fault, ())},
+     "fault": (_jax_fault, ()),
+     "drift2": (_jax_engine_frames, (2, "halo_tiled", "drift"))},
     {f"{e}{w}": (_jax_engine_frames, (w, e, s))
      for w, cases in ENGINE_CASES.items() for e, s in cases if e != "halo"},
 )
@@ -825,6 +865,23 @@ def test_engine_frames_match_single_and_jax(runs, world, engine, scene):
     assert min(sent) > 0
 
 
+def test_halo_tiled_rebuckets_on_drift_within_a_segment(runs):
+    """Only rank 1's blob drifts past its tile windows' margin: rank 1
+    rebuckets inside its segments, rank 0 only at each segment's
+    bootstrap, and the frames match the single device and gsmpm_tpu's
+    engine (without the rebucket, the transfers clamped to the windows
+    miss them)."""
+    res = runs["ranks"][2]
+    got = res[0]["drift"]
+    assert got["engine"] == "halo_tiled", "fell back"
+    assert got["t"] == runs["single"]["drift"]["t"]
+    segments = 2  # two frames of SUBSTEPS, migrate_every 10
+    rebuckets = [r["drift"]["rebuckets"] for r in res]
+    assert rebuckets[0] == segments < rebuckets[1], rebuckets
+    _close(got["state"], runs["single"]["drift"], "drift vs port")
+    _close(got["state"], runs["jax"]["drift2"], "drift vs gsmpm_tpu")
+
+
 def test_neighbor_migration_and_fallback_conserve(runs):
     """tests/test_halo.py:146 and :227 on 2 ranks: the drift moves
     particles across the slab boundary; neighbour buffers and the gathered
@@ -869,9 +926,10 @@ def test_engine_order():
 
     assert engine_order("halo_tiled2d", "cuda", 100, False) == \
         ["halo_tiled2d"]
-    assert engine_order(None, "cuda", 100, False) == \
-        ["halo_tiled", "halo_tiled2d", "tiled", "psum"]
-    assert engine_order(None, "cuda", 96, False)[0] == "halo_tiled"
+    # CUDA keeps tiled first where gsmpm_tpu's TPU order starts with
+    # halo_tiled (n_grid >= 96): slower than tiled on H100s (ROADMAP C)
+    assert engine_order(None, "cuda", 100, False) == ["tiled", "psum"]
+    assert engine_order(None, "cuda", 96, False) == ["tiled", "psum"]
     assert engine_order(None, "cuda", 95, False) == ["tiled", "psum"]
     assert engine_order(None, "cuda", 100, True) == ["psum"]
     assert engine_order(None, "cpu", 100, False) == \
