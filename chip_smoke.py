@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Requires CUDA; prints ``nvidia-smi`` name and power limit.
-2. Builds every kernel from gsmpm_tpu_torch/csrc/ (one nvcc per source,
-   started together) and times the build.
+2. Builds every kernel from gsmpm_tpu_torch/csrc/ (one nvcc per source)
+   and the host C++ IO tier (g++), all started together, and times the
+   build.
 3. Simulation path (slice 1): holds K1, K2 and K3 against their plain
    PyTorch twins at the simulate path's shapes (245,760-gaussian box scene,
    n_grid 50, 800x800; the transfers on a state given seeded motion, the
@@ -47,15 +48,26 @@
    0 for halo), 0 bytes through the neighbour exchange, within 1e-4 of
    the single-device tiled (or golden) frame; K1 / K2 against their twins
    on the halo_tiled path's inputs; substeps/s of each.
-9. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
+9. Slice 7, at the main path's width: ``sim.MPMSolver`` for 2 frames of
+   100 substeps against ``tiles.frame_tiled`` driven directly from the
+   same state (K1 / K2 200 launches each, within 1e-4 of each field's
+   max; substeps/s), its ``postprocess`` bit-equal to
+   ``sim/solver.postprocess``, a tile cap below the boot occupancy taking
+   the golden route (no K1 / K2 launch, within 1e-4 of ``run_substeps``);
+   the native IO tier loaded (``io/_native.status()``), a
+   245,760-gaussian 62-property PLY read and written by the native and
+   the numpy codecs (bit-equal, both timed), and the main path's video
+   plus an ``encode_avi`` of its frames checked chunk by chunk (RIFF,
+   ``movi``, ``idx1``, one JPEG ``00dc`` chunk a frame).
+10. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
    CUDA blocks, the culled share of (slot, 16 x 8 pixel group) pairs, the
    walk depth and a rerun bit-equality check (K8 also against K4 and K9
    against K5 on the same windows); their bounds charge the gate to the
    walked pairs inside the cull box, with the all-walked bound beside
    them.
-10. Every path is driven with every launch counter set to 0 just before it
+11. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-11. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+12. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -102,6 +114,13 @@ FIT_SUBSTEPS = 30
 # frame and direction (K4 / K5 once per tier, or K3 / K7), never recomputed
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
+# slice 7's MPMSolver phase: frames of 100 substeps, the golden route's
+# substeps, and the solver against frame_tiled driven directly, relative to
+# each field's max (at least 1): K1's float atomics sum in another order in
+# each run (the halo phase's tolerance for the same engine's frames)
+SOLVER_FRAMES = 2
+SOLVER_GOLDEN_STEPS = 10
+SOLVER_RTOL = 1e-4
 # the golden-route phase's push along +y (m/s after 5 substeps)
 PUSH_SPEED = 10.0
 # the golden route's redone frame against golden from the start, relative
@@ -661,9 +680,12 @@ def main_path(dev, wrappers):
           f"(per frame sim {['%.3f' % s for s in stats['sim_s']]} s, render "
           f"{['%.1f' % (1e3 * s) for s in stats['render_s']]} ms), motion "
           f"{motion:.3g}, wall {wall:.1f} s, launches {counts}", flush=True)
+    print(f"main path: video {stats['video']} ({stats['video_writer']}); "
+          f"native IO tier: {stats['native_io']}", flush=True)
     return counts, dict(substeps_per_s=sps, render_ms_per_frame=render_ms,
                         sim_s=stats["sim_s"], render_s=stats["render_s"],
-                        motion=motion)
+                        motion=motion, video=stats["video"],
+                        video_writer=stats["video_writer"])
 
 
 def _device_us(evt) -> float:
@@ -2423,6 +2445,200 @@ def halo_phase(dev, wrappers):
         dist.destroy_process_group()
 
 
+def _avi_frames(path: str):
+    """The '00dc' chunks of an AVI's 'movi' list and its idx1 entries;
+    raises unless it is a RIFF AVI whose every chunk is a JPEG (SOI
+    first, EOI last)."""
+    import struct
+
+    data = Path(path).read_bytes()
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI ", f"{path}: not AVI")
+    movi, idx1 = data.find(b"movi"), data.find(b"idx1")
+    check(0 < movi < idx1, f"{path}: no movi list before idx1")
+    pos, sizes = movi + 4, []
+    while pos < idx1 - 8:
+        tag, n = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        jpeg = data[pos + 8:pos + 8 + n]
+        check(tag == b"00dc" and jpeg[:2] == b"\xff\xd8"
+              and jpeg[-2:] == b"\xff\xd9", f"{path}: chunk {tag} not a JPEG")
+        sizes.append(n)
+        pos += 8 + n + (n & 1)
+    n_idx = struct.unpack("<I", data[idx1 + 4:idx1 + 8])[0] // 16
+    check(n_idx == len(sizes), f"{path}: idx1 {n_idx} != {len(sizes)} chunks")
+    return sizes
+
+
+def solver_phase(dev, wrappers, main):
+    """Slice 7 at the main path's width: sim.MPMSolver (the simulate
+    scene's 196,730 particles, n_grid 50, the ground collider, 2 frames of
+    100 substeps) against tiles.frame_tiled driven directly from the same
+    start, with exact K1 / K2 launches (SOLVER_FRAMES x 100 each) and its
+    substeps/s; its postprocess against sim/solver.postprocess; a tile cap
+    below the boot occupancy takes the golden route (K1 / K2 0 times, the
+    state within SOLVER_RTOL of run_substeps); the native IO tier loaded;
+    a 245,760-gaussian 62-property PLY read and written by both codecs
+    (bit-equal, both times); the main path's video (the app's writer) and
+    an encode_avi of its frames checked chunk by chunk."""
+    import shutil
+
+    from gsmpm_tpu_torch.io import _native, ply, video
+    from gsmpm_tpu_torch.sim import MPMSolver, solver, tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
+
+    status = _native.status()
+    check(status == "loaded", f"solver: native IO tier {status}")
+    cfg = bench_config()
+    mpm, su = cfg.mpm, prepare_main(dev)
+    steps = mpm.steps_per_frame
+
+    def new_solver():
+        s = MPMSolver(su.state.x, su.state.init_cov, su.state.vol, mpm,
+                      device=str(dev))
+        s.add_surface_collider((0, 0, 0.4), (0, 0, 1))  # the app's ground
+        return s
+
+    sol = new_solver()
+    check(sol.use_tiled, "solver: the tiled engine is off on CUDA")
+    torch.cuda.synchronize()
+    _zero(wrappers)
+    frame_s = []
+    for _ in range(SOLVER_FRAMES):
+        t0 = time.perf_counter()
+        sol.step_frame()
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    counts = _counts(wrappers)
+    want = SOLVER_FRAMES * steps
+    check(sol.use_tiled and counts["p2g_tiled"] == counts["g2p_tiled"]
+          == want, f"solver: tiled {sol.use_tiled}, launches {counts}, "
+          f"expected {want} each")
+    sps = want / sum(frame_s)
+
+    # the same frames through tiles.frame_tiled driven directly
+    ts = tiles.bootstrap(soa_from_state(su.state), su.model, su.grid, su.tc)
+    st, t = su.state, 0.0
+    for _ in range(SOLVER_FRAMES):
+        ts, soa, t = tiles.frame_tiled(ts, soa_from_state(st), su.model,
+                                       su.bcs, t, steps, su.grid, su.tc,
+                                       mpm.substep_dt)
+        st = state_from_soa(soa)
+    check(bool(ts.ok) and t == sol.time, f"solver: clock {sol.time} vs {t}")
+    errs = _rel_errs(sol.state, st)
+    check(max(errs.values()) <= SOLVER_RTOL,
+          f"solver vs frame_tiled: {errs} (tol {SOLVER_RTOL})")
+    # 200 substeps of free fall move the box ~2e-3 (g t^2 / 2)
+    motion = float((sol.state.x - su.state.x).abs().max())
+    check(motion > 1e-4, f"solver: no motion ({motion})")
+    state = sol.state
+    cov6, R = sol.postprocess()
+    cov_ref, R_ref = solver.postprocess(state, rotate_sh=True)
+    check(torch.equal(cov6, cov_ref) and torch.equal(R, R_ref)
+          and torch.equal(sol.state.cov, cov6), "solver: postprocess")
+
+    # a tile cap below the boot occupancy: the golden route, 10 substeps
+    boot = tiles.bootstrap(soa_from_state(su.state), su.model, su.grid, su.tc)
+    occ = int(torch.unique(boot.chunk_tile[boot.chunk_live == 1]).numel())
+    default_tc = solver.default_tile_config
+    solver.default_tile_config = (
+        lambda g, m: default_tc(g, m)._replace(n_occ_cap=occ - 1))
+    try:
+        capped = new_solver()
+        _zero(wrappers)
+        t0 = time.perf_counter()
+        capped.step_frame(SOLVER_GOLDEN_STEPS)
+        torch.cuda.synchronize()
+        golden_s = time.perf_counter() - t0
+        capped_counts = _counts(wrappers)
+    finally:
+        solver.default_tile_config = default_tc
+    check(not capped.use_tiled and capped_counts["p2g_tiled"]
+          == capped_counts["g2p_tiled"] == 0,
+          f"solver cap {occ - 1}: tiled {capped.use_tiled}, {capped_counts}")
+    gold, t_gold = solver.run_substeps(su.state, su.model, su.bcs, 0.0,
+                                       SOLVER_GOLDEN_STEPS, su.grid,
+                                       mpm.substep_dt, checkpoint_policy=None)
+    gold_errs = _rel_errs(capped.state, gold)
+    check(capped.time == t_gold and max(gold_errs.values()) <= SOLVER_RTOL,
+          f"solver golden route vs run_substeps: {gold_errs}")
+
+    # the native PLY codec on a bench-size 3DGS checkpoint
+    ply_dir = OUT_DIR / "solver"
+    shutil.rmtree(ply_dir, ignore_errors=True)
+    ply_dir.mkdir(parents=True)
+    path = str(ply_dir / "point_cloud.ply")
+    su.scene.save_ply(path)
+    t0 = time.perf_counter()
+    cols_native = ply.read_ply_vertices(path)
+    native_read_s = time.perf_counter() - t0
+    lib, _native._LIB = _native._LIB, None  # the numpy codec
+    try:
+        t0 = time.perf_counter()
+        cols_py = ply.read_ply_vertices(path)
+        py_read_s = time.perf_counter() - t0
+    finally:
+        _native._LIB = lib
+    check(list(cols_native) == list(cols_py) and all(
+        np.array_equal(cols_native[k].view(np.uint32), v.view(np.uint32))
+        for k, v in cols_py.items()), "PLY: native columns differ")
+    raw = Path(path).read_bytes()
+    header = raw[:raw.index(b"end_header\n") + len(b"end_header\n")]
+    t0 = time.perf_counter()
+    ok = _native.write_ply_f32_planar(str(ply_dir / "native.ply"),
+                                      header.decode(),
+                                      np.stack(list(cols_py.values())))
+    native_write_s = time.perf_counter() - t0
+    check(ok and (ply_dir / "native.ply").read_bytes() == raw,
+          "PLY: the native writer's bytes differ")
+    t0 = time.perf_counter()
+    su.scene.save_ply(str(ply_dir / "numpy.ply"))
+    py_write_s = time.perf_counter() - t0
+    n_g, n_p = len(cols_py["x"]), len(cols_py)
+
+    # the main path's video and an AVI of its frames
+    images = OUT_DIR / "main" / "images"
+    n_frames = len(list(images.glob("*.png")))
+    writer = main["video_writer"]
+    if writer == "native MJPEG-AVI":
+        check(len(_avi_frames(main["video"])) == n_frames,
+              "main path AVI: frame count")
+    t0 = time.perf_counter()
+    check(video.encode_avi(str(images), str(ply_dir / "frames.avi")),
+          "encode_avi failed")
+    avi_s = time.perf_counter() - t0
+    sizes = _avi_frames(str(ply_dir / "frames.avi"))
+    check(len(sizes) == n_frames, f"AVI: {len(sizes)} chunks, {n_frames} PNGs")
+
+    def listed(e):
+        return ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+
+    print(f"solver: MPMSolver {SOLVER_FRAMES} frames x {steps} substeps at "
+          f"{su.state.n_particles} particles, n_grid {mpm.n_grid}: "
+          f"{sps:.2f} substeps/s (frames {['%.3f' % f for f in frame_s]} s), "
+          f"launches K1 {counts['p2g_tiled']} K2 {counts['g2p_tiled']}; vs "
+          f"frame_tiled driven directly: {listed(errs)} (tol {SOLVER_RTOL}); "
+          f"postprocess bit-equal; cap {occ - 1} < boot {occ} tiles: golden "
+          f"{SOLVER_GOLDEN_STEPS} substeps in {golden_s:.3f} s, K1/K2 "
+          f"{capped_counts['p2g_tiled']}/{capped_counts['g2p_tiled']}, vs "
+          f"run_substeps {listed(gold_errs)}", flush=True)
+    print(f"native IO ({status}): PLY {n_g} x {n_p} float32 "
+          f"({len(raw) / 1e6:.1f} MB) read native {native_read_s:.4f} s, "
+          f"numpy {py_read_s:.4f} s ({py_read_s / native_read_s:.2f}x), "
+          f"bit-equal; write native {native_write_s:.4f} s, numpy "
+          f"{py_write_s:.4f} s, same bytes; main path video "
+          f"{main['video']} ({writer}); encode_avi of its {n_frames} "
+          f"{MAIN_RES}^2 frames {avi_s:.3f} s, {sum(sizes)} JPEG bytes",
+          flush=True)
+    return counts, dict(
+        substeps_per_s=sps, frame_s=frame_s, rel_err_vs_frame_tiled=errs,
+        motion=motion, boot_occupancy=occ, golden_s=golden_s,
+        golden_rel_err=gold_errs, native_io=status,
+        ply=dict(gaussians=n_g, properties=n_p, bytes=len(raw),
+                 native_read_s=native_read_s, numpy_read_s=py_read_s,
+                 native_write_s=native_write_s, numpy_write_s=py_write_s),
+        video=main["video"], video_writer=writer, avi_s=avi_s,
+        avi_frames=len(sizes))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2442,7 +2658,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    logs = build.build_all(build.SOURCES)
+    logs = build.build_all(build.SOURCES + (build.NATIVE,))
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)} "
           f"(already built: {not logs})", flush=True)
     for name, log in logs.items():
@@ -2512,6 +2728,11 @@ def main() -> int:
     halo_counts, halo = halo_phase(dev, wrappers)
     halo["phase_s"] = time.perf_counter() - t0
     print(f"halo phase: {halo['phase_s']:.1f} s", flush=True)
+    # slice 7: MPMSolver and the native IO tier
+    t0 = time.perf_counter()
+    solver_counts, solver = solver_phase(dev, wrappers, main)
+    solver["phase_s"] = time.perf_counter() - t0
+    print(f"solver phase: {solver['phase_s']:.1f} s", flush=True)
     for r in rows:
         if r["name"] in ("p2g_tiled", "g2p_tiled"):
             key = "k1_rel_err" if r["name"] == "p2g_tiled" else "k2_rel_err"
@@ -2544,7 +2765,8 @@ def main() -> int:
                    "golden_route": golden_counts[name],
                    "resume": resume_counts[name], "mesh": mesh_counts[name],
                    "mesh_fit": mesh_fit_counts[name],
-                   "halo": halo_counts[name]}
+                   "halo": halo_counts[name],
+                   "solver": solver_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
         check(by_path[own_path.get(name, "identify")] > 0,
               f"{name} not launched on its own path")
@@ -2566,7 +2788,8 @@ def main() -> int:
                       "stream_fit_path": sfit, "packed_path": packed,
                       "golden_route_path": golden, "resume_path": resume,
                       "mesh_path": mesh, "slice4_s": slice4_s,
-                      "mesh_fit_path": mesh_fit, "halo_path": halo}))
+                      "mesh_fit_path": mesh_fit, "halo_path": halo,
+                      "solver_path": solver}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

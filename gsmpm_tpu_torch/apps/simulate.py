@@ -2,7 +2,8 @@
 
 Port of gsmpm_tpu/apps/simulate.py.  Pipeline: load gaussians -> sim_area
 mask -> world2grid -> volumes -> MPM substeps per frame -> cov = F Sigma0
-F^T -> grid2world -> rasterize -> PNG (+ mp4 when ffmpeg exists).
+F^T -> grid2world -> rasterize -> PNG -> video (an mp4 when ffmpeg exists,
+else an MJPEG AVI from the native IO tier, io/_native.py).
 
 On one device it takes the JAX app's TPU route on every device: the tiled
 transfer engine (sim/tiles.py, kernels K1 and K2) and the drop-free stream
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from gsmpm_tpu_torch.config import SimConfig
+from gsmpm_tpu_torch.io import _native
 from gsmpm_tpu_torch.io.cameras import load_cameras
 from gsmpm_tpu_torch.io.checkpoint import (
     latest_step,
@@ -253,7 +255,9 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
     (``sim_s``, ``render_s``, each ended by a device synchronize), the
     per-frame ``n_dropped``, the engine of each simulated frame
     (``engine``: "tiled" | "golden", or the mesh engine's "tiled" |
-    "psum") and ``substeps_per_frame``.
+    "psum"), ``substeps_per_frame`` and, on rank 0, the video written
+    (``video``: its path or None, ``video_writer``) and the native IO
+    tier's ``status()`` (``native_io``).
     """
     mpm = cfg.mpm
     t_start = time.time()
@@ -444,8 +448,17 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
     if rank0:
         video_path = encode_video(images_dir,
                                   os.path.join(out_dir, "simulated"))
-        if video_path and not quiet:
-            print(f"wrote {video_path}")
+        writer = {".mp4": "ffmpeg H.264", ".avi": "native MJPEG-AVI"}.get(
+            os.path.splitext(video_path or "")[1], "none")
+        native = _native.status()
+        if stats is not None:
+            stats.update(video=video_path, video_writer=writer,
+                         native_io=native)
+        if not quiet:
+            print(f"io: video {video_path or '(not written)'} (writer "
+                  f"{writer}); PLY codec "
+                  f"{'native C++' if native == 'loaded' else 'numpy'} "
+                  f"(native IO tier: {native})")
     if not quiet:
         print(f"Done in {time.time() - t_start:.1f}s.")
     return frames_np

@@ -1,7 +1,9 @@
 """Binary PLY I/O for 3DGS checkpoints and particle dumps.
 
-Port of the numpy codec of gsmpm_tpu/io/ply.py (the C++ codec tier,
-io/_native.py, is not ported yet).
+Port of gsmpm_tpu/io/ply.py.  All-float32 binary files (the 3DGS
+checkpoint layout) are read by the native C++ column reader
+(io/_native.py) when it is built, everything else by the numpy codec
+below, which is also the fallback when the native tier is not loaded.
 
 - 3DGS checkpoint layout: 62 float32 properties per vertex
   (x y z, nx ny nz, f_dc_0..2, f_rest_0..44, opacity, scale_0..2, rot_0..3),
@@ -74,8 +76,16 @@ def _parse_header(f) -> Tuple[int, List[Tuple[str, np.dtype]], str]:
 def read_ply_vertices(path: str) -> Dict[str, np.ndarray]:
     """Read the vertex element of a binary or ascii PLY into a dict of columns.
 
-    Binary little-endian and ascii formats are read with numpy.
+    All-float32 binary files go through the native C++ codec first
+    (io/_native.py -> csrc/gsmpm_native.cpp), as in gsmpm_tpu; it returns
+    None for anything else (an LFS stub's header too), and binary
+    little-endian and ascii files are then read with numpy.
     """
+    from gsmpm_tpu_torch.io import _native
+
+    cols = _native.read_ply_f32_columns(path)
+    if cols is not None:
+        return cols
     with open(path, "rb") as f:
         head = f.read(200)
         if head.startswith(b"version https://git-lfs.github.com"):

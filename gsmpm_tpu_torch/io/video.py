@@ -1,15 +1,15 @@
 """Frame saving (PNG) and video encoding.
 
-Port of gsmpm_tpu/io/video.py.  PNGs are written with the standard library
-(zlib + struct), so no image package is needed.  ``encode_video`` uses
-ffmpeg when it is on PATH and returns None otherwise (the native MJPEG-AVI
-tier of the JAX package is not ported yet).
+Port of gsmpm_tpu/io/video.py.  PNGs are written and read with the
+standard library (zlib + struct: ``encode_png`` / ``decode_png``), so no
+image package is needed.  ``encode_video`` writes an H.264 mp4 through
+ffmpeg when it is on PATH, else an MJPEG-in-AVI through the native encoder
+(io/_native.py, csrc/gsmpm_video.cpp), else nothing.
 """
 
 from __future__ import annotations
 
 import os
-import shutil
 import struct
 import subprocess
 import zlib
@@ -46,6 +46,72 @@ def encode_png(rgb8: np.ndarray) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
+def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (0 none, 1 sub, 2 up, 3 average,
+    4 paeth) of 8-bit pixels with ``bpp`` bytes each."""
+    stride = w * bpp
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, f = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = f
+        elif ftype == 1:       # sub: a running sum along each channel
+            cur = np.cumsum(f.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:
+            cur = (f + prior) & 0xFF
+        elif ftype in (3, 4):  # depend on the left pixel: one at a time
+            cur = f.copy()
+            left = np.zeros(bpp, np.int32)
+            upleft = np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                up = prior[x:x + bpp]
+                if ftype == 3:
+                    pred = (left + up) >> 1
+                else:
+                    p = left + up - upleft
+                    pa, pb, pc = (np.abs(p - left), np.abs(p - up),
+                                  np.abs(p - upleft))
+                    pred = np.where((pa <= pb) & (pa <= pc), left,
+                                    np.where(pb <= pc, up, upleft))
+                left = (f[x:x + bpp] + pred) & 0xFF
+                cur[x:x + bpp] = left
+                upleft = up
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) or (H, W, 4) uint8; the inverse of
+    ``encode_png`` for 8-bit RGB and RGBA, non-interlaced, any filters."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, ihdr, idat = 8, None, []
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color_type, _, _, interlace = ihdr
+    if depth != 8 or color_type not in (2, 6) or interlace != 0:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, color type "
+                         f"{color_type}, interlace {interlace} (8-bit RGB "
+                         "or RGBA, non-interlaced)")
+    c = 3 if color_type == 2 else 4
+    return _unfilter(zlib.decompress(b"".join(idat)), h, w, c).reshape(h, w, c)
+
+
 def save_frame(frame: np.ndarray, save_dir: str, fid: int) -> str:
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, f"{fid:04d}.png")
@@ -54,18 +120,70 @@ def save_frame(frame: np.ndarray, save_dir: str, fid: int) -> str:
     return path
 
 
-def encode_video(images_dir: str, out_base: str, fps: int = 25) -> Optional[str]:
-    """H.264 mp4 from the numbered PNGs (even dims padded, as the
-    reference's ffmpeg call) when ffmpeg exists; else None."""
-    if shutil.which("ffmpeg") is None:
-        return None
-    mp4 = out_base + ".mp4"
+def _frame_names(images_dir: str):
+    return sorted(
+        f for f in os.listdir(images_dir) if f.endswith(".png")
+    ) if os.path.isdir(images_dir) else []
+
+
+def encode_mp4(images_dir: str, out_path: str, fps: int = 25) -> bool:
+    """H.264 mp4 from numbered PNGs; pads to even dims like the reference.
+
+    Returns False (and leaves the PNG sequence) if ffmpeg is unavailable.
+    """
     cmd = [
         "ffmpeg", "-framerate", str(fps),
         "-i", os.path.join(images_dir, "%04d.png"),
         "-c:v", "libx264", "-vf", "pad=ceil(iw/2)*2:ceil(ih/2)*2",
-        "-y", "-pix_fmt", "yuv420p", mp4,
+        "-y", "-pix_fmt", "yuv420p", out_path,
     ]
-    done = subprocess.run(cmd, stdout=subprocess.DEVNULL,
-                          stderr=subprocess.DEVNULL, check=False)
-    return mp4 if done.returncode == 0 else None
+    try:
+        subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL,
+                       stderr=subprocess.DEVNULL)
+        return True
+    except (FileNotFoundError, subprocess.CalledProcessError):
+        return False
+
+
+def encode_avi(images_dir: str, out_path: str, fps: int = 25,
+               quality: int = 90) -> bool:
+    """MJPEG-in-AVI from numbered PNGs via the native encoder
+    (csrc/gsmpm_video.cpp) -- no ffmpeg required.  Returns False if the
+    native tier or the frames are unavailable (``_native.status()`` says
+    why for the tier).
+    """
+    from gsmpm_tpu_torch.io import _native
+
+    if not _native.avi_available():
+        return False
+    names = _frame_names(images_dir)
+    if not names:
+        return False
+
+    def read(name):
+        with open(os.path.join(images_dir, name), "rb") as f:
+            return decode_png(f.read())
+
+    first = read(names[0])
+    h, w = first.shape[:2]
+    try:
+        with _native.AviWriter(out_path, w, h, fps, quality) as vw:
+            for name in names:
+                vw.add_frame(read(name)[..., :3])
+        return True
+    except (RuntimeError, ValueError, OSError):
+        return False
+
+
+def encode_video(images_dir: str, out_base: str, fps: int = 25) -> Optional[str]:
+    """Encode the PNG sequence to a video beside the reference's mp4
+    output: H.264 mp4 when ffmpeg exists, else the native MJPEG AVI.
+    Returns the written path or None.
+    """
+    mp4 = out_base + ".mp4"
+    if encode_mp4(images_dir, mp4, fps):
+        return mp4
+    avi = out_base + ".avi"
+    if encode_avi(images_dir, avi, fps):
+        return avi
+    return None

@@ -91,6 +91,10 @@ def t_matmul(A: Mat, B: Mat) -> Mat:
     )
 
 
+def matvec(A: Mat, v: Vec) -> Vec:
+    return tuple(sum(A[3 * i + k] * v[k] for k in range(3)) for i in range(3))
+
+
 def add(A: Mat, B: Mat) -> Mat:
     return tuple(a + b for a, b in zip(A, B))
 
@@ -105,6 +109,15 @@ def scale(A: Mat, s) -> Mat:
 
 def add_scaled_identity(A: Mat, s) -> Mat:
     return (A[0] + s, A[1], A[2], A[3], A[4] + s, A[5], A[6], A[7], A[8] + s)
+
+
+def diag(d: Vec) -> Mat:
+    z = torch.zeros_like(d[0])
+    return (d[0], z, z, z, d[1], z, z, z, d[2])
+
+
+def trace(A: Mat):
+    return A[0] + A[4] + A[8]
 
 
 def det(A: Mat):
@@ -129,6 +142,10 @@ def mul_diag_right(A: Mat, d: Vec) -> Mat:
         A[3] * d[0], A[4] * d[1], A[5] * d[2],
         A[6] * d[0], A[7] * d[1], A[8] * d[2],
     )
+
+
+def outer(u: Vec, v: Vec) -> Mat:
+    return tuple(u[i] * v[j] for i in range(3) for j in range(3))
 
 
 def col(M: Mat, j: int) -> Vec:

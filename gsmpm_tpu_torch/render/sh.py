@@ -1,6 +1,7 @@
 """Real spherical harmonics: evaluation (degree 0-3) and SH rotation.
 
-Port of gsmpm_tpu/render/sh.py.  ``rotate_sh`` rotates bands 1..3 by
+Port of gsmpm_tpu/render/sh.py.  ``eval_sh`` is the 3DGS rasterizer's
+SH -> RGB evaluation; ``rotate_sh`` rotates bands 1..3 by
 per-gaussian rotations with the exact projection method (evaluate the band
 basis at fixed sample directions, solve the linear system once).
 """
@@ -74,6 +75,22 @@ def _nstack(xs):
 
 def band_basis(d: torch.Tensor, l: int) -> torch.Tensor:
     return _band_basis(d, l, _tstack)
+
+
+def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """Evaluate real SH colors.
+
+    sh: (N, K, 3) coefficients, K >= (degree+1)^2; dirs: (N, 3) unit view
+    dirs.  Returns (N, 3) RGB (before the +0.5 shift).
+    """
+    result = C0 * sh[:, 0]
+    offset = 1
+    for l in range(1, degree + 1):
+        m = 2 * l + 1
+        result = result + torch.einsum("nk,nkc->nc", band_basis(dirs, l),
+                                       sh[:, offset:offset + m])
+        offset += m
+    return result
 
 
 @lru_cache(maxsize=None)

@@ -97,6 +97,12 @@ class SurfaceCollider:
 GridOp = Union[FixedCubeBC, StickyGroundBC, SurfaceCollider]
 
 
+def sticky_ground(device="cpu") -> StickyGroundBC:
+    """The reference's StickyGroundBC slab on ``device``."""
+    return StickyGroundBC(_vec([1.0, 0.6, 1.0], device),
+                          _vec([1.0, 0.1, 1.0], device))
+
+
 # ---------------------------------------------------------------------------
 # particle-phase ops (applied to particle velocities before P2G)
 # ---------------------------------------------------------------------------
@@ -178,9 +184,7 @@ def build_boundary_conditions(
                 center, size, _vec(bc.force, dev), start_time, end_time,
             ))
         elif bc.type == "sticky_ground":
-            grid_ops.append(StickyGroundBC(
-                _vec([1.0, 0.6, 1.0], dev), _vec([1.0, 0.1, 1.0], dev),
-            ))
+            grid_ops.append(sticky_ground(dev))
         elif bc.type == "additional_params":
             inside = torch.all(torch.abs(state.x - center) < size, dim=-1)
             logE_r, y_r = logE_y_from_E_nu(bc.E, bc.nu)

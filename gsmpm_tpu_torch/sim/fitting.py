@@ -42,7 +42,7 @@ from gsmpm_tpu_torch.render.renderer import (
     render,
     render_with_aux,
 )
-from gsmpm_tpu_torch.sim.boundary import BCSet, StickyGroundBC
+from gsmpm_tpu_torch.sim.boundary import BCSet, sticky_ground
 from gsmpm_tpu_torch.sim.coupling import (
     grid2world,
     mat_from_upper,
@@ -220,10 +220,7 @@ class SystemIdentifier:
             from gsmpm_tpu_torch.parallel.mesh import pad_state
 
             state = pad_state(state, self._pad_mult)
-        dev = self.device
-        self.bcs = BCSet(grid_ops=(StickyGroundBC(
-            torch.tensor([1.0, 0.6, 1.0], device=dev),
-            torch.tensor([1.0, 0.1, 1.0], device=dev)),))
+        self.bcs = BCSet(grid_ops=(sticky_ground(self.device),))
         return state
 
     def _appearance(self):

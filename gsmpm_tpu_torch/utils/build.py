@@ -1,13 +1,19 @@
-"""Build the port's CUDA sources with nvcc at first use and load them.
+"""Build the port's native sources at first use and load them.
 
-Each source under gsmpm_tpu_torch/csrc/ exposes a plain C interface and is
-compiled on its own into ``build/lib<name>-<hash>.so`` at the repository
-root (``-gencode arch=compute_90a,code=sm_90a``), then loaded with ctypes.
-The hash covers the source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source or header rebuilds.
-``build_all`` starts one nvcc per source at once and waits for all of them.
-Nothing here runs at import time; a machine without nvcc only fails when a
-kernel is actually launched.
+Each CUDA source under gsmpm_tpu_torch/csrc/ exposes a plain C interface
+and is compiled on its own into ``build/lib<name>-<hash>.so`` at the
+repository root (``-gencode arch=compute_90a,code=sm_90a``), then loaded
+with ctypes.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds.
+The host C++ IO tier (``NATIVE``: ``csrc/gsmpm_native.cpp`` and
+``gsmpm_video.cpp``, the PLY codec and the MJPEG-AVI writer) is built the
+same way with g++ into ``build/libgsmpm_native-<hash>.so``; io/_native.py
+loads it.  Every library is compiled to a per-process temporary file and
+moved into place with ``os.replace``, so processes that build the same
+library at once never load a half-written one.
+``build_all`` starts one compiler per library at once and waits for all of
+them.  Nothing here runs at import time; a machine without nvcc only fails
+when a kernel is actually launched.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "tile_blend": ["--fmad=false"],
 }
 SOURCES = tuple(EXTRA_FLAGS)
+# the host C++ IO tier: one library of two sources, built with g++ and
+# scripts/build_native.sh's flags
+NATIVE = "gsmpm_native"
+NATIVE_SOURCES = ("gsmpm_native.cpp", "gsmpm_video.cpp")
+NATIVE_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -54,13 +65,33 @@ def nvcc_path() -> str:
     )
 
 
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found on PATH: the native IO tier "
+                           "(csrc/gsmpm_native.cpp, gsmpm_video.cpp) is "
+                           "host C++")
+    return found
+
+
 def _flags(name: str) -> List[str]:
+    if name == NATIVE:
+        return NATIVE_FLAGS
     return ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
+def _inputs(name: str) -> List[Path]:
+    """The files on the compiler's command line."""
+    if name == NATIVE:
+        return [CSRC / s for s in NATIVE_SOURCES]
+    return [CSRC / f"{name}.cu"]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    files = _inputs(name)
+    if name != NATIVE:
+        files += sorted(CSRC.glob("*.cuh"))
+    src = b"".join(f.read_bytes() for f in files)
     h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
@@ -70,14 +101,15 @@ def _tmp_path(name: str) -> Path:
 
 
 def _start(name: str) -> subprocess.Popen:
-    cmd = [nvcc_path(), *_flags(name), "-o", str(_tmp_path(name)),
-           str(CSRC / f"{name}.cu")]
+    compiler = gxx_path() if name == NATIVE else nvcc_path()
+    cmd = [compiler, *_flags(name), "-o", str(_tmp_path(name)),
+           *map(str, _inputs(name))]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that has no current library, all nvcc
+    """Compile every named library that is not current, all compiler
     processes started together.  Returns {name: compiler output}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
@@ -94,7 +126,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
         (BUILD_DIR / f"{n}.log").write_text(out)
     if failed:
         raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
+            "compiler failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[n] for n in failed)
         )
     return logs

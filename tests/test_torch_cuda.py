@@ -379,6 +379,43 @@ def test_simulate_gpu_matches_cpu(cuda, tmp_path):
         np.testing.assert_allclose(a, b, atol=1e-3)
 
 
+def test_mpm_solver_gpu_runs_kernels_and_matches_cpu(cuda):
+    """sim.MPMSolver on CUDA steps with the tiled engine through K1 / K2
+    (one launch each a substep, never the twins) and agrees with the CPU
+    solver forced onto the twins to the float atomics' order (1e-4 of each
+    field's max, as test_simulate_gpu_matches_cpu's frames)."""
+    from gsmpm_tpu_torch.sim import MPMSolver
+
+    rng = np.random.default_rng(3)
+    n = 2000
+    xyz = rng.uniform(0.6, 1.4, size=(n, 3)).astype(np.float32)
+    cov6 = np.tile(np.float32([1e-4, 0, 0, 1e-4, 0, 1e-4]), (n, 1))
+    v0 = rng.normal(size=(n, 3)).astype(np.float32)
+    cfg = _cfg(Path("."), n_grid=24).mpm
+    solvers = {}
+    for dev in ("cuda", "cpu"):
+        s = MPMSolver(xyz, cov6, np.full(n, 2e-4, np.float32), cfg, v0,
+                      device=dev)
+        s.use_tiled = True
+        s.set_bc_ground_only()
+        s.add_surface_collider((0, 0, 0.4), (0, 0, 1))
+        solvers[dev] = s
+    steps = cfg.steps_per_frame
+    for frame in range(2):
+        cuda_mpm.p2g_tiled.launches = cuda_mpm.g2p_tiled.launches = 0
+        solvers["cuda"].step_frame()
+        assert cuda_mpm.p2g_tiled.launches == steps
+        assert cuda_mpm.g2p_tiled.launches == steps
+        solvers["cpu"].step_frame()
+        assert solvers["cuda"].time == solvers["cpu"].time
+        for f in ("x", "v", "C", "F", "F_trial"):
+            got = getattr(solvers["cuda"].state, f).cpu()
+            want = getattr(solvers["cpu"].state, f)
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= 1e-4, (frame, f, err)
+    assert solvers["cuda"].use_tiled
+
+
 # ---------------------------------------------------------------------------
 # K4 / K5 tile blend, K6 second-order reductions, the fit frame
 # ---------------------------------------------------------------------------
