@@ -59,15 +59,27 @@
    the numpy codecs (bit-equal, both timed), and the main path's video
    plus an ``encode_avi`` of its frames checked chunk by chunk (RIFF,
    ``movi``, ``idx1``, one JPEG ``00dc`` chunk a frame).
-10. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
+10. Slice 8, at the bench fit's width: an observed dataset of identify's
+   scene (2 ring cameras x 3 frames at 512^2) written by
+   scripts/torch_observed_dataset.py, each PNG re-encoded with a seeded
+   filter per row (all five types), decoded by the native row unfilter
+   and by its numpy twin (byte-equal; both times printed), then
+   ``apps.identify --data_path`` for 2 fit frames (finite losses, E moving,
+   no drops, the tiled-VJP engine, K1 / K2 / K4 / K5 / K6 launched and
+   K3 / K7 / K8 / K9 not); gsmpm_tpu's interface on the card: a
+   RasterConfig with every TPU-only knob set renders the main path's
+   frame 0 bit-equal to the default (windowed and stream),
+   ``drop_low_opacity`` feeds one MPMSolver frame (K1 / K2 100 each),
+   tied ``MPMModel.E()`` / ``nu()`` equal ``optimized_E`` / ``nu``.
+11. The culled walks (K4 and K5 per tier, K7, K8, K9) also print their
    CUDA blocks, the culled share of (slot, 16 x 8 pixel group) pairs, the
    walk depth and a rerun bit-equality check (K8 also against K4 and K9
    against K5 on the same windows); their bounds charge the gate to the
    walked pairs inside the cull box, with the all-walked bound beside
    them.
-11. Every path is driven with every launch counter set to 0 just before it
+12. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-12. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+13. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -2168,8 +2180,8 @@ def mesh_phase(dev, wrappers):
         st0, md0 = shard((st0, md0), mesh)
         out, engines = {}, {}
         for engine in ("tiled", "psum"):
-            eng = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,
-                                prefer=engine)
+            eng = MeshSimEngine(mesh, bcs=su.bcs, grid=su.grid,
+                                substep_dt=dt, n_steps=steps, prefer=engine)
             _zero(wrappers)
             t0 = time.perf_counter()
             st, t, _ = eng.frame(st0, md0, 0.0)
@@ -2237,8 +2249,9 @@ def mesh_phase(dev, wrappers):
         rcfg, renders, nd = RasterConfig(), 0, None
         _zero(wrappers)
         for _ in range(7):
-            render = make_mesh_render_fn(mesh, su.camera, su.bg,
-                                         su.scene.sh_degree, rcfg, splats)
+            render = make_mesh_render_fn(
+                mesh, camera=su.camera, bg=su.bg,
+                sh_degree=su.scene.sh_degree, rcfg=rcfg, transform_fn=splats)
             img, nd = render(st_t.x, st_t.cov, None, su.opacity, su.features)
             renders += 1
             if int(nd) == 0:
@@ -2354,13 +2367,14 @@ def halo_phase(dev, wrappers):
         su = prepare(cfg, synthetic=MAIN_N, synthetic_res=MAIN_RES,
                      device=str(dev), quiet=True)
         st0, md0 = pmesh.shard((su.state, su.model), mesh)
-        auto = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,
-                             state=st0).engine
+        auto = MeshSimEngine(mesh, bcs=su.bcs, grid=su.grid, substep_dt=dt,
+                             n_steps=steps, state=st0).engine
         check(auto == "tiled", f"halo: auto-selection picked {auto}")
         out, engines = dict(auto=auto), {}
         for engine in ("halo", "halo_tiled", "halo_tiled2d"):
-            eng = MeshSimEngine(mesh, su.bcs, su.grid, dt, steps,
-                                prefer=engine, state=st0)
+            eng = MeshSimEngine(mesh, bcs=su.bcs, grid=su.grid,
+                                substep_dt=dt, n_steps=steps, prefer=engine,
+                                state=st0)
             _zero(wrappers)
             pmesh.neighbor_ppermute.bytes_sent = 0
             t0 = time.perf_counter()
@@ -2639,6 +2653,225 @@ def solver_phase(dev, wrappers, main):
         avi_frames=len(sizes))
 
 
+DATA_CAMS = 2
+PNG_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> PNG color type
+# gsmpm_tpu's TPU-only RasterConfig knobs, accepted and unused on the port
+TPU_KNOBS = dict(block_batch=4, remat=False, skip_empty=False, impl="xla",
+                 sel="v1", stream_unroll=2, stream_chunk=256)
+
+
+def png_with_row_filters(img: np.ndarray, ftypes) -> bytes:
+    """(H, W, C) uint8 -> PNG bytes, row y filtered with ftypes[y] (0 none,
+    1 sub, 2 up, 3 average, 4 Paeth): this phase's re-encoder.  The
+    predictors read the image itself, so every row filters at once."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c).astype(np.int32)
+    up = np.vstack([np.zeros((1, w * c), np.int32), cur[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int32), cur[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int32), up[:, :-c]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(cur), left, up, (left + up) >> 1, paeth])
+    ftypes = np.asarray(ftypes, np.int64)
+    res = (cur - preds[ftypes, np.arange(h)]) & 0xFF
+    rows = np.hstack([ftypes[:, None], res]).astype(np.uint8)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, PNG_COLOR_TYPE[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def data_path_phase(dev, wrappers):
+    """Slice 8: ``apps.identify --data_path`` at the bench fit's width.  An
+    observed dataset of identify's scene (245,760 gaussians, n_grid 50,
+    512^2, DATA_CAMS ring cameras x FIT_FRAMES frames) is written by
+    scripts/torch_observed_dataset.py's main, every PNG re-encoded with a
+    seeded filter per row so that all five occur, decoded by the native
+    row unfilter and by its numpy twin (byte-equal, both timed), then
+    identify fits it for FIT_FRAMES - 1 frames with every launch counter
+    set to 0 just before and read just after.  Then gsmpm_tpu's interface
+    on the card: a RasterConfig setting every TPU-only knob renders the
+    main path's frame 0 bit-equal to the default (windowed K4, stream K3),
+    ``drop_low_opacity`` feeds one MPMSolver frame (K1 / K2 100 each),
+    and with tied parameters MPMModel.E() / nu() equal optimized_E / nu."""
+    import importlib.util
+    import shutil
+
+    from gsmpm_tpu_torch.apps.identify import identify
+    from gsmpm_tpu_torch.io import _native
+    from gsmpm_tpu_torch.io import dataset as ds
+    from gsmpm_tpu_torch.render import RasterConfig, render
+    from gsmpm_tpu_torch.sim import MPMSolver
+    from gsmpm_tpu_torch.sim.coupling import world2grid
+    from gsmpm_tpu_torch.sim.volume import particle_volume
+
+    check(_native.status() == "loaded", f"data_path: {_native.status()}")
+    root = OUT_DIR / "data_path"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "observed"
+    script_path = (Path(__file__).resolve().parent / "scripts"
+                   / "torch_observed_dataset.py")
+    spec = importlib.util.spec_from_file_location("torch_observed_dataset",
+                                                  script_path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    t0 = time.perf_counter()
+    script.main(["--out", str(data), "--particles", str(MAIN_N), "--res",
+                 str(FIT_RES), "--frames", str(FIT_FRAMES), "--cams",
+                 str(DATA_CAMS), "--E_true", str(FIT_E_TRUE), "--device",
+                 str(dev)])
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+
+    # every PNG again, with one filter a row: all five types in each file
+    paths = sorted(data.glob("cam*/*.png"))
+    check(len(paths) == DATA_CAMS * FIT_FRAMES, f"dataset PNGs {paths}")
+    rng = np.random.default_rng(11)
+    originals = []
+    for path in paths:
+        img = ds.read_png(str(path))
+        ftypes = rng.permutation(np.arange(img.shape[0]) % 5)
+        path.write_bytes(png_with_row_filters(img, ftypes))
+        originals.append(img)
+    t0 = time.perf_counter()
+    native = [ds.read_png(str(p)) for p in paths]
+    native_s = time.perf_counter() - t0
+    lib, _native._LIB = _native._LIB, None  # the numpy twin
+    try:
+        t0 = time.perf_counter()
+        twin = [ds.read_png(str(p)) for p in paths]
+        twin_s = time.perf_counter() - t0
+    finally:
+        _native._LIB = lib
+    check(all(np.array_equal(a, b) and np.array_equal(a, o)
+              for a, b, o in zip(native, twin, originals)),
+          "data_path: native and twin PNG rows differ")
+    shape = native[0].shape
+    print(f"data_path: dataset {DATA_CAMS} cameras x {FIT_FRAMES} frames "
+          f"{shape} written in {write_s:.1f} s, re-encoded one filter a row "
+          f"(all five); decode of the {len(paths)} PNGs: native rows "
+          f"{native_s:.4f} s ({1e3 * native_s / len(paths):.2f} ms a frame), "
+          f"numpy twin {twin_s:.3f} s ({twin_s / native_s:.0f}x), "
+          f"byte-equal", flush=True)
+
+    args = identify_args(dev, str(root / "fit"), data_path=str(data))
+    stats = {}
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    ident = identify(args, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(wrappers)
+    fits = [r for r in stats["frames"] if r["frame"] > 0]
+    check(len(fits) == FIT_FRAMES - 1, f"data_path fit frames {fits}")
+    check(all(np.isfinite(r["loss"]) for r in stats["frames"]),
+          f"data_path losses {stats['frames']}")
+    check(ident.n_dropped_last == 0 and all(r["n_dropped"] == 0
+                                            for r in fits),
+          f"data_path n_dropped {[r['n_dropped'] for r in fits]}")
+    check(ident.sim_engine == "tiled_vjp", f"data_path engine "
+          f"{ident.sim_engine}")
+    E = ident.optimized_E
+    check(np.isfinite(E) and abs(E / FIT_E_INIT - 1.0) > 1e-6,
+          f"data_path: E did not move from {FIT_E_INIT} ({E})")
+    for name in ("p2g_tiled", "g2p_tiled", "sored_tiled", "blend_fwd",
+                 "blend_bwd"):
+        check(counts[name] > 0, f"data_path: {name} never launched")
+    for name in ("stream_blend", "stream_blend_bwd", "blend_packed_fwd",
+                 "blend_packed_bwd"):
+        check(counts[name] == 0, f"data_path ran {name}")
+    for name, k in PER_SUBSTEP.items():
+        need = (FIT_FRAMES - 1) * FIT_SUBSTEPS * k
+        check(counts[name] >= need, f"data_path {name}: {counts[name]} < "
+              f"{need}")
+    frame_s = [r["s"] for r in stats["frames"]]
+    print(f"data_path: identify --data_path, {MAIN_N} gaussians, n_grid 50, "
+          f"{FIT_RES}^2, {FIT_FRAMES} frames x {FIT_SUBSTEPS} substeps: frame "
+          f"seconds {[round(x, 3) for x in frame_s]}, losses "
+          f"{[round(r['loss'], 6) for r in stats['frames']]}, E "
+          f"{FIT_E_INIT:g} -> {E:.6g}, nu {ident.optimized_nu:.5f}, wall "
+          f"{wall:.1f} s, launches {counts}", flush=True)
+
+    # tied parameters: every particle's E() / nu() is the readout
+    n = ident.n_orig
+    check(ident.fit_cfg.tie_params, "data_path: parameters not tied")
+    E_p = ident.model.E()[:n].double()
+    nu_p = ident.model.nu()[:n].double()
+    E_err = float((E_p / E - 1.0).abs().max())
+    nu_err = float((nu_p / ident.optimized_nu - 1.0).abs().max())
+    check(E_err <= 1e-6 and nu_err <= 1e-6,
+          f"MPMModel.E() / nu() vs optimized_E / nu: {E_err}, {nu_err}")
+    del ident
+    torch.cuda.empty_cache()
+
+    # the TPU-only knobs: the main path's frame 0, bit for bit
+    su = prepare_main(dev)
+    splats = (*su.world(su.state.x, su.state.cov), su.opacity, su.features,
+              su.camera, su.bg, su.scene.sh_degree)
+    knobs_equal = {}
+    for stream in (False, True):
+        want = render(*splats, RasterConfig(stream=stream))
+        got = render(*splats, RasterConfig(stream=stream, **TPU_KNOBS))
+        knobs_equal["stream" if stream else "windowed"] = bool(
+            torch.equal(got, want))
+    check(all(knobs_equal.values()), f"TPU knobs change the render "
+          f"{knobs_equal}")
+
+    # drop_low_opacity feeds one MPMSolver frame
+    mpm = bench_config().mpm
+    faint = torch.zeros_like(su.scene.opacity)
+    faint[::10] = -8.0 - su.scene.opacity[::10]  # logit -8: opacity 3e-4
+    scene = dataclasses.replace(su.scene, opacity=su.scene.opacity + faint)
+    kept = scene.drop_low_opacity(0.02)
+    n_dropped = scene.num_gaussians - kept.num_gaussians
+    check(n_dropped == -(-scene.num_gaussians // 10),
+          f"drop_low_opacity dropped {n_dropped}")
+    g_xyz, _, scaling = world2grid(kept.xyz, mpm.grid_extent)
+    sol = MPMSolver(g_xyz, kept.get_covariance() * scaling * scaling,
+                    particle_volume(g_xyz, mpm.n_grid, mpm.grid_extent), mpm,
+                    device=str(dev))
+    sol.add_surface_collider((0, 0, 0.4), (0, 0, 1))
+    torch.cuda.synchronize()
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    sol.step_frame()
+    torch.cuda.synchronize()
+    solver_s = time.perf_counter() - t0
+    solver_counts = _counts(wrappers)
+    steps = mpm.steps_per_frame
+    check(sol.use_tiled and solver_counts["p2g_tiled"] == steps
+          and solver_counts["g2p_tiled"] == steps,
+          f"drop_low_opacity MPMSolver: launches {solver_counts}, expected "
+          f"{steps} each")
+    check(bool(torch.isfinite(sol.state.x).all()), "MPMSolver: non-finite x")
+    print(f"data_path: gsmpm_tpu's interface on the card: TPU-only "
+          f"RasterConfig knobs bit-equal {knobs_equal}; drop_low_opacity("
+          f"0.02) kept {kept.num_gaussians} of {scene.num_gaussians}, one "
+          f"MPMSolver frame in {solver_s:.3f} s (K1 "
+          f"{solver_counts['p2g_tiled']}, K2 {solver_counts['g2p_tiled']}); "
+          f"tied MPMModel.E() / nu() vs optimized_E / nu: {E_err:.2e}, "
+          f"{nu_err:.2e}", flush=True)
+    return counts, dict(
+        dataset=dict(cameras=DATA_CAMS, frames=FIT_FRAMES, shape=list(shape),
+                     write_s=write_s, decode_native_s=native_s,
+                     decode_twin_s=twin_s, pngs=len(paths)),
+        frame_s=frame_s, losses=[r["loss"] for r in stats["frames"]], E=E,
+        wall_s=wall, knobs_bit_equal=knobs_equal,
+        drop_low_opacity=dict(kept=kept.num_gaussians, dropped=n_dropped,
+                              solver_s=solver_s, launches=solver_counts),
+        E_rel_err=E_err, nu_rel_err=nu_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2733,6 +2966,12 @@ def main() -> int:
     solver_counts, solver = solver_phase(dev, wrappers, main)
     solver["phase_s"] = time.perf_counter() - t0
     print(f"solver phase: {solver['phase_s']:.1f} s", flush=True)
+    # slice 8: identify --data_path and gsmpm_tpu's interface
+    t0 = time.perf_counter()
+    data_counts, data_path = data_path_phase(dev, wrappers)
+    data_path["phase_s"] = time.perf_counter() - t0
+    print(f"data_path phase: {data_path['phase_s']:.1f} s", flush=True)
+    print(card)  # the data_path numbers' card
     for r in rows:
         if r["name"] in ("p2g_tiled", "g2p_tiled"):
             key = "k1_rel_err" if r["name"] == "p2g_tiled" else "k2_rel_err"
@@ -2766,7 +3005,8 @@ def main() -> int:
                    "resume": resume_counts[name], "mesh": mesh_counts[name],
                    "mesh_fit": mesh_fit_counts[name],
                    "halo": halo_counts[name],
-                   "solver": solver_counts[name]}
+                   "solver": solver_counts[name],
+                   "data_path": data_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
         check(by_path[own_path.get(name, "identify")] > 0,
               f"{name} not launched on its own path")
@@ -2789,7 +3029,7 @@ def main() -> int:
                       "golden_route_path": golden, "resume_path": resume,
                       "mesh_path": mesh, "slice4_s": slice4_s,
                       "mesh_fit_path": mesh_fit, "halo_path": halo,
-                      "solver_path": solver}))
+                      "solver_path": solver, "data_path": data_path}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,7 @@ TOTAL_ITERS = 300
 
 
 def load_scene_and_velocity(scene_name: str, synthetic: Optional[int],
-                            device):
+                            device="cuda"):
     model_path = os.path.join(MODEL_ROOT, scene_name)
     scene = None
     if not synthetic:
@@ -252,8 +252,9 @@ def _identify(args, stats, dev, dataset, mesh, route):
             if fid == 0:
                 if args.no_appearance:
                     continue
-                loss = ident.appearance_step(opt, params, cameras[cam_id],
-                                             gt_for(0, cam_id))
+                loss = ident.appearance_step(opt, params,
+                                             camera=cameras[cam_id],
+                                             gt_image=gt_for(0, cam_id))
                 # appearance moved the gaussians: rebuild the sim state
                 state = ident.reset_state()
             elif fit_camdp is not None:

@@ -95,7 +95,7 @@ _MAX_DROPFREE_REBUILDS = 6
 
 
 def load_scene(cfg: SimConfig, synthetic: Optional[int],
-               device) -> GaussianScene:
+               device="cuda") -> GaussianScene:
     if synthetic:
         return synthetic_box_scene(n=synthetic, lo=(-0.5, -0.5, 0.2),
                                    hi=(0.5, 0.5, 1.2), device=device)
@@ -245,9 +245,9 @@ def parse_mesh(mesh: Optional[str]):
 
 def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
              frames: Optional[int] = None, quiet: bool = False,
-             synthetic_res: int = 800, device: Optional[str] = "cuda",
-             stats: Optional[dict] = None, checkpoint_interval: int = 0,
-             resume: bool = False, mesh: Optional[str] = "auto"):
+             checkpoint_interval: int = 0, resume: bool = False,
+             mesh: Optional[str] = "auto", synthetic_res: int = 800,
+             device: Optional[str] = "cuda", stats: Optional[dict] = None):
     """Simulate + render; returns the frames as (H, W, 3) float numpy arrays
     (the first is the initial or resumed state), on every rank.
 
@@ -311,9 +311,9 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
         state, model, extras = shard((state, model, extras), mesh_obj)
         opacity, features = extras["opacity"], extras["features"]
         engine = MeshSimEngine(
-            mesh_obj, bcs, grid, mpm.substep_dt, n_steps,
-            incremental_cov=mpm.incremental_cov, rotate_sh=mpm.rotate_sh,
-            prefer=prefer, quiet=quiet, state=state)
+            mesh_obj, bcs=bcs, grid=grid, substep_dt=mpm.substep_dt,
+            n_steps=n_steps, incremental_cov=mpm.incremental_cov,
+            rotate_sh=mpm.rotate_sh, prefer=prefer, quiet=quiet, state=state)
         if not quiet:
             print(f"mesh: data={ndata}, sim engine: {engine.engine}, "
                   "render: tile-sharded")
@@ -342,8 +342,9 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
 
     def render_fn(rc):
         if use_mesh:
-            return make_mesh_render_fn(mesh_obj, su.camera, su.bg,
-                                       scene.sh_degree, rc, splats)
+            return make_mesh_render_fn(mesh_obj, camera=su.camera, bg=su.bg,
+                                       sh_degree=scene.sh_degree, rcfg=rc,
+                                       transform_fn=splats)
         return lambda *a: render_with_aux(*splats(*a), su.camera, su.bg,
                                           scene.sh_degree, rc)
 

@@ -1,10 +1,13 @@
-"""ctypes bridge to the native IO tier (csrc/gsmpm_native.cpp, gsmpm_video.cpp).
+"""ctypes bridge to the native IO tier (csrc/gsmpm_native.cpp,
+gsmpm_video.cpp, gsmpm_png.cpp).
 
-Port of gsmpm_tpu/io/_native.py.  The library is built with g++ on first
-use (utils/build.py: ``build/libgsmpm_native-<hash>.so``, written to a
-temporary file and moved into place) and loaded with ctypes.  Every entry
-point returns None (or False) on any failure so callers fall back to the
-pure-Python codec in io/ply.py: the native tier is an accelerator, not a
+Port of gsmpm_tpu/io/_native.py, plus the PNG row unfilter that
+io/dataset.read_png takes (gsmpm_tpu decodes PNGs with imageio).  The
+library is built with g++ on first use (utils/build.py:
+``build/libgsmpm_native-<hash>.so``, written to a temporary file and moved
+into place) and loaded with ctypes.  Every entry point returns None (or
+False) on any failure so callers fall back to the pure-Python codecs
+(io/ply.py, io/dataset.py): the native tier is an accelerator, not a
 dependency.  ``status()`` says ``"loaded"``, or why the tier is not: no
 compiler, a build error, or ``GSMPM_NO_NATIVE``.
 
@@ -65,6 +68,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gsn_avi_add_frame.restype = ctypes.c_int
     lib.gsn_avi_end.argtypes = [ctypes.c_void_p]
     lib.gsn_avi_end.restype = ctypes.c_int
+    lib.gsn_png_unfilter.argtypes = [
+        ctypes.POINTER(ctypes.c_ubyte), ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_ubyte),
+    ]
+    lib.gsn_png_unfilter.restype = ctypes.c_int
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -138,6 +146,27 @@ def write_ply_f32_planar(path: str, header: str, planar: np.ndarray) -> bool:
         planar.shape[1], planar.shape[0], _n_threads(),
     )
     return rc == 0
+
+
+def png_unfilter(raw: bytes, h: int, stride: int,
+                 bpp: int) -> Optional[np.ndarray]:
+    """Undo the PNG row filters of ``raw`` (h rows of a filter byte and
+    ``stride`` bytes, ``bpp`` bytes a pixel) -> (h, stride) uint8, or None
+    when the tier is not loaded or a filter byte is not 0-4 (the numpy
+    twin, io/dataset._unfilter_numpy, then decodes or raises)."""
+    lib = _load()
+    if lib is None:
+        return None
+    if len(raw) < h * (stride + 1) or not 1 <= bpp <= 8:
+        raise ValueError(f"{len(raw)} bytes for {h} rows of {stride} + 1, "
+                         f"{bpp} bytes a pixel")
+    src = np.frombuffer(raw, np.uint8)
+    out = np.empty((h, stride), np.uint8)
+    rc = lib.gsn_png_unfilter(
+        src.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), h, stride, bpp,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+    )
+    return out if rc == 0 else None
 
 
 class AviWriter:

@@ -10,9 +10,11 @@ Port of gsmpm_tpu/io/dataset.py.  Layout of a dataset directory:
         000.png ... NNN.png   # RGBA frames, composited onto the bg color
 
 The c2w matrices use the OpenGL/Blender convention (columns 1:3 flip before
-inverting); K gives the focal lengths.  PNGs are decoded with the standard
-library (``read_png``, 8-bit non-interlaced), the counterpart of the
-writer in io/video.py, so no image package is needed.
+inverting); K gives the focal lengths.  PNGs are decoded here
+(``read_png``: 8-bit non-interlaced gray, gray+alpha, RGB, RGBA), the
+counterpart of the writer in io/video.py, so no image package is needed:
+zlib inflates, and the row filters are undone by the native IO tier's C++
+(io/_native.py) or, where it is not loaded, by the numpy twin.
 """
 
 from __future__ import annotations
@@ -26,56 +28,65 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from gsmpm_tpu_torch.io import _native
 from gsmpm_tpu_torch.render.camera import Camera, focal2fov, make_camera
 
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG color type -> channels
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline PNG filters (none, sub, up, average, Paeth)."""
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    pos = 0
+def _unfilter_numpy(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth)
+    of h rows of a filter byte and ``stride`` bytes, ``bpp`` bytes a
+    pixel: the numpy twin of the native tier's ``png_unfilter``, and its
+    fallback."""
+    rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, -1)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
     for y in range(h):
-        ftype = raw[pos]
-        line = np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int32)
-        pos += 1 + stride
+        ftype, f = rows[y, 0], rows[y, 1:].astype(np.int32)
         if ftype == 0:
-            cur = line
+            cur = f
+        elif ftype == 1:  # sub: a running sum along each channel, mod 256
+            cur = np.cumsum(f.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
         elif ftype == 2:
-            cur = (line + prev) & 0xFF
-        else:
-            cur = line.copy()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = prev[i]
-                if ftype == 1:
-                    pred = a
-                elif ftype == 3:
-                    pred = (a + b) >> 1
-                elif ftype == 4:
-                    c = prev[i - bpp] if i >= bpp else 0
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc
-                                                            else c)
+            cur = (f + prior) & 0xFF
+        elif ftype in (3, 4):  # each pixel needs its left one: a loop
+            cur = np.empty_like(f)
+            left = upleft = np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                up = prior[x:x + bpp]
+                if ftype == 3:
+                    pred = (left + up) >> 1
                 else:
-                    raise ValueError(f"PNG filter type {ftype}")
-                cur[i] = (cur[i] + pred) & 0xFF
+                    p = left + up - upleft
+                    pa, pb, pc = (np.abs(p - left), np.abs(p - up),
+                                  np.abs(p - upleft))
+                    pred = np.where((pa <= pb) & (pa <= pc), left,
+                                    np.where(pb <= pc, up, upleft))
+                left = (f[x:x + bpp] + pred) & 0xFF
+                cur[x:x + bpp] = left
+                upleft = up
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
         out[y] = cur
-        prev = cur
+        prior = cur
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """8-bit non-interlaced PNG -> (H, W, C) uint8 (C = 1, 2, 3 or 4)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The native unfilter where the tier is loaded, else the twin."""
+    out = _native.png_unfilter(raw, h, stride, bpp)
+    return _unfilter_numpy(raw, h, stride, bpp) if out is None else out
+
+
+def _decode_png(data: bytes, what: str = "PNG") -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8; C = 1, 2, 3 or 4 (gray, gray+alpha,
+    RGB, RGBA), 8-bit, non-interlaced, any row filters."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{what}: not a PNG file")
     pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        tag = data[pos + 4:pos + 8]
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         pos += 12 + n
         if tag == b"IHDR":
@@ -84,14 +95,25 @@ def read_png(path: str) -> np.ndarray:
             idat.append(body)
         elif tag == b"IEND":
             break
+    if hdr is None:
+        raise ValueError(f"{what}: PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
     if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray/RGB/RGBA "
-                         f"PNGs are read (depth {depth}, color type {ctype}, "
-                         f"interlace {interlace})")
+        raise ValueError(f"{what}: only 8-bit non-interlaced gray, gray+alpha,"
+                         f" RGB and RGBA PNGs are read (depth {depth}, color "
+                         f"type {ctype}, interlace {interlace})")
     ch = _CHANNELS[ctype]
     raw = zlib.decompress(b"".join(idat))
+    if len(raw) < h * (w * ch + 1):
+        raise ValueError(f"{what}: {len(raw)} image bytes for {h} rows of "
+                         f"{w * ch} + 1")
     return _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+
+
+def read_png(path: str) -> np.ndarray:
+    """8-bit non-interlaced PNG -> (H, W, C) uint8 (C = 1, 2, 3 or 4)."""
+    with open(path, "rb") as f:
+        return _decode_png(f.read(), path)
 
 
 @dataclass

@@ -1,10 +1,11 @@
 """Frame saving (PNG) and video encoding.
 
-Port of gsmpm_tpu/io/video.py.  PNGs are written and read with the
-standard library (zlib + struct: ``encode_png`` / ``decode_png``), so no
-image package is needed.  ``encode_video`` writes an H.264 mp4 through
-ffmpeg when it is on PATH, else an MJPEG-in-AVI through the native encoder
-(io/_native.py, csrc/gsmpm_video.cpp), else nothing.
+Port of gsmpm_tpu/io/video.py.  PNGs are written with the standard
+library (zlib + struct: ``encode_png``) and read by io/dataset.read_png's
+decoder (``decode_png``), so no image package is needed.
+``encode_video`` writes an H.264 mp4 through ffmpeg when it is on PATH,
+else an MJPEG-in-AVI through the native encoder (io/_native.py,
+csrc/gsmpm_video.cpp), else nothing.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import zlib
 from typing import Optional
 
 import numpy as np
+
+from gsmpm_tpu_torch.io.dataset import _decode_png
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -46,70 +49,10 @@ def encode_png(rgb8: np.ndarray) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the per-row PNG filters (0 none, 1 sub, 2 up, 3 average,
-    4 paeth) of 8-bit pixels with ``bpp`` bytes each."""
-    stride = w * bpp
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prior = np.zeros(stride, np.int32)
-    for y in range(h):
-        ftype, f = rows[y, 0], rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = f
-        elif ftype == 1:       # sub: a running sum along each channel
-            cur = np.cumsum(f.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
-        elif ftype == 2:
-            cur = (f + prior) & 0xFF
-        elif ftype in (3, 4):  # depend on the left pixel: one at a time
-            cur = f.copy()
-            left = np.zeros(bpp, np.int32)
-            upleft = np.zeros(bpp, np.int32)
-            for x in range(0, stride, bpp):
-                up = prior[x:x + bpp]
-                if ftype == 3:
-                    pred = (left + up) >> 1
-                else:
-                    p = left + up - upleft
-                    pa, pb, pc = (np.abs(p - left), np.abs(p - up),
-                                  np.abs(p - upleft))
-                    pred = np.where((pa <= pb) & (pa <= pc), left,
-                                    np.where(pb <= pc, up, upleft))
-                left = (f[x:x + bpp] + pred) & 0xFF
-                cur[x:x + bpp] = left
-                upleft = up
-        else:
-            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
-        out[y] = cur
-        prior = cur
-    return out
-
-
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) or (H, W, 4) uint8; the inverse of
-    ``encode_png`` for 8-bit RGB and RGBA, non-interlaced, any filters."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError("not a PNG file")
-    pos, ihdr, idat = 8, None, []
-    while pos + 8 <= len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    if ihdr is None:
-        raise ValueError("PNG without IHDR")
-    w, h, depth, color_type, _, _, interlace = ihdr
-    if depth != 8 or color_type not in (2, 6) or interlace != 0:
-        raise ValueError(f"unsupported PNG: bit depth {depth}, color type "
-                         f"{color_type}, interlace {interlace} (8-bit RGB "
-                         "or RGBA, non-interlaced)")
-    c = 3 if color_type == 2 else 4
-    return _unfilter(zlib.decompress(b"".join(idat)), h, w, c).reshape(h, w, c)
+    """PNG bytes -> (H, W, C) uint8: io/dataset.read_png's decoder (8-bit,
+    non-interlaced, any row filters); the inverse of ``encode_png``."""
+    return _decode_png(data)
 
 
 def save_frame(frame: np.ndarray, save_dir: str, fid: int) -> str:

@@ -35,6 +35,10 @@ class GaussianScene:
     def num_gaussians(self) -> int:
         return self.xyz.shape[0]
 
+    @property
+    def active_sh_degree(self) -> int:
+        return self.sh_degree
+
     # --- activations (3DGS conventions) ---
 
     def get_opacity(self) -> torch.Tensor:
@@ -57,11 +61,26 @@ class GaussianScene:
         L = R * S[:, None, :]  # R @ diag(S)
         return upper_from_mat(L @ L.transpose(-1, -2))
 
-    def with_xyz_at(self, idx: torch.Tensor, new_xyz: torch.Tensor):
+    def with_xyz_at(self, mask_idx: torch.Tensor, new_xyz: torch.Tensor):
         """Copy with a subset of gaussian positions replaced."""
         xyz = self.xyz.clone()
-        xyz[idx] = new_xyz
+        xyz[mask_idx] = new_xyz
         return replace(self, xyz=xyz)
+
+    def select(self, keep: torch.Tensor) -> "GaussianScene":
+        """Copy keeping a boolean mask or an index tensor of gaussians."""
+        return replace(self, **{f: getattr(self, f)[keep]
+                                for f in SCENE_FIELDS})
+
+    def drop_low_opacity(self, threshold: float = 0.02) -> "GaussianScene":
+        """Prune gaussians whose activated opacity is below threshold."""
+        return self.select(self.get_opacity().reshape(-1) >= threshold)
+
+    def drop_empty_gaussians(self, mask: torch.Tensor) -> "GaussianScene":
+        """Prune gaussians outside a boolean keep-mask (e.g. the sim-area
+        mask)."""
+        return self.select(torch.as_tensor(mask, dtype=torch.bool,
+                                           device=self.xyz.device))
 
     # --- I/O ---
 

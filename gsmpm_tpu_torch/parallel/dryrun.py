@@ -77,10 +77,12 @@ def _fit_step(n: int) -> dict:
         state, model, data, {"opacity": scene.get_opacity().reshape(-1),
                              "features": scene.get_features()})
     step = make_sharded_fit_step(
-        mesh, md, bcs, grid, cfg.frame_dt, 3,
-        camera, torch.ones(3), shard(extras["opacity"], mesh, "data"),
-        shard(extras["features"], mesh, "data"), scene.sh_degree, scaling,
-        pos_center, cfg.grid_extent)
+        mesh, example_model=md, bcs=bcs, grid=grid, frame_dt=cfg.frame_dt,
+        n_substeps=3, camera=camera, bg=torch.ones(3),
+        opacity=shard(extras["opacity"], mesh, "data"),
+        features=shard(extras["features"], mesh, "data"),
+        sh_degree=scene.sh_degree, scaling=scaling, pos_center=pos_center,
+        grid_extent=cfg.grid_extent)
     logE, y, st_l = shard((md.logE, md.y, st), mesh, "data")
     out = step(logE, y, st_l, 0.0,
                torch.zeros((camera.height, camera.width, 3)))
@@ -98,8 +100,9 @@ def _tiled_frame(mesh) -> dict:
     cfg, _, state, model, bcs, grid, *_ = _tiny_problem(256, 16, 16)
     tc = sharded_tile_config(cfg.n_grid, 256, mesh.world_size)
     ts = bootstrap(soa_from_state(state), model, grid, tc)
-    frame = make_sharded_frame_tiled(mesh, model, bcs, grid, tc,
-                                     cfg.substep_dt, 10, rebucket_every=5)
+    frame = make_sharded_frame_tiled(mesh, model=model, bcs=bcs, grid=grid,
+                                     tc=tc, dt=cfg.substep_dt, n_substeps=10,
+                                     rebucket_every=5)
     ts, q, _ = frame(shard_tiled(ts, mesh, tc), 0.0)
     _check(bool(ts.ok) and _finite([q]), "tiled frame")
     return dict(ok=True)

@@ -100,8 +100,9 @@ class MeshSimEngine:
     and so the same starts and engine on every rank.
     """
 
-    def __init__(self, mesh: Mesh, bcs, grid: GridConfig, substep_dt: float,
-                 n_steps: int, incremental_cov: bool = False,
+    def __init__(self, mesh: Mesh, *, bcs, grid: GridConfig,
+                 substep_dt: float, n_steps: int,
+                 incremental_cov: bool = False,
                  rotate_sh: bool = False, prefer: Optional[str] = None,
                  quiet: bool = True, state=None):
         self.mesh = mesh
@@ -169,8 +170,10 @@ class MeshSimEngine:
             from gsmpm_tpu_torch.parallel.sharded import make_sharded_frame_fn
 
             self._psum_fn = make_sharded_frame_fn(
-                self.mesh, self.bcs, self.grid, self.dt, self.n_steps,
-                self.incremental_cov, self.rotate_sh)
+                self.mesh, bcs=self.bcs, grid=self.grid, dt=self.dt,
+                n_substeps=self.n_steps,
+                incremental_cov=self.incremental_cov,
+                rotate_sh=self.rotate_sh)
         return self._psum_fn(state, model, t)
 
     def _frame_tiled(self, state, model, t):
@@ -184,7 +187,8 @@ class MeshSimEngine:
             n = state.x.shape[0] * mesh.world_size
             tc = sharded_tile_config(self.grid.n_grid, n, mesh.world_size)
             fn = make_sharded_frame_tiled(
-                mesh, model, self.bcs, self.grid, tc, self.dt, self.n_steps,
+                mesh, model=model, bcs=self.bcs, grid=self.grid, tc=tc,
+                dt=self.dt, n_substeps=self.n_steps,
                 rebucket_every=_largest_divisor_leq(self.n_steps, 10))
             self._tiled = [fn, tc, None]
         fn, tc, ts = self._tiled
@@ -283,7 +287,7 @@ class MeshSimEngine:
         return self._frame_psum(state, model, t)
 
 
-def make_mesh_render_fn(mesh: Mesh, camera, bg, sh_degree: int, rcfg,
+def make_mesh_render_fn(mesh: Mesh, *, camera, bg, sh_degree: int, rcfg,
                         transform_fn):
     """Tile-sharded app render over the mesh.
 

@@ -318,8 +318,8 @@ def _exchange_edges(arr, x0: int, x1: int, mesh: Mesh, axis,
 # ---------------------------------------------------------------------------
 
 def migrate_gathered_slots(soa, aux, material, orig, starts,
-                           grid: GridConfig, hc: HaloConfig, mesh: Mesh,
-                           axis, coord: int = 0):
+                           grid: GridConfig, hc: HaloConfig, axis,
+                           coord: int = 0, *, mesh: Mesh):
     """Gathered repartition: all-gather every slot of the axis, repartition
     (replicated), keep this rank's segment.  O(N) bytes, always valid."""
     rows = all_gather_cat(_pack_rows(soa, aux, material, orig), mesh, dim=1,
@@ -330,8 +330,8 @@ def migrate_gathered_slots(soa, aux, material, orig, starts,
 
 
 def migrate_neighbor_slots(soa, aux, material, orig, starts,
-                           grid: GridConfig, hc: HaloConfig, mesh: Mesh,
-                           axis, coord: int = 0):
+                           grid: GridConfig, hc: HaloConfig, axis,
+                           coord: int = 0, *, mesh: Mesh):
     """Neighbour-only emigrant exchange: bounded buffers of mcap rows each
     way (drift bounded by the margin puts an emigrant's new owner next
     door).  A buffer or free-slot overflow, or a stray, on any rank of the
@@ -359,7 +359,7 @@ def migrate_neighbor_slots(soa, aux, material, orig, starts,
     dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=mesh.axis_group(axis))
     if bool(bad[0]):  # one host read, equal on every rank of the axis
         return migrate_gathered_slots(soa, aux, material, orig, starts, grid,
-                                      hc, mesh, axis, coord)
+                                      hc, axis, coord, mesh=mesh)
 
     rows = _pack_rows(soa, aux, material, orig)
     jj = torch.arange(mcap, dtype=torch.int64, device=dev)
@@ -514,7 +514,7 @@ def make_halo_frame(mesh: Mesh, axis, bcs, grid: GridConfig, hc: HaloConfig,
             drift = (orig >= 0) & ((cell < x0 - hc.margin)
                                    | (cell >= x1 + hc.margin))
             soa, aux, material, orig, ok2 = migrate_neighbor_slots(
-                soa, aux, material, orig, starts, grid, hc, mesh, axis)
+                soa, aux, material, orig, starts, grid, hc, axis, mesh=mesh)
             ok = ok & ~torch.any(drift) & ok2
         full = original_order_view(soa, orig, hc.ndev * hc.cap, mesh)
         return soa, aux, material, orig, full, time, all_ranks_ok(ok, mesh)

@@ -244,7 +244,7 @@ def make_halo_tiled_frame(mesh: Mesh, axis, bcs, grid: GridConfig,
                 // T_TILE
             drift = (orig >= 0) & ((tile < t0 - 1) | (tile >= t1 + 1))
             soa, aux, material, orig, ok_m = migrate_neighbor_slots(
-                soa, aux, material, orig, cells, grid, hc, mesh, axis)
+                soa, aux, material, orig, cells, grid, hc, axis, mesh=mesh)
             ok = ok & ok_t & ~torch.any(drift) & ok_m
         full = original_order_view(soa, orig, hc.ndev * hc.cap, mesh)
         return soa, aux, material, orig, full, time, all_ranks_ok(ok, mesh)

@@ -175,11 +175,11 @@ def make_halo_tiled2d_frame(mesh: Mesh, ax_x: str, ax_y: str, bcs,
             drift = (orig >= 0) & ((tx < tx0 - 1) | (tx >= tx1 + 1)
                                    | (ty < ty0 - 1) | (ty >= ty1 + 1))
             soa, aux, material, orig, ok_x = migrate_neighbor_slots(
-                soa, aux, material, orig, cell_xs, grid, hx, mesh, ax_x,
-                coord=0)
+                soa, aux, material, orig, cell_xs, grid, hx, ax_x, coord=0,
+                mesh=mesh)
             soa, aux, material, orig, ok_y = migrate_neighbor_slots(
-                soa, aux, material, orig, cell_ys, grid, hy, mesh, ax_y,
-                coord=1)
+                soa, aux, material, orig, cell_ys, grid, hy, ax_y, coord=1,
+                mesh=mesh)
             ok = ok & ok_t & ~torch.any(drift) & ok_x & ok_y
         full = original_order_view(soa, orig, dx * dy * hc2.cap, mesh)
         return soa, aux, material, orig, full, time, all_ranks_ok(ok, mesh)

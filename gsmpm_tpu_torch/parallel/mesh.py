@@ -107,11 +107,12 @@ def _axis_groups(sizes: Tuple[int, ...], rank: int, world: int):
 
 
 def make_mesh(axes: Tuple[Tuple[str, int], ...] = (("data", -1),),
-              device: Optional[str] = "cuda") -> Mesh:
+              device: Optional[str] = None) -> Mesh:
     """Join (or build from the ``torchrun`` environment) the default process
     group and lay (name, size) axes over its ranks; one size may be -1
-    (inferred).  The backend is NCCL for CUDA and gloo for the CPU; a CUDA
-    device never runs on gloo.  Each rank takes ``cuda:LOCAL_RANK``."""
+    (inferred).  The backend is NCCL for CUDA (the default device) and gloo
+    for the CPU; a CUDA device never runs on gloo.  Each rank takes
+    ``cuda:LOCAL_RANK``."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         if not dist.is_nccl_available():

@@ -94,7 +94,7 @@ def _render_tile_sharded(means3d, cov6, opacity, shs, camera: Camera, bg,
     return assemble_blocks(blocks, camera, rcfg), dropped
 
 
-def make_sharded_frame_fn(mesh: Mesh, bcs, grid: GridConfig, dt: float,
+def make_sharded_frame_fn(mesh: Mesh, *, bcs, grid: GridConfig, dt: float,
                           n_substeps: int, incremental_cov: bool = False,
                           rotate_sh: bool = False):
     """(state, model, t) -> (state, t, R) on this rank's particle shard,
@@ -114,7 +114,8 @@ def make_sharded_frame_fn(mesh: Mesh, bcs, grid: GridConfig, dt: float,
     return frame
 
 
-def make_sharded_render_fn(mesh: Mesh, camera: Camera, bg, sh_degree: int,
+def make_sharded_render_fn(mesh: Mesh, *, camera: Camera, bg,
+                           sh_degree: int,
                            rcfg: RasterConfig = RasterConfig()):
     """fn(means3d, cov6, opacity, shs) on this rank's shard -> (H, W, 3),
     the image replicated on every rank."""
@@ -189,6 +190,7 @@ def _dropped(n: torch.Tensor, mesh: Mesh, sum_group=None) -> int:
 
 def make_sharded_fit_step(
     mesh: Mesh,
+    *,
     example_model,
     bcs,
     grid: GridConfig,
@@ -309,6 +311,7 @@ def make_camera_dp_fit_step(
     lr_y: float = 1.6,
     grad_clip: float = 1.0,
     cam_axis: str = "cam",
+    *,
     tie_params: bool = False,
     sim_engine: str = "auto",
 ):

@@ -96,7 +96,7 @@ def _hard_drift(q: torch.Tensor, grid: GridConfig, tc: TileConfig,
     return torch.any(bad)
 
 
-def make_sharded_frame_tiled(mesh: Mesh, model: MPMModel, bcs,
+def make_sharded_frame_tiled(mesh: Mesh, *, model: MPMModel, bcs,
                              grid: GridConfig, tc: TileConfig, dt: float,
                              n_substeps: int, rebucket_every: int = 10):
     """Build the sharded frame step: (ts, time) -> (ts, q, time).

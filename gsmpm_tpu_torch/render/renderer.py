@@ -36,27 +36,37 @@ from gsmpm_tpu_torch.render.sh import C0, band_basis
 
 
 class RasterConfig(NamedTuple):
+    """gsmpm_tpu's render knobs, its fields in its order with its defaults.
+
+    The TPU-only knobs are accepted so that a gsmpm_tpu config means the
+    same here; each is marked unused on this port."""
+
     block: int = 64  # pixel block edge for binning/blending
     k_block: int = 1024  # per-block cap of the XLA path (cap sizing only)
     k_row: int = 8192  # per-block-row cap of the XLA path (cap sizing only)
     chunk: int = 64  # candidates per chunk of the blend twins' walk
+    block_batch: int = 16  # unused here: gsmpm_tpu's retained compat knob
     t_min: float = 1e-4  # transmittance early-stop (parity with CUDA)
     alpha_min: float = 1.0 / 255.0
     z_near: float = 0.2  # frustum near cull
+    remat: bool = True  # unused here: jax.checkpoint of the XLA blend
+    skip_empty: bool = True  # unused here: lax.cond over empty XLA blocks
+    impl: str = "auto"  # unused here: Pallas vs XLA (CUDA or twin by device)
     # depth-first caps of the windowed path's fine / coarse / global tile
     # streams; their sum is the per-block window K
     k_tile: int = 512
     k_coarse: int = 128
     k_global: int = 128
-    # two-tier windowed render (k_dense = 0 disables): the n_dense fine
-    # tiles with the longest segments get a second window of k_dense
-    k_dense: int = 0
-    n_dense: int = 16
+    sel: str = "auto"  # unused here: the v1 selections (only v2 is ported)
     # packed windowed layout (taken when k_dense == 0): the windows stored
     # back to back at chunk-aligned offsets in one stream of t_cap slots;
     # blocks past t_cap are dropped whole and counted in n_dropped
     packed: bool = False
     t_cap: int = 32768
+    # two-tier windowed render (k_dense = 0 disables): the n_dense fine
+    # tiles with the longest segments get a second window of k_dense
+    k_dense: int = 0
+    n_dense: int = 16
     # the drop-free sorted-segment stream rasterizer
     stream: bool = False
     # per-tier gaussian budgets of the stream rasterizer
@@ -65,6 +75,8 @@ class RasterConfig(NamedTuple):
     stream_g2: int = 2048
     stream_g3: int = 256
     stream_g4: int = 32
+    stream_unroll: int = 8  # unused here: Pallas chunks per grid step
+    stream_chunk: int = 128  # unused here: Pallas lanes per walked chunk
 
 
 class Preprocessed(NamedTuple):
@@ -82,6 +94,18 @@ class Preprocessed(NamedTuple):
     color_b: torch.Tensor
     opacity: torch.Tensor
     valid: torch.Tensor  # bool
+
+    @property
+    def pix(self):  # (N, 2)
+        return torch.stack([self.pix_x, self.pix_y], dim=-1)
+
+    @property
+    def conic(self):  # (N, 3)
+        return torch.stack([self.conic_a, self.conic_b, self.conic_c], dim=-1)
+
+    @property
+    def color(self):  # (N, 3)
+        return torch.stack([self.color_r, self.color_g, self.color_b], dim=-1)
 
 
 def _eval_sh_planes(shs, dx, dy, dz, sh_degree: int):

@@ -143,11 +143,16 @@ class BCSet:
 def make_surface_collider(
     point: Sequence[float],
     normal: Sequence[float],
+    surface: str = "sticky",
     friction: float = 0.0,
+    start_time: float = 0.0,
+    end_time: float = 999.0,
+    *,
     device="cpu",
 ) -> SurfaceCollider:
     """The reference's add_surface_collider (sticky surface, always
-    active); normalizes the normal."""
+    active); normalizes the normal.  ``surface``, ``start_time`` and
+    ``end_time`` are accepted and unused, as in gsmpm_tpu."""
     n = np.asarray(normal, np.float64)
     n = n / np.linalg.norm(n)
     return SurfaceCollider(

@@ -300,7 +300,7 @@ class SystemIdentifier:
     # --- the differentiable frame ---
 
     def frame_loss(self, logE, y, state: MPMState, t: float, camera: Camera,
-                   gt):
+                   gt_image):
         """Forward of one fit frame: (loss, state', t', image, n_dropped,
         ok), recorded by autograd from (logE, y).  ok is False when the
         tiled engine overflowed its occupied-tile cap (nothing is rendered
@@ -320,22 +320,24 @@ class SystemIdentifier:
         img, nd = render_with_aux(xyz_w, cov_w, opacity, features, camera,
                                   self.bg, self.scene.sh_degree,
                                   self.raster_cfg)
-        return photometric_loss(img, gt), state2, t2, img, int(nd), True
+        return (photometric_loss(img, gt_image), state2, t2, img, int(nd),
+                True)
 
-    def fit_frame(self, state: MPMState, t: float, camera: Camera, gt):
+    def fit_frame(self, state: MPMState, t: float, camera: Camera,
+                  gt_image):
         """One observed frame: forward substeps + render, backward, SGD.
 
         Returns (loss, new_state, new_t, rendered_image), all detached;
         updates self.model's logE / y."""
         if self.mesh is not None:
-            return self._fit_frame_sharded(state, t, camera, gt)
+            return self._fit_frame_sharded(state, t, camera, gt_image)
 
         def attempt():
             logE = self.model.logE.detach().requires_grad_(True)
             y = self.model.y.detach().requires_grad_(True)
             with torch.enable_grad():
                 loss, state2, t2, img, nd, ok = self.frame_loss(
-                    logE, y, state, t, camera, gt)
+                    logE, y, state, t, camera, gt_image)
             return ((loss, state2, t2, img, logE, y), ok, nd,
                     detach_state(state2))
 
@@ -349,7 +351,7 @@ class SystemIdentifier:
         return loss.detach(), detach_state(state2), t2, img.detach()
 
     def _fit_frame_sharded(self, state: MPMState, t: float, camera: Camera,
-                           gt):
+                           gt_image):
         """fit_frame on the mesh: the sharded fit step of
         parallel/sharded.py, the whole padded state in and out, each rank
         stepping its block along the data axis."""
@@ -365,14 +367,16 @@ class SystemIdentifier:
         def attempt():
             # built at the engine and caps in use (a closure: no compile)
             step = make_sharded_fit_step(
-                mesh, self.model, self.bcs, self.grid, fcfg.frame_dt,
-                fcfg.substeps_per_frame, camera, self.bg, opac_l, feat_l,
-                self.scene.sh_degree, self.scaling, self.pos_center,
-                self.mpm_cfg.grid_extent, lr_logE=fcfg.lr_logE,
+                mesh, example_model=self.model, bcs=self.bcs, grid=self.grid,
+                frame_dt=fcfg.frame_dt, n_substeps=fcfg.substeps_per_frame,
+                camera=camera, bg=self.bg, opacity=opac_l, features=feat_l,
+                sh_degree=self.scene.sh_degree, scaling=self.scaling,
+                pos_center=self.pos_center,
+                grid_extent=self.mpm_cfg.grid_extent, lr_logE=fcfg.lr_logE,
                 lr_y=fcfg.lr_y, grad_clip=fcfg.grad_clip, data_axis=axis,
                 tile_axis=self.tile_axis, tie_params=fcfg.tie_params,
                 rcfg=self.raster_cfg, sim_engine=self.sim_engine)
-            out = step(logE_l, y_l, st_l, t, gt)
+            out = step(logE_l, y_l, st_l, t, gt_image)
             state2 = gather(out.state, mesh, axis)
             return (out, state2), out.sim_ok, out.n_dropped, state2
 
@@ -385,13 +389,17 @@ class SystemIdentifier:
 
     # --- readout ---
 
+    # gsmpm_tpu's readouts (10^mean(logE), nu of mean(y)) with the means
+    # taken in float64: with tied parameters they are then each particle's
+    # MPMModel.E() / nu() to float32's rounding, where a float32 mean of
+    # 10^5 equal values is off by ~1e-7 (1e-6 in E)
     @property
     def optimized_E(self) -> float:
-        return float(10.0 ** self.model.logE[: self.n_orig].mean())
+        return float(10.0 ** self.model.logE[: self.n_orig].double().mean())
 
     @property
     def optimized_nu(self) -> float:
-        y_mean = float(self.model.y[: self.n_orig].mean())
+        y_mean = float(self.model.y[: self.n_orig].double().mean())
         return float(0.49 / (1.0 + np.exp(-y_mean)))
 
     # --- ground truth by simulation ---
@@ -463,9 +471,11 @@ class SystemIdentifier:
             eps=1e-15)
         return opt, params
 
-    def appearance_step(self, opt, params, camera: Camera, gt):
+    def appearance_step(self, opt, params, *, camera: Camera, gt_image):
         """One Adam step on appearance from the frame-0 observation; the
-        scene takes the new parameters.  Returns the loss."""
+        scene takes the new parameters.  Returns the loss.  ``opt`` (from
+        make_appearance_optimizer) holds what gsmpm_tpu passes as optax's
+        ``tx`` and ``opt_state``."""
         opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
             sc = GaussianScene(rotation=self.scene.rotation,
@@ -474,7 +484,7 @@ class SystemIdentifier:
             img = render(sc.xyz, sc.get_covariance(),
                          sc.get_opacity().reshape(-1), sc.get_features(),
                          camera, self.bg, sc.sh_degree, self.raster_cfg)
-            loss = photometric_loss(img, gt)
+            loss = photometric_loss(img, gt_image)
             loss.backward()
         opt.step()
         self.scene = dataclasses.replace(

@@ -205,8 +205,8 @@ def g2p_soa(state: SoAState, grid_v: Tuple, grid: GridConfig, dt,
 
 
 def substep_soa(state: SoAState, model: MPMModel, bcs, time: float,
-                grid: GridConfig, dt: float, fitting: bool = False,
-                incremental_cov: bool = False, group=None) -> SoAState:
+                grid: GridConfig, dt: float, incremental_cov: bool = False,
+                group=None, fitting: bool = False) -> SoAState:
     """One golden substep: particle BCs -> stress -> P2G -> grid update +
     grid BCs -> G2P.  ``fitting`` takes the Green StVK stress on F with no
     particle BCs and advances F := F_trial (the fitting semantics);

@@ -172,7 +172,8 @@ def substep(state: MPMState, model: MPMModel, bcs: BCSet, time: float,
     ``group`` all-reduces the grid over a process group (gsmpm_tpu's
     ``axis_name``)."""
     soa = substep_soa(soa_from_state(state), model, bcs, time, grid, dt,
-                      fitting, incremental_cov, group)
+                      incremental_cov=incremental_cov, group=group,
+                      fitting=fitting)
     return state_from_soa(soa)
 
 
@@ -230,9 +231,9 @@ def _substep_aos(state: MPMState, model: MPMModel, bcs: BCSet, time: float,
 
 def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
                  n_substeps: int, grid: GridConfig, dt: float,
+                 incremental_cov: bool = False, group=None,
                  fitting: bool = False,
-                 checkpoint_policy: Optional[str] = "substep",
-                 incremental_cov: bool = False, group=None):
+                 checkpoint_policy: Optional[str] = "substep"):
     """n_substeps of the golden engine; returns (state, time).
 
     ``incremental_cov`` advances cov every substep (the reference's
@@ -251,12 +252,14 @@ def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
     for _ in range(n_substeps):
         if remat:
             soa = torch.utils.checkpoint.checkpoint(
-                substep_soa, soa, model, bcs, time, grid, dt, fitting,
-                incremental_cov, group, use_reentrant=False,
+                substep_soa, soa, model, bcs, time, grid, dt,
+                incremental_cov=incremental_cov, group=group,
+                fitting=fitting, use_reentrant=False,
             )
         else:
-            soa = substep_soa(soa, model, bcs, time, grid, dt, fitting,
-                              incremental_cov, group)
+            soa = substep_soa(soa, model, bcs, time, grid, dt,
+                              incremental_cov=incremental_cov, group=group,
+                              fitting=fitting)
         time = _advance(time, dt)
     return state_from_soa(soa), time
 
@@ -336,7 +339,7 @@ class MPMSolver:
         self.bcs = BCSet(
             particle_ops=self.bcs.particle_ops,
             grid_ops=self.bcs.grid_ops + (make_surface_collider(
-                point, normal, friction, device=self.device),),
+                point, normal, surface, friction, device=self.device),),
         )
         self._ts = None
 

@@ -67,6 +67,12 @@ class MPMModel:
     def n_particles(self) -> int:
         return self.material.shape[0]
 
+    def E(self) -> torch.Tensor:
+        return torch.pow(10.0, self.logE)
+
+    def nu(self) -> torch.Tensor:
+        return 0.49 / (1.0 + torch.exp(-self.y))
+
 
 def mu_lam_from_logE_y(logE: torch.Tensor, y: torch.Tensor):
     """The reference's compute_mu_lam_from_E_nu on (logE, y)."""
@@ -107,7 +113,8 @@ def _f32(v, device) -> torch.Tensor:
     return torch.tensor(np.float32(v), dtype=torch.float32, device=device)
 
 
-def init_model(cfg: MPMConfig, n_particles: int, device) -> MPMModel:
+def init_model(cfg: MPMConfig, n_particles: int,
+               device="cuda") -> MPMModel:
     """MPMModel from config (the reference's MPM_model.__init__)."""
     mat_id = material_types.get(cfg.material, -1)
     if mat_id < 0:

@@ -90,6 +90,10 @@ class TileConfig(NamedTuple):
     def np_rows(self) -> int:  # padded particle slots
         return self.nchunk * self.S
 
+    @property
+    def pad_axis(self) -> int:  # padded grid cells per axis
+        return (self.nt + 1) * T_TILE
+
 
 def default_tile_config(n_grid: int, n_particles: int) -> TileConfig:
     nt = -(-n_grid // T_TILE)
@@ -601,6 +605,7 @@ def substep_tiled(
     grid: GridConfig,
     tc: TileConfig,
     dt: float,
+    *,
     group=None,
     rebucket_on_drift: bool = True,
     grid_reduce=None,
@@ -721,6 +726,7 @@ def substep_tiled_fitting(
     grid: GridConfig,
     tc: TileConfig,
     dt: float,
+    *,
     group=None,
 ) -> TiledState:
     """One differentiable fitting substep in the tiled layout.
@@ -763,6 +769,7 @@ def run_substeps_tiled_fitting(
     grid: GridConfig,
     dt: float,
     tc: Optional[TileConfig] = None,
+    *,
     group=None,
 ):
     """Differentiable fitting window in the tiled layout.
@@ -781,7 +788,8 @@ def run_substeps_tiled_fitting(
         tc = default_tile_config(grid.n_grid, n)
     ts = bootstrap(soa, model, grid, tc)
     for _ in range(n_substeps):
-        ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt, group)
+        ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt,
+                                   group=group)
         time = _advance(time, dt)
     q = to_original_order(ts, n)
     return unpack_q(q, soa), time, ts.ok
@@ -795,6 +803,7 @@ def run_substeps_tiled(
     n_substeps: int,
     grid: GridConfig,
     dt: float,
+    *,
     tc: Optional[TileConfig] = None,
 ):
     """n_substeps in tiled layout; converts SoA <-> tiled at the ends.

@@ -5,10 +5,10 @@ and is compiled on its own into ``build/lib<name>-<hash>.so`` at the
 repository root (``-gencode arch=compute_90a,code=sm_90a``), then loaded
 with ctypes.  The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header rebuilds.
-The host C++ IO tier (``NATIVE``: ``csrc/gsmpm_native.cpp`` and
-``gsmpm_video.cpp``, the PLY codec and the MJPEG-AVI writer) is built the
-same way with g++ into ``build/libgsmpm_native-<hash>.so``; io/_native.py
-loads it.  Every library is compiled to a per-process temporary file and
+The host C++ IO tier (``NATIVE``: ``csrc/gsmpm_native.cpp``,
+``gsmpm_video.cpp`` and ``gsmpm_png.cpp``, the PLY codec, the MJPEG-AVI
+writer and the PNG row unfilter) is built the same way with g++ into
+``build/libgsmpm_native-<hash>.so``; io/_native.py loads it.  Every library is compiled to a per-process temporary file and
 moved into place with ``os.replace``, so processes that build the same
 library at once never load a half-written one.
 ``build_all`` starts one compiler per library at once and waits for all of
@@ -42,10 +42,10 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "tile_blend": ["--fmad=false"],
 }
 SOURCES = tuple(EXTRA_FLAGS)
-# the host C++ IO tier: one library of two sources, built with g++ and
+# the host C++ IO tier: one library of three sources, built with g++ and
 # scripts/build_native.sh's flags
 NATIVE = "gsmpm_native"
-NATIVE_SOURCES = ("gsmpm_native.cpp", "gsmpm_video.cpp")
+NATIVE_SOURCES = ("gsmpm_native.cpp", "gsmpm_video.cpp", "gsmpm_png.cpp")
 NATIVE_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -69,8 +69,8 @@ def gxx_path() -> str:
     found = shutil.which("g++")
     if found is None:
         raise RuntimeError("g++ not found on PATH: the native IO tier "
-                           "(csrc/gsmpm_native.cpp, gsmpm_video.cpp) is "
-                           "host C++")
+                           "(csrc/gsmpm_native.cpp, gsmpm_video.cpp, "
+                           "gsmpm_png.cpp) is host C++")
     return found
 
 

@@ -59,7 +59,8 @@ CAPS = dict(block=32, chunk=32)
 
 def _cfgs(**kw):
     c = dict(CAPS, **kw)
-    return jr.RasterConfig(impl="pallas", **c), tr.RasterConfig(**c)
+    return (jr.RasterConfig(impl="pallas", **c),
+            tr.RasterConfig(impl="pallas", **c))
 
 
 def _t(a):

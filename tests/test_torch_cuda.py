@@ -442,6 +442,40 @@ def _blend_case(dev, counts, K, B=64, seed=0):
     return torch.tensor(counts, dtype=torch.int32, device=dev), F, meta
 
 
+# gsmpm_tpu's TPU-only RasterConfig knobs, accepted and unused here
+TPU_KNOBS = dict(block_batch=4, remat=False, skip_empty=False, impl="xla",
+                 sel="v1", stream_unroll=2, stream_chunk=256)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_raster_config_tpu_knobs_render_bit_equal(cuda, stream):
+    """A RasterConfig that sets every TPU-only knob renders the bits of
+    the default one, through the windowed blend (K4) and the stream blend
+    (K3)."""
+    from gsmpm_tpu_torch.render import RasterConfig, render
+
+    rng = np.random.default_rng(12)
+    n, res = 3000, 128
+    means = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
+    means[:, 2] += 4.0
+    A = 0.05 * rng.normal(size=(n, 3, 3)).astype(np.float32)
+    cov = A @ A.transpose(0, 2, 1) + 1e-4 * np.eye(3, dtype=np.float32)
+    cov6 = cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
+    C = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    args = (C(means), C(cov6),
+            C(rng.uniform(0.15, 0.95, size=n).astype(np.float32)),
+            C(rng.normal(size=(n, 4, 3)).astype(np.float32)),
+            make_camera(res, res, 0.9, 0.9, np.eye(3), np.zeros(3)),
+            torch.ones(3, device=cuda), 1)
+    launches = (cb.blend_fwd.launches, sr.stream_blend.launches)
+    want = render(*args, RasterConfig(stream=stream))
+    got = render(*args, RasterConfig(stream=stream, **TPU_KNOBS))
+    assert torch.equal(got, want)
+    k4, k3 = (cb.blend_fwd.launches - launches[0],
+              sr.stream_blend.launches - launches[1])
+    assert (k3, k4) == ((2, 0) if stream else (0, 2))
+
+
 # K: the TPU's resident / streamed windows; B 32 and 16 take splats larger
 # than a 16 x 8 pixel group, in clusters of one CUDA block
 @pytest.mark.parametrize("K,B", [(768, 64), (20480, 64), (768, 32),

@@ -84,7 +84,7 @@ def _identifiers(k_tile=512):
         TMPMConfig(**kw),
         init_velocity=torch.tensor([[0.0, -2.0, 0.0]]).repeat(N_FIT, 1),
         fit_cfg=tf.FitConfig(substeps_per_frame=3),
-        raster_cfg=TRasterConfig(**rkw), bg=torch.ones(3))
+        raster_cfg=TRasterConfig(impl="pallas", **rkw), bg=torch.ones(3))
     return (jid, make_camera(*args)), (tid, t_make_camera(*args))
 
 
@@ -176,7 +176,7 @@ def test_appearance_step_matches_jax():
     loss_j, params, _ = jid.appearance_step(tx, params, opt_state, jcam,
                                             jnp.asarray(gt))
     opt, tparams = tid.make_appearance_optimizer()
-    loss_t = tid.appearance_step(opt, tparams, tcam, _t(gt))
+    loss_t = tid.appearance_step(opt, tparams, camera=tcam, gt_image=_t(gt))
     assert float(loss_t) == pytest.approx(float(loss_j), abs=1e-6)
     for k in ("xyz", "features_dc", "features_rest", "opacity", "scaling"):
         # Adam's first step moves each entry by ~lr sign(g); a gradient

@@ -278,8 +278,8 @@ def _engine_frames(mesh, engine, scene):
     st, md = tmesh.shard((st, md), mesh)
     restore = _small_tile_cap(TILE_CAP)
     try:
-        eng = MeshSimEngine(mesh, bcs, grid, dt, SUBSTEPS, prefer=engine,
-                            state=st)
+        eng = MeshSimEngine(mesh, bcs=bcs, grid=grid, substep_dt=dt,
+                            n_steps=SUBSTEPS, prefer=engine, state=st)
         tmesh.neighbor_ppermute.bytes_sent = 0
         t = 0.0
         for _ in range(2):
@@ -368,12 +368,13 @@ def _case_fault(mesh):
     sl, ml = tmesh.shard((st, md), mesh)
     restore = _small_tile_cap(FAULT_CAP)
     try:
-        eng = MeshSimEngine(mesh, bcs, grid, dt, SUBSTEPS,
-                            prefer="halo_tiled", state=sl)
+        eng = MeshSimEngine(mesh, bcs=bcs, grid=grid, substep_dt=dt,
+                            n_steps=SUBSTEPS, prefer="halo_tiled", state=sl)
         out, _, _ = eng.frame(sl, ml, 0.0)
     finally:
         restore()
-    psum = MeshSimEngine(mesh, bcs, grid, dt, SUBSTEPS, prefer="psum")
+    psum = MeshSimEngine(mesh, bcs=bcs, grid=grid, substep_dt=dt,
+                         n_steps=SUBSTEPS, prefer="psum")
     want, _, _ = psum.frame(sl, ml, 0.0)
     return dict(tstarts=tstarts, occupied=occupied, engine=eng.engine,
                 state=_np_state(tmesh.gather(out, mesh)),
@@ -396,8 +397,8 @@ def _case_select(mesh):
                 if k == 0 else a
                 for k, a in enumerate(scene_arrays("halo"))))):
         st, md, bcs, grid, dt = t_problem(arrays, n_grid)
-        eng = MeshSimEngine(mesh, bcs, grid, dt, SUBSTEPS,
-                            incremental_cov=inc,
+        eng = MeshSimEngine(mesh, bcs=bcs, grid=grid, substep_dt=dt,
+                            n_steps=SUBSTEPS, incremental_cov=inc,
                             state=tmesh.shard(st, mesh))
         out[name] = eng.engine
     return out

@@ -119,7 +119,8 @@ def _case_psum(mesh):
     n = state.x.shape[0]
     st, md, _, _ = tmesh.pad_particles(state, model, mesh.world_size)
     st, md = tmesh.shard((st, md), mesh)
-    fn = make_sharded_frame_fn(mesh, bcs, grid, DT, SUBSTEPS)
+    fn = make_sharded_frame_fn(mesh, bcs=bcs, grid=grid, dt=DT,
+                               n_substeps=SUBSTEPS)
     st, t, _ = fn(st, md, 0.0)
     return dict(state=_np_state(tmesh.unpad(tmesh.gather(st, mesh), n)), t=t)
 
@@ -146,7 +147,8 @@ def _case_tiled(mesh):
 
     n, st, md, bcs, grid, tc = _tiled_setup(mesh)
     ts = bootstrap(soa_from_state(st), md, grid, tc)
-    fn = make_sharded_frame_tiled(mesh, md, bcs, grid, tc, DT, SUBSTEPS,
+    fn = make_sharded_frame_tiled(mesh, model=md, bcs=bcs, grid=grid, tc=tc,
+                                  dt=DT, n_substeps=SUBSTEPS,
                                   rebucket_every=10)
     rebuckets = []
     plain = tiled_sharded.rebucket
@@ -170,8 +172,8 @@ def _case_render(mesh):
     k = (-n) % mesh.world_size
     # padded gaussians: opacity 0 at the camera centre (culled by z_near)
     padded = [torch.cat([a, torch.zeros((k,) + a.shape[1:])]) for a in arrs]
-    fn = make_sharded_render_fn(mesh, t_make_camera(*cam_args()),
-                                torch.zeros(3), 1, t_rcfg())
+    fn = make_sharded_render_fn(mesh, camera=t_make_camera(*cam_args()),
+                                bg=torch.zeros(3), sh_degree=1, rcfg=t_rcfg())
     img = fn(*tmesh.shard(tuple(padded), mesh))
     return dict(image=img.numpy())
 
@@ -195,7 +197,8 @@ def _case_overflow(mesh):
 
     tiled_sharded.sharded_tile_config = small_cap
     try:
-        eng = MeshSimEngine(mesh, bcs, grid, DT, SUBSTEPS, prefer="tiled")
+        eng = MeshSimEngine(mesh, bcs=bcs, grid=grid, substep_dt=DT,
+                            n_steps=SUBSTEPS, prefer="tiled")
         st_l, md_l = tmesh.shard((st, md), mesh)
         out, t, _ = eng.frame(st_l, md_l, 0.0)
     finally:
