@@ -77,9 +77,19 @@
    against K5 on the same windows); their bounds charge the gate to the
    walked pairs inside the cull box, with the all-walked bound beside
    them.
-12. Every path is driven with every launch counter set to 0 just before it
+12. Slice 9, at the main path's width: ``tiles.frame_tiled`` replaying
+   its captured substep (a CUDA graph of the particle phase, K1, the grid
+   phase, K2, the drift flag and the float32 clock) against the eager
+   ``substep_tiled`` loop in turns (eager, graph, eager, graph; 2 frames
+   of 100 substeps each) from one state: substeps/s, exact K1 / K2
+   launches, captures, replays and host reads, the graph's pool bytes,
+   each field within 1e-4 of its max of the eager loop, the device clock's
+   bits, the device busy share of one profiled frame of each; then one
+   frame of the pushed box, which rebuckets without re-capture.  The
+   simulate path and the solver phase run the same graph.
+13. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-13. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+14. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -114,6 +124,8 @@ MAIN_RES = 800
 MAIN_FRAMES = 4
 PROFILE_FRAMES = 2
 PROFILE_TOP = 12
+# slice 9's graph phase: frames per turn of eager and graph runs
+GRAPH_FRAMES = 2
 # the identification path: bench.py's fit configuration
 FIT_RES = 512
 FIT_FRAMES = 3          # frame 0 (appearance) + 2 fit frames
@@ -746,6 +758,194 @@ def profile_phase(dev, main):
               f"x{e.count:<6d} {e.key[:80]}", flush=True)
     return dict(busy_ms=busy_ms, launches=launches, loop_ms=loop_ms,
                 profiled_wall_ms=wall * 1e3)
+
+def _graph_pool_bytes(entry) -> int:
+    """Bytes of a substep graph's private memory pool: its segments in the
+    caching allocator's snapshot."""
+    pool = entry.graph.pool()
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg.get("segment_pool_id") == pool)
+
+
+def _profiled_busy_ms(fn):
+    """Device time (ms) of the kernels torch.profiler records while fn runs,
+    and their count."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type != torch.autograd.DeviceType.CPU]
+    return (sum(_device_us(e) for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def graph_phase(dev, wrappers):
+    """Slice 9 on the main path's scene (196,730 particles, n_grid 50, the
+    ground collider): tiles.frame_tiled replaying its captured substep
+    against the eager substep_tiled loop (the same frame work: the
+    substeps, then the original-order view), in turns from one state
+    (eager, graph, eager, graph; GRAPH_FRAMES frames each, after one short
+    graph frame that captures).  Per turn: substeps/s, K1 / K2 launches
+    per frame, captures, replays and host reads per frame; the graph's
+    pool bytes; each field's max abs and relative difference to the eager
+    loop (SOLVER_RTOL of the field's max: K1's float atomics); the device
+    busy share of one eager and one graph frame (torch.profiler, and the
+    graph's back-to-back replay time from CUDA events); then one frame of
+    the box pushed at ~PUSH_SPEED m/s, which rebuckets inside the frame
+    without overflowing the cap, against the eager loop."""
+    from gsmpm_tpu_torch.apps.simulate import prepare
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
+
+    su = prepare_main(dev)
+    mpm = bench_config().mpm
+    steps, dt = mpm.steps_per_frame, mpm.substep_dt
+    f = tiles.frame_tiled
+
+    def graph_counts():
+        return dict(captures=f.captures, replays=f.replays,
+                    host_reads=f.host_reads, rebuckets=f.rebuckets)
+
+    def eager(ts, soa, model, bcs, n_frames):
+        t = 0.0
+        for _ in range(n_frames):
+            for _ in range(steps):
+                ts = tiles.substep_tiled(ts, model, bcs, t, su.grid, su.tc,
+                                         dt)
+                t = tiles._advance(t, dt)
+            q = tiles.to_original_order(ts, su.tc.n_particles)
+            soa = tiles.unpack_q(q, soa)
+        return ts, soa, t
+
+    def graph(ts, soa, model, bcs, n_frames, n=steps):
+        t = 0.0
+        for _ in range(n_frames):
+            ts, soa, t = tiles.frame_tiled(ts, soa, model, bcs, t, n,
+                                           su.grid, su.tc, dt)
+        return ts, soa, t
+
+    def timed(run, *args):
+        torch.cuda.synchronize()
+        _zero(wrappers)
+        g0 = graph_counts()
+        t0 = time.perf_counter()
+        out = run(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts(wrappers)
+        g = {k: v - g0[k] for k, v in graph_counts().items()}
+        return out, secs, counts, g
+
+    soa0 = soa_from_state(su.state)
+    ts0 = tiles.bootstrap(soa0, su.model, su.grid, su.tc)
+    args = (ts0, soa0, su.model, su.bcs, GRAPH_FRAMES)
+    # the capture: one short frame (its first substep is the warm-up)
+    _, capture_s, _, g = timed(graph, ts0, soa0, su.model, su.bcs, 1, 2)
+    check(g["captures"] == 1 and g["replays"] == 1,
+          f"graph: capture frame {g}")
+    entry = next(reversed(tiles._GRAPHS.values()))
+    pool_bytes = _graph_pool_bytes(entry)
+    turns, results, total = [], {}, {}
+    for name in ("eager", "graph", "eager", "graph"):
+        (ts, soa, t), secs, counts, g = timed(
+            eager if name == "eager" else graph, *args)
+        want_k = GRAPH_FRAMES * steps
+        check(counts["p2g_tiled"] == counts["g2p_tiled"] == want_k,
+              f"graph phase {name}: launches {counts}, expected {want_k}")
+        if name == "graph":
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            check(g["captures"] == 0 and g["replays"] == want_k
+                  and g["host_reads"] == want_k,
+                  f"graph phase: replays {g}, expected {want_k}")
+            check(entry.clock.cpu().numpy().view(np.uint32)
+                  == np.float32(t).view(np.uint32),
+                  f"graph: device clock {float(entry.clock)} vs host {t}")
+        else:
+            check(g == dict(captures=0, replays=0, host_reads=0,
+                            rebuckets=0), f"graph phase eager: {g}")
+        turns.append(dict(run=name, substeps_per_s=want_k / secs, secs=secs,
+                          k1=counts["p2g_tiled"], k2=counts["g2p_tiled"],
+                          **g))
+        results.setdefault(name, (ts, soa, t))
+    (ts_e, soa_e, t_e), (ts_g, soa_g, t_g) = results["eager"], \
+        results["graph"]
+    check(t_e == t_g and bool(ts_g.ok), f"graph: clocks {t_e} vs {t_g}")
+    st_g, st_e = state_from_soa(soa_g), state_from_soa(soa_e)
+    rel = _rel_errs(st_g, st_e)
+    abs_err = {k: float((getattr(st_g, k) - getattr(st_e, k)).abs().max())
+               for k in rel}
+    check(max(rel.values()) <= SOLVER_RTOL,
+          f"graph vs eager: {rel} (tol {SOLVER_RTOL})")
+
+    # busy shares: one frame of each under torch.profiler, beside the
+    # turns' unprofiled frame times; the graph's replays back to back
+    eager_busy, eager_n = _profiled_busy_ms(
+        lambda: eager(ts0, soa0, su.model, su.bcs, 1))
+    graph_busy, graph_n = _profiled_busy_ms(
+        lambda: graph(ts0, soa0, su.model, su.bcs, 1))
+    frame_ms = {n: 1e3 * float(np.mean([x["secs"] for x in turns
+                                        if x["run"] == n])) / GRAPH_FRAMES
+                for n in ("eager", "graph")}
+    entry.load(ts0, 0.0)
+    replay_ms = cuda_ms(entry.graph.replay, reps=steps)
+    sps = {n: [round(x["substeps_per_s"], 2) for x in turns if x["run"] == n]
+           for n in ("eager", "graph")}
+
+    # the pushed box: rebuckets inside its first frame, within the cap
+    pcfg = pushed_config(dev, str(OUT_DIR / "graph_pushed"))[0]
+    psu = prepare(pcfg, synthetic=MAIN_N, synthetic_res=MAIN_RES,
+                  device=str(dev), quiet=True)
+    check(len(psu.bcs.particle_ops) == 1, "graph: the push is missing")
+    psoa = soa_from_state(psu.state)
+    pts0 = tiles.bootstrap(psoa, psu.model, psu.grid, psu.tc)
+    (pts_e, psoa_e, _), push_eager_s, _, _ = timed(
+        eager, pts0, psoa, psu.model, psu.bcs, 1)
+    (pts_g, psoa_g, _), push_graph_s, push_counts, pg = timed(
+        graph, pts0, psoa, psu.model, psu.bcs, 1)
+    push_rel = _rel_errs(state_from_soa(psoa_g), state_from_soa(psoa_e))
+    check(pg["rebuckets"] >= 1 and pg["captures"] == 1 and bool(pts_g.ok)
+          and bool(pts_e.ok), f"graph pushed frame: {pg}, ok {pts_g.ok}")
+    check(push_counts["p2g_tiled"] == push_counts["g2p_tiled"] == steps,
+          f"graph pushed frame: launches {push_counts}")
+    check(max(push_rel.values()) <= SOLVER_RTOL,
+          f"graph pushed frame vs eager: {push_rel} (tol {SOLVER_RTOL})")
+
+    def listed(e):
+        return ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+
+    busy = {"eager": 100 * eager_busy / frame_ms["eager"],
+            "graph": 100 * graph_busy / frame_ms["graph"]}
+    replay_share = 100 * steps * replay_ms / frame_ms["graph"]
+    print(f"graph phase: {su.tc.n_particles} particles, n_grid "
+          f"{mpm.n_grid}, turns of {GRAPH_FRAMES} frames x {steps} "
+          f"substeps: eager {sps['eager']} substeps/s, graph "
+          f"{sps['graph']}; capture frame (2 substeps) {capture_s:.3f} s, "
+          f"pool {pool_bytes} bytes; per graph frame {steps} host reads, "
+          f"{steps} replays, K1/K2 {steps}/{steps}; graph vs eager: abs "
+          f"{listed(abs_err)}, rel {listed(rel)} (tol {SOLVER_RTOL})",
+          flush=True)
+    print(f"graph phase: device busy (torch.profiler, one frame) eager "
+          f"{eager_busy:.1f} ms in {eager_n} kernels = {busy['eager']:.1f}% "
+          f"of {frame_ms['eager']:.1f} ms, graph {graph_busy:.1f} ms in "
+          f"{graph_n} kernels = {busy['graph']:.1f}% of "
+          f"{frame_ms['graph']:.1f} ms; graph replay back to back "
+          f"{replay_ms:.4f} ms a substep (CUDA events) = {replay_share:.1f}% "
+          f"of the graph frame", flush=True)
+    print(f"graph phase: pushed box, 1 frame: {pg['rebuckets']} rebucket(s), "
+          f"{pg['captures']} capture, eager {push_eager_s:.3f} s, graph "
+          f"{push_graph_s:.3f} s; vs eager rel {listed(push_rel)}", flush=True)
+    return total, dict(
+        turns=turns, substeps_per_s=sps, capture_frame_s=capture_s,
+        pool_bytes=pool_bytes, frame_ms=frame_ms,
+        host_reads_per_frame=steps, abs_err=abs_err, rel_err=rel,
+        busy_ms=dict(eager=eager_busy, graph=graph_busy),
+        busy_kernels=dict(eager=eager_n, graph=graph_n), busy_pct=busy,
+        replay_ms=replay_ms, replay_share_pct=replay_share,
+        pushed=dict(rebuckets=pg["rebuckets"], eager_s=push_eager_s,
+                    graph_s=push_graph_s, rel_err=push_rel))
+
 
 # ---------------------------------------------------------------------------
 # the identification path (slice 2)
@@ -2912,6 +3112,11 @@ def main() -> int:
         cuda_blend.blend_packed_bwd]
     sim_counts, main = main_path(dev, wrappers)
     main["profile"] = profile_phase(dev, main)
+    # slice 9: the tiled frame's substep graph against the eager loop
+    t0 = time.perf_counter()
+    graph_counts, graph = graph_phase(dev, wrappers)
+    graph["phase_s"] = time.perf_counter() - t0
+    print(f"graph phase: {graph['phase_s']:.1f} s", flush=True)
 
     # slice 2: the identification path
     ident, fit_counts, fit = identify_path(dev, wrappers)
@@ -3004,7 +3209,7 @@ def main() -> int:
                    "golden_route": golden_counts[name],
                    "resume": resume_counts[name], "mesh": mesh_counts[name],
                    "mesh_fit": mesh_fit_counts[name],
-                   "halo": halo_counts[name],
+                   "halo": halo_counts[name], "graph": graph_counts[name],
                    "solver": solver_counts[name],
                    "data_path": data_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
@@ -3029,7 +3234,8 @@ def main() -> int:
                       "golden_route_path": golden, "resume_path": resume,
                       "mesh_path": mesh, "slice4_s": slice4_s,
                       "mesh_fit_path": mesh_fit, "halo_path": halo,
-                      "solver_path": solver, "data_path": data_path}))
+                      "solver_path": solver, "data_path": data_path,
+                      "graph_path": graph}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

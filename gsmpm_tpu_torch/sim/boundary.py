@@ -3,7 +3,10 @@
 Port of gsmpm_tpu/sim/boundary.py (the reference's boundary_conditions.py
 and collider.py).  Each BC is a small dataclass of tensors; the solver holds
 an ordered tuple of grid ops (registration order matters) and applies them
-with time activity as ``torch.where`` masks.
+with time activity as ``torch.where`` masks.  A time-windowed BC takes the
+clock as a 0-d float32 tensor (the tiled frame's device clock, so a
+captured substep needs no host read) or as a host float, whose inactive
+windows return early and launch nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +32,16 @@ def _vec(v, device) -> torch.Tensor:
     return torch.tensor(np.asarray(v, np.float32), device=device)
 
 
+def _window(bc, time):
+    """bc's time window [start_time, end_time) at ``time``: for a 0-d
+    float32 tensor clock its mask (compared in float32, as gsmpm_tpu's
+    traced clock); for a host float None inside the window and False
+    outside it."""
+    if isinstance(time, torch.Tensor):
+        return (time >= bc.start_time) & (time < bc.end_time)
+    return None if bc.start_time <= time < bc.end_time else False
+
+
 # ---------------------------------------------------------------------------
 # grid-phase ops (applied to grid velocities after normalization+gravity)
 # ---------------------------------------------------------------------------
@@ -43,11 +56,14 @@ class FixedCubeBC:
     end_time: float
 
     def apply_grid(self, grid_v, grid_coords, time, dt, dx):
-        if not (self.start_time <= time < self.end_time):
+        window = _window(self, time)
+        if window is False:
             return grid_v
         inside = torch.all(
             torch.abs(grid_coords * dx - self.center) < self.size, dim=-1
         )
+        if window is not None:
+            inside = inside & window
         return torch.where(inside[..., None], 0.0, grid_v)
 
 
@@ -118,12 +134,15 @@ class ImpulseBC:
     end_time: float
 
     def apply_particles(self, x, v, mass, time, dt):
-        if not (self.start_time <= time < self.end_time):
+        window = _window(self, time)
+        if window is False:
             return v
         # massless slots (the tiled layout's padding, a mesh's fillers) get
         # no impulse: F / 0 would put NaN into the grid through 0 * v
         inside = (torch.all(torch.abs(x - self.center) < self.size, dim=-1)
                   & (mass > 0))
+        if window is not None:
+            inside = inside & window
         dv = self.force[None, :] / mass[:, None] * dt
         return torch.where(inside[:, None], v + dv, v)
 

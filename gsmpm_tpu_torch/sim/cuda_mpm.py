@@ -9,7 +9,9 @@ given CPU tensors returns its plain twin (``p2g_tiled_ref`` /
 ``g2p_tiled_ref`` from sim/tiles.py, ``sored_tiled_ref`` from
 sim/transfer_vjp.py); given CUDA tensors it launches the kernel on the
 current stream or raises.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``.  A launch recorded into a CUDA graph capture counts
+in ``<wrapper>.captured`` instead: the graph's replays add what it holds
+to ``launches`` (sim/tiles.py's substep graph).
 """
 
 from __future__ import annotations
@@ -74,6 +76,15 @@ def _check_tables(ts: TiledState, tc: TileConfig):
     return nchunk, nchunk * tc.S
 
 
+def _count(wrapper) -> None:
+    """One launch of wrapper's kernel: run now, or recorded into the
+    capture of a CUDA graph, which runs it at each replay."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
               tc: TileConfig, dt: float) -> torch.Tensor:
     """q (QROWS,NP) + stress (16,NP) -> octant windows (ntiles, 256, 64)."""
@@ -91,7 +102,7 @@ def p2g_tiled(ts: TiledState, sig: torch.Tensor, grid: GridConfig,
         torch.cuda.current_stream(ts.q.device).cuda_stream,
     )
     build.check(lib, err, "p2g_tiled")
-    p2g_tiled.launches += 1
+    _count(p2g_tiled)
     return out
 
 
@@ -112,7 +123,7 @@ def g2p_tiled(ts: TiledState, ext: torch.Tensor, grid: GridConfig,
         torch.cuda.current_stream(ts.q.device).cuda_stream,
     )
     build.check(lib, err, "g2p_tiled")
-    g2p_tiled.launches += 1
+    _count(g2p_tiled)
     return out
 
 
@@ -158,10 +169,9 @@ def sored_tiled(q: torch.Tensor, win_planes: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "sored_tiled")
-    sored_tiled.launches += 1
+    _count(sored_tiled)
     return out
 
 
-p2g_tiled.launches = 0
-g2p_tiled.launches = 0
-sored_tiled.launches = 0
+p2g_tiled.launches = g2p_tiled.launches = sored_tiled.launches = 0
+p2g_tiled.captured = g2p_tiled.captured = sored_tiled.captured = 0

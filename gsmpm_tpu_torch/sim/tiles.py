@@ -12,6 +12,12 @@ twins of the kernels (``p2g_tiled_ref`` / ``g2p_tiled_ref``, batched over
 chunks).  The kernels themselves are in sim/cuda_mpm.py; ``substep_tiled``
 calls their wrappers, which take the twins for CPU tensors.
 
+gsmpm_tpu compiles a frame's substep scan into one program.  Its
+counterpart here: on CUDA, ``frame_tiled`` captures the substep's device
+work (particle phase, K1, grid phase, K2, drift flag, the float32 clock)
+once in a ``torch.cuda.CUDAGraph`` over static buffers and replays it
+every substep; the rebucket stays eager between replays.
+
 Differences from the JAX engine, none of which changes a result:
 - the drift check that triggers a rebucket is a host-side ``if`` (one
   device->host read per substep) in place of ``lax.cond``;
@@ -23,6 +29,7 @@ Differences from the JAX engine, none of which changes a result:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -529,12 +536,13 @@ def g2p_tiled_ref(ts: TiledState, windows: torch.Tensor, grid: GridConfig,
 # substep driver
 # ---------------------------------------------------------------------------
 
-def particle_phase(ts: TiledState, model: MPMModel, bcs, time: float,
+def particle_phase(ts: TiledState, model: MPMModel, bcs, time,
                    dt: float):
     """Particle BCs and the stress return map on the packed rows.
 
-    Returns (ts with q updated, stress rows sig (16, NP)): the inputs of
-    the P2G kernel.
+    ``time``: a host float or a 0-d float32 tensor (the device clock of a
+    captured substep).  Returns (ts with q updated, stress rows sig (16,
+    NP)): the inputs of the P2G kernel.
     """
     q = ts.q.clone()
     # particle-phase BCs (impulse) on the packed rows
@@ -560,7 +568,7 @@ def particle_phase(ts: TiledState, model: MPMModel, bcs, time: float,
     return dataclasses.replace(ts, q=q), sig
 
 
-def grid_phase(windows: torch.Tensor, model: MPMModel, bcs, time: float,
+def grid_phase(windows: torch.Tensor, model: MPMModel, bcs, time,
                grid: GridConfig, tc: TileConfig, dt: float,
                group=None, grid_reduce=None,
                grid_exchange=None) -> torch.Tensor:
@@ -623,17 +631,26 @@ def substep_tiled(
     ``grid_reduce`` / ``grid_exchange``: the spatial-decomposition hooks of
     grid_phase (parallel/halo_tiled.py), in place of the all-reduce.
     """
-    from gsmpm_tpu_torch.sim.cuda_mpm import g2p_tiled, p2g_tiled
-
     if rebucket_on_drift and bool(ts.need_rebucket):  # one host read
         ts = rebucket(ts, grid, tc)
+    new_q, need = _transfer(ts, model, bcs, time, grid, tc, dt, group,
+                            grid_reduce, grid_exchange)
+    return dataclasses.replace(ts, q=new_q, need_rebucket=need)
+
+
+def _transfer(ts: TiledState, model: MPMModel, bcs, time, grid: GridConfig,
+              tc: TileConfig, dt: float, group=None, grid_reduce=None,
+              grid_exchange=None):
+    """A substep's device work on an already bucketed ts: particle phase
+    -> P2G (K1) -> grid phase -> G2P (K2).  Returns (new q, drift flag)."""
+    from gsmpm_tpu_torch.sim.cuda_mpm import g2p_tiled, p2g_tiled
+
     ts, sig = particle_phase(ts, model, bcs, time, dt)
     windows = p2g_tiled(ts, sig, grid, tc, dt)
     win_in = grid_phase(windows, model, bcs, time, grid, tc, dt, group,
                         grid_reduce, grid_exchange)
     new_q = g2p_tiled(ts, win_in, grid, tc, dt)
-    need = torch.max(new_q[RDRIFT]) > 0
-    return dataclasses.replace(ts, q=new_q, need_rebucket=need)
+    return new_q, torch.max(new_q[RDRIFT]) > 0
 
 
 @functools.lru_cache(maxsize=4)
@@ -672,6 +689,133 @@ def _advance(time: float, dt: float) -> float:
     return float(np.float32(np.float32(time) + np.float32(dt)))
 
 
+def _substep_body(ts: TiledState, model: MPMModel, bcs,
+                  clock: torch.Tensor, grid: GridConfig, tc: TileConfig,
+                  dt: float) -> None:
+    """The captured part of a substep, in place on static buffers: the
+    device work of ``substep_tiled`` at the 0-d float32 ``clock``, its
+    results copied into ts.q and ts.need_rebucket, then clock += dt (the
+    float32 sum gsmpm_tpu's scan carries, ``_advance``'s value)."""
+    new_q, need = _transfer(ts, model, bcs, clock, grid, tc, dt)
+    ts.q.copy_(new_q)
+    ts.need_rebucket.copy_(need)
+    clock.add_(dt)
+
+
+def _tensors(ts: TiledState):
+    return [getattr(ts, f.name) for f in dataclasses.fields(ts)]
+
+
+class _SubstepGraph:
+    """Static buffers of a tiled state and a clock, and the substep over
+    them: on CUDA replayed from one CUDA graph, captured after the first
+    substep ran eagerly (its warm-up: the kernels' build, the cached grid
+    coordinates, the allocator); on the CPU the same body run eagerly.
+
+    A substep reads the drift flag on the host once (gsmpm_tpu's
+    ``lax.cond``); on drift it rebuckets eagerly and copies the new tables
+    into the same buffers, so the graph stays valid.  The graph bakes in
+    the addresses of the buffers and of ``model``'s and ``bcs``' tensors.
+    """
+
+    def __init__(self, ts: TiledState, model: MPMModel, bcs,
+                 grid: GridConfig, tc: TileConfig, dt: float, refs=()):
+        self.refs = refs  # the tensors its cache key names by identity
+        self.ts = TiledState(*[t.clone() for t in _tensors(ts)])
+        self.clock = torch.zeros((), dtype=torch.float32, device=ts.q.device)
+        self.model, self.bcs, self.grid, self.tc, self.dt = (
+            model, bcs, grid, tc, dt)
+        self.graph = None
+        self.launches = (0, 0)  # K1, K2 launches the graph holds
+
+    def _assign(self, ts: TiledState) -> None:
+        for dst, src in zip(_tensors(self.ts), _tensors(ts)):
+            dst.copy_(src)
+
+    def load(self, ts: TiledState, time: float) -> None:
+        self._assign(ts)
+        self.clock.fill_(time)
+
+    def state(self) -> TiledState:
+        """A TiledState that owns its tensors (later replays leave it)."""
+        return TiledState(*[t.clone() for t in _tensors(self.ts)])
+
+    def step(self) -> None:
+        from gsmpm_tpu_torch.sim.cuda_mpm import g2p_tiled, p2g_tiled
+
+        frame_tiled.host_reads += 1
+        if bool(self.ts.need_rebucket):
+            self._assign(rebucket(self.ts, self.grid, self.tc))
+            frame_tiled.rebuckets += 1
+        if self.graph is not None:
+            self.graph.replay()
+            frame_tiled.replays += 1
+            p2g_tiled.launches += self.launches[0]
+            g2p_tiled.launches += self.launches[1]
+            return
+        args = (self.ts, self.model, self.bcs, self.clock, self.grid,
+                self.tc, self.dt)
+        _substep_body(*args)
+        if self.ts.q.device.type != "cuda":
+            return
+        before = (p2g_tiled.captured, g2p_tiled.captured)
+        graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph() would also empty the allocator's cache, and
+        # the next frame's render would allocate its buffers anew
+        torch.cuda.synchronize(self.clock.device)
+        stream = torch.cuda.Stream(self.clock.device)
+        with torch.cuda.stream(stream):
+            # thread_local: the rest of the process (a NCCL watchdog) may
+            # go on querying the device while this thread captures
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                _substep_body(*args)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.clock.device).wait_stream(stream)
+        self.launches = (p2g_tiled.captured - before[0],
+                         g2p_tiled.captured - before[1])
+        self.graph = graph
+        frame_tiled.captures += 1
+
+
+# captured substeps, least recently used first
+_GRAPHS: "collections.OrderedDict[tuple, _SubstepGraph]" = (
+    collections.OrderedDict())
+_GRAPHS_KEPT = 4
+
+
+def _identity(obj, refs: list):
+    """What a captured substep closes over in obj: each tensor by its
+    identity (kept alive in refs, so no other tensor takes its id), the
+    rest by value."""
+    if isinstance(obj, torch.Tensor):
+        refs.append(obj)
+        return id(obj)
+    if dataclasses.is_dataclass(obj):
+        return (type(obj),) + tuple(_identity(getattr(obj, f.name), refs)
+                                    for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_identity(o, refs) for o in obj)
+    return obj
+
+
+def _substep_graph(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
+                   tc: TileConfig, dt: float) -> _SubstepGraph:
+    """The cached substep graph of (tc, grid, dt, the device, model's and
+    bcs' tensors): a new model or BC set captures anew."""
+    refs: list = []
+    key = (tc, grid, dt, ts.q.device, _identity(model, refs),
+           _identity(bcs, refs))
+    graph = _GRAPHS.pop(key, None)
+    if graph is None:
+        while len(_GRAPHS) >= _GRAPHS_KEPT:
+            _GRAPHS.popitem(last=False)
+        graph = _SubstepGraph(ts, model, bcs, grid, tc, dt, refs)
+    _GRAPHS[key] = graph
+    return graph
+
+
 def frame_tiled(
     ts: TiledState,
     soa_template: SoAState,
@@ -686,13 +830,30 @@ def frame_tiled(
     """One frame of substeps with a PERSISTENT tiled state.
 
     Returns (ts, soa, time); ts.ok False means the occupied-tile cap
-    overflowed during the frame.
+    overflowed during the frame.  On CUDA the substeps replay one captured
+    CUDA graph (``_SubstepGraph``; one capture per model, BC set, tile
+    config and dt) on a device clock that equals the returned host clock;
+    ``frame_tiled.captures`` / ``replays`` / ``host_reads`` /
+    ``rebuckets`` count its work.  On the CPU each substep is
+    ``substep_tiled``.
     """
-    for _ in range(n_substeps):
-        ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
-        time = _advance(time, dt)
+    if ts.q.device.type == "cuda":
+        graph = _substep_graph(ts, model, bcs, grid, tc, dt)
+        graph.load(ts, time)
+        for _ in range(n_substeps):
+            graph.step()
+            time = _advance(time, dt)
+        ts = graph.state()
+    else:
+        for _ in range(n_substeps):
+            ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
+            time = _advance(time, dt)
     q = to_original_order(ts, tc.n_particles)
     return ts, unpack_q(q, soa_template), time
+
+
+frame_tiled.captures = frame_tiled.replays = 0
+frame_tiled.host_reads = frame_tiled.rebuckets = 0
 
 
 def _fitting_transfer(q, aux, ct, cf, cl, model: MPMModel, bcs, time: float,

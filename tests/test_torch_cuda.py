@@ -754,3 +754,148 @@ def test_fit_frame_gpu_matches_cpu(cuda):
     assert float((xc - xg).abs().max()) <= 1e-4
     for a, b in zip(gc, gg):
         assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the tiled frame's substep graph (sim/tiles.py: frame_tiled on CUDA)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 20
+
+
+def _graph_case(dev, n=4000):
+    """A seeded box on the 24^3 grid thrown along +x at ~8 m/s (it crosses
+    two cells within a frame of GRAPH_STEPS substeps, so the frame
+    rebuckets), the ground collider, an impulse over substeps 3-6 and a
+    fixed cube over substeps 8-12: (solver, tile config, bootstrap)."""
+    from gsmpm_tpu_torch.config import BoundaryConditionConfig
+    from gsmpm_tpu_torch.sim import MPMSolver
+
+    rng = np.random.default_rng(11)
+    xyz = rng.uniform(0.6, 1.4, size=(n, 3)).astype(np.float32)
+    cov6 = np.tile(np.float32([1e-4, 0, 0, 1e-4, 0, 1e-4]), (n, 1))
+    v0 = (np.float32([8.0, 0.0, 0.0])
+          + 0.5 * rng.normal(size=(n, 3))).astype(np.float32)
+    cfg = _cfg(Path("."), n_grid=24).mpm
+    dt = cfg.substep_dt
+    s = MPMSolver(xyz, cov6, np.full(n, 2e-4, np.float32), cfg, v0,
+                  device=dev)
+    s.set_boundary_conditions([
+        BoundaryConditionConfig(type="impulse", center=[1.0, 1.0, 1.0],
+                                size=[0.2, 0.4, 0.4], force=[0.0, 0.2, 0.0],
+                                start_time=3 * dt, num_dt=4),
+        BoundaryConditionConfig(type="fixed_cube", center=[1.3, 1.0, 1.0],
+                                size=[0.1, 0.2, 0.2], start_time=8 * dt,
+                                num_dt=5)])
+    s.add_surface_collider((0, 0, 0.4), (0, 0, 1))
+    tc = tiles.default_tile_config(cfg.n_grid, n)
+    ts = tiles.bootstrap(soa_from_state(s.state), s.model, s.grid, tc)
+    return s, tc, ts
+
+
+def _graph_counts():
+    f = tiles.frame_tiled
+    return dict(captures=f.captures, replays=f.replays,
+                host_reads=f.host_reads, rebuckets=f.rebuckets,
+                k1=cuda_mpm.p2g_tiled.launches, k2=cuda_mpm.g2p_tiled.launches,
+                k1_captured=cuda_mpm.p2g_tiled.captured,
+                k2_captured=cuda_mpm.g2p_tiled.captured)
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _graph_counts().items()}
+
+
+def _eager_frame(s, tc, ts, model=None, steps=GRAPH_STEPS):
+    t = 0.0
+    for _ in range(steps):
+        ts = tiles.substep_tiled(ts, model or s.model, s.bcs, t, s.grid, tc,
+                                 s.cfg.substep_dt)
+        t = tiles._advance(t, s.cfg.substep_dt)
+    return ts, t
+
+
+def _assert_close(got, want, n):
+    """Original-order rows of two tiled states: K1's float atomics add in a
+    run-dependent order, so 1e-4 of each field's largest magnitude (the
+    GPU-vs-CPU solver test's tolerance)."""
+    a = tiles.to_original_order(got, n)
+    b = tiles.to_original_order(want, n)
+    for name, lo, hi in (("x", tiles.RX, tiles.RX + 3),
+                         ("v", tiles.RV, tiles.RV + 3),
+                         ("C", tiles.RC, tiles.RC + 9),
+                         ("F", tiles.RF, tiles.RF + 9),
+                         ("F_trial", tiles.RFT, tiles.RFT + 9)):
+        scale = float(b[lo:hi].abs().max())
+        err = float((a[lo:hi] - b[lo:hi]).abs().max())
+        assert err <= 1e-4 * max(scale, 1e-30), (name, err, scale)
+
+
+def test_frame_graph_matches_eager_loop(cuda):
+    """frame_tiled on CUDA replays a captured substep: against the eager
+    substep_tiled loop from the same state, one capture, one host read a
+    substep, K1 / K2 once a substep (the warm-up's launches and the
+    replays counted, the capture not), and the device clock's bits equal
+    the returned host clock's."""
+    s, tc, ts0 = _graph_case(cuda)
+    n = s.state.n_particles
+    want, t_want = _eager_frame(s, tc, ts0)
+    before = _graph_counts()
+    ts, _, t = tiles.frame_tiled(ts0, soa_from_state(s.state), s.model,
+                                 s.bcs, 0.0, GRAPH_STEPS, s.grid, tc,
+                                 s.cfg.substep_dt)
+    d = _delta(before)
+    assert d["captures"] == 1 and d["replays"] == GRAPH_STEPS - 1
+    assert d["host_reads"] == GRAPH_STEPS
+    assert d["k1"] == d["k2"] == GRAPH_STEPS
+    assert d["k1_captured"] == d["k2_captured"] == 1
+    assert t == t_want
+    clock = next(reversed(tiles._GRAPHS.values())).clock
+    assert clock.cpu().numpy().view(np.uint32) == np.float32(t).view(
+        np.uint32)
+    assert bool(ts.ok)
+    _assert_close(ts, want, n)
+    # the returned state owns its tensors: a second frame leaves it
+    q = ts.q.clone()
+    before = _graph_counts()
+    tiles.frame_tiled(ts, soa_from_state(s.state), s.model, s.bcs, t,
+                      GRAPH_STEPS, s.grid, tc, s.cfg.substep_dt)
+    d = _delta(before)
+    assert d["captures"] == 0 and d["replays"] == GRAPH_STEPS
+    assert d["k1"] == d["k2"] == GRAPH_STEPS
+    assert torch.equal(ts.q, q)
+
+
+def test_frame_graph_rebuckets_without_recapture(cuda):
+    """A rebucket inside the frame runs eagerly between replays and copies
+    its tables into the graph's buffers: no second capture, and the frame
+    still matches the eager loop."""
+    s, tc, ts0 = _graph_case(cuda)
+    want, _ = _eager_frame(s, tc, ts0)
+    before = _graph_counts()
+    ts, _, _ = tiles.frame_tiled(ts0, soa_from_state(s.state), s.model,
+                                 s.bcs, 0.0, GRAPH_STEPS, s.grid, tc,
+                                 s.cfg.substep_dt)
+    d = _delta(before)
+    assert d["rebuckets"] >= 1 and d["captures"] == 1
+    assert not torch.equal(ts.chunk_tile, ts0.chunk_tile)
+    _assert_close(ts, want, s.state.n_particles)
+
+
+def test_frame_graph_recaptures_for_a_new_model(cuda):
+    """A model with other tensors (here gravity along +x) is a new graph:
+    one more capture, and its frame follows the new model."""
+    s, tc, ts0 = _graph_case(cuda)
+    soa, dt = soa_from_state(s.state), s.cfg.substep_dt
+    tiles.frame_tiled(ts0, soa, s.model, s.bcs, 0.0, 2, s.grid, tc, dt)
+    model = dataclasses.replace(
+        s.model, gravity=torch.tensor([50.0, 0.0, 0.0], device=cuda))
+    before = _graph_counts()
+    ts, _, _ = tiles.frame_tiled(ts0, soa, model, s.bcs, 0.0, GRAPH_STEPS,
+                                 s.grid, tc, dt)
+    assert _delta(before)["captures"] == 1
+    want, _ = _eager_frame(s, tc, ts0, model=model)
+    _assert_close(ts, want, s.state.n_particles)
+    before = _graph_counts()
+    tiles.frame_tiled(ts0, soa, s.model, s.bcs, 0.0, 2, s.grid, tc, dt)
+    assert _delta(before)["captures"] == 0  # the first model's graph kept
