@@ -87,9 +87,22 @@
    bits, the device busy share of one profiled frame of each; then one
    frame of the pushed box, which rebuckets without re-capture.  The
    simulate path and the solver phase run the same graph.
-13. Every path is driven with every launch counter set to 0 just before it
+13. Slice 10, at the bench fit's width: fit frames whose window runs
+   ``tiles._FittingWindow`` (a forward CUDA graph of one fitting substep
+   replayed 30 times, an adjoint graph that recomputes a substep and takes
+   its VJP replayed 30 times backwards) against frames whose window runs
+   the checkpointed ``substep_tiled_fitting`` loop, in turns (eager,
+   graph, eager, graph; 2 frames each) from one state: frame seconds,
+   exact K1 / K2 / K6 launches (90 / 150 / 60), captures / replays / host
+   reads, both graphs' pool bytes, peak memory, g_logE / g_y against the
+   eager frame's, one profiled frame of each (busy share, and the host ms
+   and launches of window forward, render + loss forward, their backward
+   and the window backward), the replays back to back.  identify, the
+   steady fits (windowed and stream), camera-DP and ``--data_path`` run
+   the same graphs.
+14. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-14. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+15. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -132,10 +145,12 @@ FIT_FRAMES = 3          # frame 0 (appearance) + 2 fit frames
 FIT_E_INIT, FIT_E_TRUE = 1e4, 3e3
 STEADY_FRAMES = 2
 FIT_SUBSTEPS = 30
-# launches per fit frame: per substep K1 3 (forward, checkpoint recompute,
-# the fake P2G of G2P's backward), K2 5 (forward, recompute, three fake
-# G2Ps) and K6 2 (one per transfer backward); the render's kernels once per
-# frame and direction (K4 / K5 once per tier, or K3 / K7), never recomputed
+# launches per fit frame: per substep K1 3 (forward, the recompute of the
+# adjoint graph or the checkpoint, the fake P2G of G2P's backward), K2 5
+# (forward, recompute, three fake G2Ps) and K6 2 (one per transfer
+# backward), replays counting what their graph holds; the render's kernels
+# once per frame and direction (K4 / K5 once per tier, or K3 / K7), never
+# recomputed
 PER_SUBSTEP = {"p2g_tiled": 3, "g2p_tiled": 5, "sored_tiled": 2}
 OUT_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
 # slice 7's MPMSolver phase: frames of 100 substeps, the golden route's
@@ -759,10 +774,10 @@ def profile_phase(dev, main):
     return dict(busy_ms=busy_ms, launches=launches, loop_ms=loop_ms,
                 profiled_wall_ms=wall * 1e3)
 
-def _graph_pool_bytes(entry) -> int:
-    """Bytes of a substep graph's private memory pool: its segments in the
+def _graph_pool_bytes(graph) -> int:
+    """Bytes of a CUDA graph's private memory pool: its segments in the
     caching allocator's snapshot."""
-    pool = entry.graph.pool()
+    pool = graph.pool()
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if seg.get("segment_pool_id") == pool)
 
@@ -846,7 +861,7 @@ def graph_phase(dev, wrappers):
     check(g["captures"] == 1 and g["replays"] == 1,
           f"graph: capture frame {g}")
     entry = next(reversed(tiles._GRAPHS.values()))
-    pool_bytes = _graph_pool_bytes(entry)
+    pool_bytes = _graph_pool_bytes(entry.substep.graph)
     turns, results, total = [], {}, {}
     for name in ("eager", "graph", "eager", "graph"):
         (ts, soa, t), secs, counts, g = timed(
@@ -889,7 +904,7 @@ def graph_phase(dev, wrappers):
                                         if x["run"] == n])) / GRAPH_FRAMES
                 for n in ("eager", "graph")}
     entry.load(ts0, 0.0)
-    replay_ms = cuda_ms(entry.graph.replay, reps=steps)
+    replay_ms = cuda_ms(entry.substep.graph.replay, reps=steps)
     sps = {n: [round(x["substeps_per_s"], 2) for x in turns if x["run"] == n]
            for n in ("eager", "graph")}
 
@@ -1096,6 +1111,231 @@ def fit_profile(dev, ident, first, steady):
               f"x{e.count:<6d} {e.key[:80]}", flush=True)
     return dict(busy_ms=busy_ms, launches=launches, frame_ms=frame_ms,
                 profiled_wall_ms=wall * 1e3, top=top)
+
+
+# slice 10's fit_graph phase: frames per turn, and the gradient of a graph
+# frame against the eager frame's from one state, relative to the eager
+# gradient's largest magnitude (K1's float atomics, forward and recompute:
+# the CUDA tests' 1e-3)
+FIT_GRAPH_FRAMES = 2
+FIT_GRAPH_GRAD_REL = 1e-3
+# the four ranges of a fit frame that the phase split times
+FIT_RANGES = ("window forward", "render+loss forward",
+              "render+loss backward", "window backward")
+
+
+def _fit_frame_parts(ident, state, cam, gt, graph: bool):
+    """One fit frame as SystemIdentifier.fit_frame computes it (without
+    the SGD step), in four torch.profiler.record_function ranges: the
+    window forward (on CUDA the graphs, or the checkpointed
+    substep_tiled_fitting loop), the render and loss forward, their
+    backward to the window's rows, the window's backward to (logE, y).
+    Returns (loss, g_logE, g_y, n_dropped)."""
+    from torch.profiler import record_function
+
+    from gsmpm_tpu_torch.ops.losses import photometric_loss
+    from gsmpm_tpu_torch.render.renderer import render_with_aux
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
+    from gsmpm_tpu_torch.sim.state import mu_lam_from_logE_y
+
+    fcfg = ident.fit_cfg
+    n_sub = fcfg.substeps_per_frame
+    dt = fcfg.frame_dt / n_sub
+    logE = ident.model.logE.detach().requires_grad_(True)
+    y = ident.model.y.detach().requires_grad_(True)
+    with torch.enable_grad():
+        with record_function(FIT_RANGES[0]):
+            mu, lam = mu_lam_from_logE_y(logE, y)
+            model = dataclasses.replace(ident.model, logE=logE, y=y, mu=mu,
+                                        lam=lam)
+            soa = soa_from_state(state)
+            if graph:
+                soa2, _, ok = tiles.run_substeps_tiled_fitting(
+                    soa, model, ident.bcs, 0.0, n_sub, ident.grid, dt)
+            else:
+                n = state.x.shape[0]
+                tc = tiles.default_tile_config(ident.grid.n_grid, n)
+                ts = tiles.bootstrap(soa, model, ident.grid, tc)
+                for _ in range(n_sub):
+                    ts = tiles.substep_tiled_fitting(
+                        ts, model, ident.bcs, 0.0, ident.grid, tc, dt)
+                soa2, ok = tiles.unpack_q(tiles.to_original_order(ts, n),
+                                          soa), ts.ok
+            state2 = state_from_soa(soa2)
+        with record_function(FIT_RANGES[1]):
+            xyz_w, cov_w = ident._world_geometry(state2)
+            opacity, features = ident._appearance()
+            img, nd = render_with_aux(xyz_w, cov_w, opacity, features, cam,
+                                      ident.bg, ident.scene.sh_degree,
+                                      ident.raster_cfg)
+            loss = photometric_loss(img, gt)
+    with record_function(FIT_RANGES[2]):
+        d_state = torch.autograd.grad(loss, (state2.x, state2.F))
+    with record_function(FIT_RANGES[3]):
+        g_logE, g_y = torch.autograd.grad((state2.x, state2.F), (logE, y),
+                                          d_state)
+    check(bool(ok), "fit_graph: tile-cap overflow")
+    return loss.detach(), g_logE, g_y, int(nd)
+
+
+def _range_split(prof):
+    """Per record_function range of FIT_RANGES: host ms (the range's
+    span), kernel launch calls and graph launch calls made in it (the CUDA
+    runtime events inside its span), as torch.profiler recorded them."""
+    events = list(prof.events())
+    out = {}
+    for name in FIT_RANGES:
+        spans = [e.time_range for e in events if e.name == name
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        check(len(spans) >= 1, f"fit_graph: no range {name!r}")
+        lo, hi = spans[0].start, spans[0].end
+        inside = [e for e in events if lo <= e.time_range.start <= hi]
+        out[name] = dict(
+            host_ms=(hi - lo) / 1e3,
+            launches=sum("LaunchKernel" in e.name for e in inside),
+            graph_launches=sum("GraphLaunch" in e.name for e in inside))
+    return out
+
+
+def fit_graph_phase(dev, ident, gt, cams, wrappers):
+    """Slice 10 at the bench fit (245,760 gaussians, 512^2, 30 substeps,
+    the caps settled): fit frames whose window runs the two CUDA graphs of
+    tiles._FittingWindow against frames whose window runs the checkpointed
+    substep_tiled_fitting loop, from one state (identify's reset state,
+    frame 1's camera and target) and one (logE, y), in turns (eager,
+    graph, eager, graph; FIT_GRAPH_FRAMES frames each).  Per turn: frame
+    seconds, exact K1 / K2 / K6 launches a frame (90 / 150 / 60), the
+    graphs' captures, replays and host reads, peak device memory.  Then
+    both graphs' pool bytes; g_logE / g_y of a graph frame against an
+    eager frame's (FIT_GRAPH_GRAD_REL); one profiled frame of each
+    (device busy share of the turns' mean frame, and the launches and
+    host ms of the four ranges of _fit_frame_parts)."""
+    from gsmpm_tpu_torch.sim import cuda_mpm, tiles
+
+    f = tiles.run_substeps_tiled_fitting
+    state, cam, target = ident.reset_state(), cams[1], gt[1]
+    window = {w: FIT_SUBSTEPS * k for w, k in PER_SUBSTEP.items()}
+
+    def graph_counts():
+        return dict(captures=f.captures, replays=f.replays,
+                    host_reads=f.host_reads, rebuckets=f.rebuckets)
+
+    def frame(graph):
+        torch.cuda.synchronize()
+        _zero(wrappers)
+        g0 = graph_counts()
+        t0 = time.perf_counter()
+        loss, g_logE, g_y, nd = _fit_frame_parts(ident, state, cam, target,
+                                                 graph)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts(wrappers)
+        g = {k: v - g0[k] for k, v in graph_counts().items()}
+        check(nd == 0, f"fit_graph: n_dropped {nd}")
+        check(np.isfinite(float(loss)), f"fit_graph: loss {float(loss)}")
+        got = {w: counts[w] for w in window}
+        check(got == window, f"fit_graph {'graph' if graph else 'eager'}: "
+              f"launches {got}, expected {window}")
+        if graph:
+            check(g["captures"] == 0 and g["replays"] == 2 * FIT_SUBSTEPS
+                  and g["host_reads"] == FIT_SUBSTEPS,
+                  f"fit_graph: graph frame {g}")
+        else:
+            check(g == dict(captures=0, replays=0, host_reads=0,
+                            rebuckets=0), f"fit_graph eager frame: {g}")
+        return secs, counts, g, (float(loss), g_logE, g_y)
+
+    captures0 = f.captures
+    # the identify path and steady_fit captured the graphs of this key
+    frame(True)
+    check(f.captures == captures0, "fit_graph: the graphs were re-captured")
+    entry = next(reversed(tiles._FIT_GRAPHS.values()))
+    pools = dict(forward=_graph_pool_bytes(entry.forward.graph),
+                 adjoint=_graph_pool_bytes(entry.adjoint.graph))
+    turns, results, total = [], {}, {}
+    for name in ("eager", "graph", "eager", "graph"):
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(FIT_GRAPH_FRAMES):
+            secs, counts, g, res = frame(name == "graph")
+            if name == "graph":
+                total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            turns.append(dict(run=name, secs=secs, **g))
+            results.setdefault(name, res)
+        turns[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    (loss_e, ge_logE, ge_y), (loss_g, gg_logE, gg_y) = (
+        results["eager"], results["graph"])
+    diffs = {}
+    for key, a, b in (("g_logE", gg_logE, ge_logE), ("g_y", gg_y, ge_y)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        diffs[key] = dict(max_abs=err, scale=scale, rel=err / scale)
+        check(scale > 0 and err <= FIT_GRAPH_GRAD_REL * scale,
+              f"fit_graph: {key} graph vs eager {err} (scale {scale}, rel "
+              f"tol {FIT_GRAPH_GRAD_REL})")
+    frame_s = {n: [x["secs"] for x in turns if x["run"] == n]
+               for n in ("eager", "graph")}
+    peak = {n: [x["peak_bytes"] for x in turns
+                if x["run"] == n and "peak_bytes" in x]
+            for n in ("eager", "graph")}
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof_out = {}
+    for name in ("eager", "graph"):
+        with torch.profiler.profile(activities=acts) as prof:
+            _fit_frame_parts(ident, state, cam, target, name == "graph")
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+                   and e.device_type != torch.autograd.DeviceType.CPU]
+        busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+        n_kernels = sum(e.count for e in kernels)
+        check(busy_ms > 0, f"fit_graph {name} profile: no device time")
+        mean_ms = 1e3 * float(np.mean(frame_s[name]))
+        prof_out[name] = dict(busy_ms=busy_ms, kernels=n_kernels,
+                              busy_pct=100 * busy_ms / mean_ms,
+                              split=_range_split(prof))
+    # the graphs' replays back to back (CUDA events): their device time
+    fwd_ms = cuda_ms(entry.forward.graph.replay, reps=FIT_SUBSTEPS)
+    adj_ms = cuda_ms(entry.adjoint.graph.replay, reps=FIT_SUBSTEPS)
+
+    def split_line(sp):
+        return "; ".join(f"{k} {v['host_ms']:.1f} ms host, {v['launches']} "
+                         f"launches + {v['graph_launches']} graph launches"
+                         for k, v in sp.items())
+
+    print(f"fit_graph phase: {MAIN_N} gaussians, {FIT_RES}^2, "
+          f"{FIT_SUBSTEPS} substeps, turns of {FIT_GRAPH_FRAMES} frames: "
+          f"eager {[round(x, 4) for x in frame_s['eager']]} s, graph "
+          f"{[round(x, 4) for x in frame_s['graph']]} s; per graph frame "
+          f"{FIT_SUBSTEPS} host reads, {2 * FIT_SUBSTEPS} replays, 0 "
+          f"captures (the run's captures so far {f.captures}), K1/K2/K6 "
+          f"{window['p2g_tiled']}/{window['g2p_tiled']}/"
+          f"{window['sored_tiled']} in both; pools forward "
+          f"{pools['forward']} bytes, adjoint {pools['adjoint']} bytes; "
+          f"peak memory eager {peak['eager']} graph {peak['graph']} bytes",
+          flush=True)
+    print(f"fit_graph phase: graph vs eager loss {loss_g:.7g} / "
+          f"{loss_e:.7g}, g_logE max abs {diffs['g_logE']['max_abs']:.3g} "
+          f"(rel {diffs['g_logE']['rel']:.3g}), g_y max abs "
+          f"{diffs['g_y']['max_abs']:.3g} (rel {diffs['g_y']['rel']:.3g}); "
+          f"tol rel {FIT_GRAPH_GRAD_REL}", flush=True)
+    for name in ("eager", "graph"):
+        p = prof_out[name]
+        print(f"fit_graph phase: {name} frame profiled: device busy "
+              f"{p['busy_ms']:.1f} ms in {p['kernels']} kernels = "
+              f"{p['busy_pct']:.1f}% of the turns' mean "
+              f"{1e3 * np.mean(frame_s[name]):.1f} ms; "
+              f"{split_line(p['split'])}", flush=True)
+    print(f"fit_graph phase: replays back to back (CUDA events): forward "
+          f"{fwd_ms:.4f} ms, adjoint {adj_ms:.4f} ms a substep", flush=True)
+    check(total["p2g_tiled"] > 0 and total["sored_tiled"] > 0,
+          "fit_graph: no launch")
+    return total, dict(
+        turns=turns, frame_s=frame_s, pool_bytes=pools, peak_bytes=peak,
+        grad_diff=diffs, loss=dict(eager=loss_e, graph=loss_g),
+        profile=prof_out, replay_ms=dict(forward=fwd_ms, adjoint=adj_ms),
+        captures_so_far=f.captures)
 
 
 def _contrib_pairs_windows(F, out, meta) -> float:
@@ -3122,6 +3362,12 @@ def main() -> int:
     ident, fit_counts, fit = identify_path(dev, wrappers)
     fit["steady"], first, fit_gt, fit_cams = steady_fit(dev, ident, wrappers)
     fit["profile"] = fit_profile(dev, ident, first, fit["steady"])
+    # slice 10: the fit window's two graphs against the checkpointed loop
+    t0 = time.perf_counter()
+    fit_graph_counts, fit_graph = fit_graph_phase(dev, ident, fit_gt,
+                                                  fit_cams, wrappers)
+    fit_graph["phase_s"] = time.perf_counter() - t0
+    print(f"fit_graph phase: {fit_graph['phase_s']:.1f} s", flush=True)
     blend_rows, fit["blend_tiers"] = blend_phases(dev, ident, first)
     rows += blend_rows + [sored_phase(dev, ident, first)]
     # K1 and K2 at the fit's shapes, beside their rows at simulate's
@@ -3210,6 +3456,7 @@ def main() -> int:
                    "resume": resume_counts[name], "mesh": mesh_counts[name],
                    "mesh_fit": mesh_fit_counts[name],
                    "halo": halo_counts[name], "graph": graph_counts[name],
+                   "fit_graph": fit_graph_counts[name],
                    "solver": solver_counts[name],
                    "data_path": data_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
@@ -3235,7 +3482,7 @@ def main() -> int:
                       "mesh_path": mesh, "slice4_s": slice4_s,
                       "mesh_fit_path": mesh_fit, "halo_path": halo,
                       "solver_path": solver, "data_path": data_path,
-                      "graph_path": graph}))
+                      "graph_path": graph, "fit_graph_path": fit_graph}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

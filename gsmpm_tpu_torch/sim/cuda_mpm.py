@@ -11,7 +11,8 @@ sim/transfer_vjp.py); given CUDA tensors it launches the kernel on the
 current stream or raises.  Each wrapper counts its launches in
 ``<wrapper>.launches``.  A launch recorded into a CUDA graph capture counts
 in ``<wrapper>.captured`` instead: the graph's replays add what it holds
-to ``launches`` (sim/tiles.py's substep graph).
+to ``launches`` (sim/tiles.py's substep graph and the fit window's
+forward and adjoint graphs).
 """
 
 from __future__ import annotations

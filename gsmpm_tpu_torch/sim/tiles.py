@@ -16,7 +16,11 @@ gsmpm_tpu compiles a frame's substep scan into one program.  Its
 counterpart here: on CUDA, ``frame_tiled`` captures the substep's device
 work (particle phase, K1, grid phase, K2, drift flag, the float32 clock)
 once in a ``torch.cuda.CUDAGraph`` over static buffers and replays it
-every substep; the rebucket stays eager between replays.
+every substep; the rebucket stays eager between replays.  The fitting
+window (gsmpm_tpu's jitted ``value_and_grad`` of a checkpointed scan) is
+``_FittingWindow``: a forward graph of one fitting substep replayed N
+times, and in the backward pass an adjoint graph (the substep recomputed
+from its kept input rows, then its VJP) replayed for k = N-1 ... 0.
 
 Differences from the JAX engine, none of which changes a result:
 - the drift check that triggers a rebucket is a host-side ``if`` (one
@@ -191,6 +195,13 @@ def rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig) -> TiledState:
     The result's chunk_tile is non-decreasing: live chunks follow the tile
     order and the dead (slack) chunks at the end carry the last used tile.
     """
+    return _rebucket(ts, grid, tc)[0]
+
+
+def _rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig):
+    """``rebucket``, and its permutation: (new state, src_c, has_src), slot
+    s of the new rows gathered from old slot src_c[s] where has_src[s]
+    (``_unpermute`` is its VJP)."""
     g, nt, S, NP = tc.n_grid, tc.nt, tc.S, tc.np_rows
     ntiles = tc.ntiles
     dev = ts.q.device
@@ -259,7 +270,17 @@ def rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig) -> TiledState:
         chunk_live=active.to(i32),
         need_rebucket=torch.zeros((), dtype=torch.bool, device=dev),
         ok=ok,
-    )
+    ), src_c, has_src
+
+
+def _unpermute(d: torch.Tensor, src_c: torch.Tensor,
+               has_src: torch.Tensor) -> torch.Tensor:
+    """VJP of a rebucket's gather ``where(has_src, x.index_select(1,
+    src_c), pad)`` for rows (R, NP): the cotangent of the slots with a
+    source scattered back to it, autograd's ``index_add_`` (each source
+    slot is taken once, so no two terms meet)."""
+    return torch.zeros_like(d).index_add_(
+        1, src_c, torch.where(has_src[None, :], d, 0.0))
 
 
 def bootstrap(
@@ -706,27 +727,72 @@ def _tensors(ts: TiledState):
     return [getattr(ts, f.name) for f in dataclasses.fields(ts)]
 
 
-class _SubstepGraph:
-    """Static buffers of a tiled state and a clock, and the substep over
-    them: on CUDA replayed from one CUDA graph, captured after the first
-    substep ran eagerly (its warm-up: the kernels' build, the cached grid
-    coordinates, the allocator); on the CPU the same body run eagerly.
+class _Captured:
+    """A body that works in place on static buffers, run as a CUDA graph.
 
-    A substep reads the drift flag on the host once (gsmpm_tpu's
-    ``lax.cond``); on drift it rebuckets eagerly and copies the new tables
-    into the same buffers, so the graph stays valid.  The graph bakes in
-    the addresses of the buffers and of ``model``'s and ``bcs``' tensors.
+    On CUDA the first call runs the body eagerly on the current stream (its
+    warm-up: the kernels' build, cached grid coordinates, the allocator,
+    autograd's device thread) and then captures it once on a side stream;
+    every later call replays the graph and adds the K1 / K2 / K6 launches
+    it holds to their wrappers' counters.  On the CPU every call runs the
+    body.  The graph bakes in every address the body reads.  ``counters``
+    (a function with ``captures`` and ``replays``) counts the work.  The
+    body is passed at each call, so the owner of the buffers holds this
+    object without a reference cycle.
     """
 
-    def __init__(self, ts: TiledState, model: MPMModel, bcs,
-                 grid: GridConfig, tc: TileConfig, dt: float, refs=()):
-        self.refs = refs  # the tensors its cache key names by identity
+    def __init__(self, device: torch.device, counters):
+        self.device, self.counters = device, counters
+        self.graph = None
+        self.launches = {}  # wrapper -> launches one replay holds
+
+    def __call__(self, body) -> None:
+        from gsmpm_tpu_torch.sim import cuda_mpm
+
+        if self.graph is not None:
+            self.graph.replay()
+            self.counters.replays += 1
+            for wrapper, n in self.launches.items():
+                wrapper.launches += n
+            return
+        if self.device.type != "cuda":
+            body()
+            return
+        wrappers = (cuda_mpm.p2g_tiled, cuda_mpm.g2p_tiled,
+                    cuda_mpm.sored_tiled)
+        # the warm-up stays on the current stream: run on the capture
+        # stream, it left every later replay loop of simulate's bench frame
+        # ~0.46 ms a substep slower on an H100 (0.289 against 0.245 s a
+        # frame), the cause not found
+        body()
+        # torch.cuda.graph() would also empty the allocator's cache, and
+        # the next frame's render would allocate its buffers anew
+        torch.cuda.synchronize(self.device)
+        before = [w.captured for w in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            # thread_local: the rest of the process (a NCCL watchdog) may
+            # go on querying the device while this thread captures
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        current.wait_stream(stream)
+        self.launches = {w: w.captured - b for w, b in zip(wrappers, before)}
+        self.graph = graph
+        self.counters.captures += 1
+
+
+class _StaticState:
+    """The static buffers a captured graph reads and writes: a tiled state
+    ``ts`` and a 0-d float32 ``clock``."""
+
+    def __init__(self, ts: TiledState):
         self.ts = TiledState(*[t.clone() for t in _tensors(ts)])
         self.clock = torch.zeros((), dtype=torch.float32, device=ts.q.device)
-        self.model, self.bcs, self.grid, self.tc, self.dt = (
-            model, bcs, grid, tc, dt)
-        self.graph = None
-        self.launches = (0, 0)  # K1, K2 launches the graph holds
 
     def _assign(self, ts: TiledState) -> None:
         for dst, src in zip(_tensors(self.ts), _tensors(ts)):
@@ -740,43 +806,37 @@ class _SubstepGraph:
         """A TiledState that owns its tensors (later replays leave it)."""
         return TiledState(*[t.clone() for t in _tensors(self.ts)])
 
-    def step(self) -> None:
-        from gsmpm_tpu_torch.sim.cuda_mpm import g2p_tiled, p2g_tiled
 
+class _SubstepGraph(_StaticState):
+    """Static buffers of a tiled state and a clock, and the substep over
+    them: on CUDA replayed from one CUDA graph, captured after the first
+    substep ran eagerly (``_Captured``); on the CPU the same body run
+    eagerly.
+
+    A substep reads the drift flag on the host once (gsmpm_tpu's
+    ``lax.cond``); on drift it rebuckets eagerly and copies the new tables
+    into the same buffers, so the graph stays valid.  The graph bakes in
+    the addresses of the buffers and of ``model``'s and ``bcs``' tensors.
+    """
+
+    def __init__(self, ts: TiledState, model: MPMModel, bcs,
+                 grid: GridConfig, tc: TileConfig, dt: float, refs=()):
+        super().__init__(ts)
+        self.refs = refs  # the tensors its cache key names by identity
+        self.model, self.bcs, self.grid, self.tc, self.dt = (
+            model, bcs, grid, tc, dt)
+        self.substep = _Captured(ts.q.device, frame_tiled)
+
+    def _body(self) -> None:
+        _substep_body(self.ts, self.model, self.bcs, self.clock, self.grid,
+                      self.tc, self.dt)
+
+    def step(self) -> None:
         frame_tiled.host_reads += 1
         if bool(self.ts.need_rebucket):
             self._assign(rebucket(self.ts, self.grid, self.tc))
             frame_tiled.rebuckets += 1
-        if self.graph is not None:
-            self.graph.replay()
-            frame_tiled.replays += 1
-            p2g_tiled.launches += self.launches[0]
-            g2p_tiled.launches += self.launches[1]
-            return
-        args = (self.ts, self.model, self.bcs, self.clock, self.grid,
-                self.tc, self.dt)
-        _substep_body(*args)
-        if self.ts.q.device.type != "cuda":
-            return
-        before = (p2g_tiled.captured, g2p_tiled.captured)
-        graph = torch.cuda.CUDAGraph()
-        # torch.cuda.graph() would also empty the allocator's cache, and
-        # the next frame's render would allocate its buffers anew
-        torch.cuda.synchronize(self.clock.device)
-        stream = torch.cuda.Stream(self.clock.device)
-        with torch.cuda.stream(stream):
-            # thread_local: the rest of the process (a NCCL watchdog) may
-            # go on querying the device while this thread captures
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                _substep_body(*args)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(self.clock.device).wait_stream(stream)
-        self.launches = (p2g_tiled.captured - before[0],
-                         g2p_tiled.captured - before[1])
-        self.graph = graph
-        frame_tiled.captures += 1
+        self.substep(self._body)
 
 
 # captured substeps, least recently used first
@@ -879,6 +939,17 @@ def _fitting_transfer(q, aux, ct, cf, cl, model: MPMModel, bcs, time: float,
     return torch.cat([new_q[:RF], new_q[RFT:RFT + 9], new_q[RF + 9:]])
 
 
+def _drift_rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig):
+    """The host part of a fitting substep: the drift flag read on the host
+    (one device->host read), and on drift the rebucket, whose ``ok`` is
+    sticky (a later successful rebucket must not mask an overflow).
+    Returns (ts, the permutation (src_c, has_src) or None)."""
+    if not bool(ts.need_rebucket):
+        return ts, None
+    s2, src_c, has_src = _rebucket(ts, grid, tc)
+    return dataclasses.replace(s2, ok=s2.ok & ts.ok), (src_c, has_src)
+
+
 def substep_tiled_fitting(
     ts: TiledState,
     model: MPMModel,
@@ -906,10 +977,7 @@ def substep_tiled_fitting(
     recompute repeats the collective, in the same order on every rank) and
     each rank rebuckets its shard on its own drift flag (no collective).
     """
-    if bool(ts.need_rebucket):  # one device->host read per substep
-        s2 = rebucket(ts, grid, tc)
-        # sticky: a later successful rebucket must not mask an overflow
-        ts = dataclasses.replace(s2, ok=s2.ok & ts.ok)
+    ts, _ = _drift_rebucket(ts, grid, tc)
     args = (ts.q, ts.aux, ts.chunk_tile, ts.chunk_first, ts.chunk_live,
             model, bcs, time, grid, tc, dt, group)
     if torch.is_grad_enabled():
@@ -919,6 +987,222 @@ def substep_tiled_fitting(
         new_q = _fitting_transfer(*args)
     need = torch.max(new_q[RDRIFT].detach()) > 0
     return dataclasses.replace(ts, q=new_q, need_rebucket=need)
+
+
+class _Gravity(NamedTuple):
+    """What a fitting substep reads of its MPMModel besides ts.aux (the
+    per-slot mu, lam): the grid phase's gravity."""
+
+    gravity: torch.Tensor
+
+
+class _FittingGraphs(_StaticState):
+    """The fitting window's two graphs over shared static buffers (a tiled
+    state, a clock, the cotangents dq / daux): the forward substep and its
+    adjoint, each a ``_Captured`` (on CUDA one capture, then replays; on
+    the CPU its body run eagerly).
+
+    The learned parameters reach a fitting substep only through ts.aux, a
+    buffer, so a new logE / y replays the same graphs; the graphs own
+    copies of the gravity and the BC set they were captured with.
+    """
+
+    def __init__(self, ts: TiledState, model: MPMModel, bcs,
+                 grid: GridConfig, tc: TileConfig, dt: float):
+        super().__init__(ts)
+        self.dq = torch.zeros_like(ts.q)
+        self.daux = torch.zeros_like(ts.aux)
+        self.model = _Gravity(model.gravity.detach().clone())
+        self.bcs = _owned(bcs)
+        self.grid, self.tc, self.dt = grid, tc, dt
+        self.forward = _Captured(ts.q.device, run_substeps_tiled_fitting)
+        self.adjoint = _Captured(ts.q.device, run_substeps_tiled_fitting)
+
+    def prepare(self):
+        """A substep's host part on the buffers (``_drift_rebucket``, the
+        new rows and tables copied in).  Returns the rebucketed state,
+        whose tensors are its own, and its permutation, or (None, None)."""
+        run_substeps_tiled_fitting.host_reads += 1
+        ts, perm = _drift_rebucket(self.ts, self.grid, self.tc)
+        if perm is None:
+            return None, None
+        self._assign(ts)
+        run_substeps_tiled_fitting.rebuckets += 1
+        return ts, perm
+
+    def _transfer(self, q, aux):
+        ts = self.ts
+        return _fitting_transfer(q, aux, ts.chunk_tile, ts.chunk_first,
+                                 ts.chunk_live, self.model, self.bcs,
+                                 self.clock, self.grid, self.tc, self.dt)
+
+    def _forward_body(self) -> None:
+        """The forward graph's body, in place: the device work of
+        ``substep_tiled_fitting`` on the bucketed buffers at the clock, its
+        rows and drift flag copied into ts.q and ts.need_rebucket, then
+        clock += dt (``_advance``'s value)."""
+        new_q = self._transfer(self.ts.q, self.ts.aux)
+        self.ts.q.copy_(new_q)
+        self.ts.need_rebucket.copy_(torch.max(new_q[RDRIFT]) > 0)
+        self.clock.add_(self.dt)
+
+    def _adjoint_body(self) -> None:
+        """The adjoint graph's body, in place: the transfer recomputed from
+        the input rows ts.q (ts.aux, the tables, the clock) with autograd
+        on, its VJP against dq, the cotangent of its output rows; then dq
+        := the cotangent of its input rows and daux += that of ts.aux.  The
+        leaves are made here, and ``autograd.grad`` writes no ``.grad``."""
+        q = self.ts.q.detach().requires_grad_(True)
+        aux = self.ts.aux.detach().requires_grad_(True)
+        with torch.enable_grad():
+            dq, daux = torch.autograd.grad(self._transfer(q, aux), (q, aux),
+                                           self.dq)
+        self.dq.copy_(dq)
+        self.daux.add_(daux)
+
+    def step(self) -> None:
+        """One forward substep (replay, or warm-up and capture)."""
+        self.forward(self._forward_body)
+
+    def adjoint_step(self) -> None:
+        """One adjoint substep on the loaded rows, clock and dq."""
+        self.adjoint(self._adjoint_body)
+
+
+class _Segment(NamedTuple):
+    """The substeps from ``start`` to the next rebucket: their tables and
+    aux, and the permutation of the rebucket before ``start`` (None for
+    the window's first segment)."""
+
+    start: int
+    tables: tuple  # chunk_tile, chunk_first, chunk_live
+    aux: torch.Tensor
+    perm: Optional[tuple]
+
+
+class _FittingWindow(torch.autograd.Function):
+    """N fitting substeps as one autograd node: the port's counterpart of
+    ``jax.checkpoint`` + ``lax.scan`` + ``jax.jit``.
+
+    Forward: per substep the host part (``_FittingGraphs.prepare``), the
+    input rows q_k kept in a stack (the scan's carries, the checkpoint
+    path's memory), then the forward graph.  Backward: for k = N-1 ... 0
+    the adjoint graph on q_k, the segment's tables and aux and the clock
+    t_k; after the first substep of a segment that a rebucket began, the
+    rebucket's VJP (``_unpermute``) on dq and daux, eager.  The decision to
+    rebucket is the forward's, never recomputed.  Inputs (q, aux, ts,
+    graphs, time, n_substeps), ts.q and ts.aux being q and aux; outputs
+    the final TiledState's fields, q and aux differentiable.
+    """
+
+    @staticmethod
+    def forward(ctx, q, aux, ts, graphs, time, n_substeps):
+        g = graphs
+        g.load(ts, time)
+        stack = q.new_empty((n_substeps,) + tuple(q.shape))
+        segments = [_Segment(0, (ts.chunk_tile, ts.chunk_first,
+                                 ts.chunk_live), aux.detach(), None)]
+        times = []
+        for k in range(n_substeps):
+            s2, perm = g.prepare()
+            if perm is not None:
+                segments.append(_Segment(k, (s2.chunk_tile, s2.chunk_first,
+                                             s2.chunk_live), s2.aux, perm))
+            stack[k].copy_(g.ts.q)
+            times.append(time)
+            g.step()
+            time = _advance(time, g.dt)
+        ctx.graphs, ctx.stack, ctx.segments, ctx.times = (
+            g, stack, segments, times)
+        out = _tensors(g.state())
+        ctx.mark_non_differentiable(*out[2:])
+        return tuple(out)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dq, daux, *_):
+        g, segments = ctx.graphs, ctx.segments
+        g.dq.copy_(dq)
+        g.daux.copy_(daux)
+
+        def load(seg):
+            for dst, src in zip((g.ts.chunk_tile, g.ts.chunk_first,
+                                 g.ts.chunk_live), seg.tables):
+                dst.copy_(src)
+            g.ts.aux.copy_(seg.aux)
+
+        i = len(segments) - 1
+        load(segments[i])
+        for k in reversed(range(len(ctx.times))):
+            g.ts.q.copy_(ctx.stack[k])
+            g.clock.fill_(ctx.times[k])
+            g.adjoint_step()
+            while i > 0 and segments[i].start == k:
+                src_c, has_src = segments[i].perm
+                g.dq.copy_(_unpermute(g.dq, src_c, has_src))
+                g.daux.copy_(_unpermute(g.daux, src_c, has_src))
+                i -= 1
+                load(segments[i])
+        return g.dq.clone(), g.daux.clone(), None, None, None, None
+
+
+def _owned(obj):
+    """obj with each tensor in it cloned (dataclasses and tuples rebuilt)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _owned(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple):
+        return tuple(_owned(o) for o in obj)
+    return obj
+
+
+def _values(obj):
+    """obj by value: each tensor's dtype, shape and elements (a host read
+    of a few floats here: gravity, BC boxes), the rest as it is."""
+    if isinstance(obj, torch.Tensor):
+        return (obj.dtype, tuple(obj.shape), tuple(obj.flatten().tolist()))
+    if dataclasses.is_dataclass(obj):
+        return (type(obj),) + tuple(_values(getattr(obj, f.name))
+                                    for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_values(o) for o in obj)
+    return obj
+
+
+# the fitting window's graphs, least recently used first: their own cache,
+# so a fit does not evict the simulate graphs of _GRAPHS
+_FIT_GRAPHS: "collections.OrderedDict[tuple, _FittingGraphs]" = (
+    collections.OrderedDict())
+_FIT_GRAPHS_KEPT = 2
+
+
+def _fitting_graphs(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
+                    tc: TileConfig, dt: float) -> _FittingGraphs:
+    """The cached fitting graphs of (tc, grid, dt, the device, gravity and
+    the BC set by value): a new logE / y (any other field of model) or a
+    new BC set with the same values captures nothing."""
+    key = (tc, grid, dt, ts.q.device, _values(model.gravity), _values(bcs))
+    graphs = _FIT_GRAPHS.pop(key, None)
+    if graphs is None:
+        while len(_FIT_GRAPHS) >= _FIT_GRAPHS_KEPT:
+            _FIT_GRAPHS.popitem(last=False)
+        graphs = _FittingGraphs(ts, model, bcs, grid, tc, dt)
+    _FIT_GRAPHS[key] = graphs
+    return graphs
+
+
+def _fitting_window(ts: TiledState, model: MPMModel, bcs, time: float,
+                    n_substeps: int, grid: GridConfig, tc: TileConfig,
+                    dt: float) -> TiledState:
+    """n_substeps fitting substeps from a bucketed ts through
+    ``_FittingWindow`` (graphs from ``_fitting_graphs``); differentiable in
+    ts.q and ts.aux."""
+    graphs = _fitting_graphs(ts, model, bcs, grid, tc, dt)
+    return TiledState(*_FittingWindow.apply(ts.q, ts.aux, ts, graphs, time,
+                                            n_substeps))
 
 
 def run_substeps_tiled_fitting(
@@ -938,22 +1222,38 @@ def run_substeps_tiled_fitting(
     Returns (soa', time', ok): ok is False when the occupied-tile cap
     overflowed at bootstrap or at a rebucket; the caller then redoes the
     frame on the golden engine (sim/solver.py:run_substeps).  While
-    autograd records, each substep is checkpointed: only the particle rows
-    are kept between substeps and the grid is recomputed in the backward
-    pass, the JAX package's memory policy.  ``group``: soa is this rank's
-    particle shard and the grid is summed over the group's ranks
+    autograd records, only the particle rows are kept between substeps and
+    the grid is recomputed in the backward pass, the JAX package's memory
+    policy: on CUDA without a ``group`` the window is one
+    ``_FittingWindow`` (a forward and an adjoint CUDA graph, captured once
+    per tile config, grid, dt, gravity and BC set;
+    ``run_substeps_tiled_fitting.captures`` / ``replays`` / ``host_reads``
+    / ``rebuckets`` count their work), elsewhere each substep is
+    checkpointed (``substep_tiled_fitting``).  ``group``: soa is this
+    rank's particle shard and the grid is summed over the group's ranks
     (substep_tiled_fitting); ok is this rank's, the caller reduces it.
     """
     n = soa.mass.shape[0]
     if tc is None:
         tc = default_tile_config(grid.n_grid, n)
     ts = bootstrap(soa, model, grid, tc)
-    for _ in range(n_substeps):
-        ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt,
-                                   group=group)
-        time = _advance(time, dt)
+    if (group is None and ts.q.device.type == "cuda"
+            and torch.is_grad_enabled()):
+        ts = _fitting_window(ts, model, bcs, time, n_substeps, grid, tc, dt)
+        for _ in range(n_substeps):
+            time = _advance(time, dt)
+    else:
+        for _ in range(n_substeps):
+            ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt,
+                                       group=group)
+            time = _advance(time, dt)
     q = to_original_order(ts, n)
     return unpack_q(q, soa), time, ts.ok
+
+
+run_substeps_tiled_fitting.captures = run_substeps_tiled_fitting.replays = 0
+run_substeps_tiled_fitting.host_reads = 0
+run_substeps_tiled_fitting.rebuckets = 0
 
 
 def run_substeps_tiled(

@@ -899,3 +899,185 @@ def test_frame_graph_recaptures_for_a_new_model(cuda):
     before = _graph_counts()
     tiles.frame_tiled(ts0, soa, s.model, s.bcs, 0.0, 2, s.grid, tc, dt)
     assert _delta(before)["captures"] == 0  # the first model's graph kept
+
+
+# ---------------------------------------------------------------------------
+# the fitting window's graphs (sim/tiles.py: _FittingWindow on CUDA)
+# ---------------------------------------------------------------------------
+
+FIT_SUBSTEPS = 30
+# graph against the checkpointed eager window from one state: K1's float
+# atomics add in a run-dependent order (forward, recompute), so the rows
+# within 1e-4 of each field's largest magnitude (_assert_close) and the
+# gradients within 1e-3 of theirs (test_fit_frame_gpu_matches_cpu's)
+FIT_GRAD_REL = 1e-3
+
+
+def _thrown_ident(dev, n=512):
+    """_fit_ident's blob thrown along +x at ~10 m/s (seeded spread) for
+    FIT_SUBSTEPS substeps a frame: its window rebuckets twice."""
+    ident, cam = _fit_ident(dev, n=n, substeps=FIT_SUBSTEPS)
+    rng = np.random.default_rng(21)
+    v = (np.float32([10.0, -2.0, 0.0]) + 0.5 * rng.normal(size=(n, 3)))
+    ident.init_velocity = torch.from_numpy(v.astype(np.float32)).to(dev)
+    return ident, cam
+
+
+def _fit_graph_counts():
+    f = tiles.run_substeps_tiled_fitting
+    return dict(captures=f.captures, replays=f.replays,
+                host_reads=f.host_reads, rebuckets=f.rebuckets,
+                k1=cuda_mpm.p2g_tiled.launches, k2=cuda_mpm.g2p_tiled.launches,
+                k6=cuda_mpm.sored_tiled.launches,
+                k1_captured=cuda_mpm.p2g_tiled.captured,
+                k2_captured=cuda_mpm.g2p_tiled.captured,
+                k6_captured=cuda_mpm.sored_tiled.captured)
+
+
+def _fit_delta(before):
+    return {k: v - before[k] for k, v in _fit_graph_counts().items()}
+
+
+def _window(ident, state, graph: bool):
+    """The fitting window from state and d(loss)/d(logE, y) through it:
+    run_substeps_tiled_fitting (on CUDA the graphs) or the checkpointed
+    substep_tiled_fitting loop.  Returns (tiled rows in original order,
+    gradients, ok)."""
+    from gsmpm_tpu_torch.sim.state import mu_lam_from_logE_y
+
+    logE = ident.model.logE.detach().clone().requires_grad_(True)
+    y = ident.model.y.detach().clone().requires_grad_(True)
+    n, dt = state.x.shape[0], 0.03 / FIT_SUBSTEPS
+    with torch.enable_grad():
+        mu, lam = mu_lam_from_logE_y(logE, y)
+        model = dataclasses.replace(ident.model, logE=logE, y=y, mu=mu,
+                                    lam=lam)
+        soa = soa_from_state(state)
+        tc = tiles.default_tile_config(ident.grid.n_grid, n)
+        if graph:
+            out, _, ok = tiles.run_substeps_tiled_fitting(
+                soa, model, ident.bcs, 0.0, FIT_SUBSTEPS, ident.grid, dt)
+            q = tiles.pack_q(out)
+        else:
+            ts = tiles.bootstrap(soa, model, ident.grid, tc)
+            for _ in range(FIT_SUBSTEPS):
+                ts = tiles.substep_tiled_fitting(ts, model, ident.bcs, 0.0,
+                                                 ident.grid, tc, dt)
+            ok, q = ts.ok, tiles.to_original_order(ts, n)
+        x, v, F = q[tiles.RX:tiles.RX + 3], q[tiles.RV:tiles.RV + 3], \
+            q[tiles.RF:tiles.RF + 9]
+        loss = (torch.sum(x * torch.sin(x)) + torch.sum(F * F)
+                + 0.1 * torch.sum(v * v))
+    grads = torch.autograd.grad(loss, (logE, y))
+    return q.detach(), grads, bool(ok)
+
+
+def _assert_rows_close(a, b):
+    for name, lo, hi in (("x", tiles.RX, tiles.RX + 3),
+                         ("v", tiles.RV, tiles.RV + 3),
+                         ("C", tiles.RC, tiles.RC + 9),
+                         ("F", tiles.RF, tiles.RF + 9)):
+        scale = float(b[lo:hi].abs().max())
+        err = float((a[lo:hi] - b[lo:hi]).abs().max())
+        assert err <= 1e-4 * max(scale, 1e-30), (name, err, scale)
+
+
+def test_fit_graph_window_matches_checkpointed(cuda):
+    """The window's two graphs (30 forward replays, 30 adjoint replays,
+    two rebuckets in between) against the checkpointed eager window from
+    the same state: rows within 1e-4 and d logE / d y within FIT_GRAD_REL
+    of their largest magnitudes; then a second window replays only."""
+    ident, _ = _thrown_ident(cuda)
+    state = ident.reset_state()
+    q_e, g_e, ok_e = _window(ident, state, graph=False)
+    before = _fit_graph_counts()
+    q_g, g_g, ok_g = _window(ident, state, graph=True)
+    d = _fit_delta(before)
+    assert ok_e and ok_g
+    assert d["rebuckets"] >= 1 and d["host_reads"] == FIT_SUBSTEPS
+    assert d["captures"] + d["replays"] == 2 * FIT_SUBSTEPS
+    _assert_rows_close(q_g, q_e)
+    for a, b in zip(g_g, g_e):
+        assert float((a - b).abs().max()) <= FIT_GRAD_REL * float(
+            b.abs().max())
+    before = _fit_graph_counts()
+    q_2, _, _ = _window(ident, state, graph=True)
+    d = _fit_delta(before)
+    assert d["captures"] == 0 and d["replays"] == 2 * FIT_SUBSTEPS
+    assert d["rebuckets"] >= 1  # the rebuckets copy into the same buffers
+    _assert_rows_close(q_2, q_e)
+
+
+def test_fit_graph_launches_per_fit_frame(cuda):
+    """fit_frame through the graphs: K1 / K2 / K6 exactly 90 / 150 / 60 a
+    frame of 30 substeps, the replays' launches counted and the captures'
+    not; a later frame (new logE / y after the SGD step) captures
+    nothing."""
+    ident, cam = _thrown_ident(cuda)
+    gt = ident.generate_ground_truth(3e3, 0.3, [cam], 2)[1]
+    state = ident.reset_state()
+    want = dict(k1=3 * FIT_SUBSTEPS, k2=5 * FIT_SUBSTEPS,
+                k6=2 * FIT_SUBSTEPS)
+    for frame in range(3):
+        logE = ident.model.logE.clone()
+        before = _fit_graph_counts()
+        _, state, t, _ = ident.fit_frame(state, 0.03 * frame, cam, gt)
+        d = _fit_delta(before)
+        assert ident.sim_engine == "tiled_vjp"
+        assert ident._total_rebuilds == 0
+        assert {k: d[k] for k in want} == want, (frame, d)
+        assert d["captures"] + d["replays"] == 2 * FIT_SUBSTEPS
+        assert not torch.equal(ident.model.logE, logE)
+        if frame:
+            assert d["captures"] == 0
+            assert d["k1_captured"] == d["k2_captured"] == 0
+            assert d["k6_captured"] == 0
+    # the returned state and gradients own their tensors: the next frame's
+    # replays leave them
+    held = [state.x, state.F, *ident.last_grads]
+    copies = [h.clone() for h in held]
+    ident.fit_frame(state, t, cam, gt)
+    for h, c in zip(held, copies):
+        assert torch.equal(h, c)
+
+
+def test_fit_graph_cap_bump_rerun_replays(cuda):
+    """A render that drops candidates re-runs the same frame after a cap
+    resize (sim/fitting.py's _drop_free): the re-runs replay the captured
+    graphs, and the frame's final launches are a whole window's."""
+    ident, cam = _thrown_ident(cuda)
+    gt = ident.generate_ground_truth(3e3, 0.3, [cam], 2)[1]
+    state = ident.reset_state()
+    ident.fit_frame(state, 0.0, cam, gt)  # the graphs are captured
+    ident.raster_cfg = ident.raster_cfg._replace(k_tile=8, k_coarse=8,
+                                                 k_global=8)
+    rebuilds = ident._total_rebuilds
+    before = _fit_graph_counts()
+    ident.fit_frame(state, 0.0, cam, gt)
+    d = _fit_delta(before)
+    tries = ident._total_rebuilds - rebuilds + 1
+    assert tries >= 2 and ident.n_dropped_last == 0
+    assert d["captures"] == 0
+    # every try replays the forward graph, the backward runs once
+    assert d["replays"] == (tries + 1) * FIT_SUBSTEPS
+    assert d["k6"] == 2 * FIT_SUBSTEPS
+
+
+def test_fit_graph_overflow_takes_golden_eager(cuda, monkeypatch):
+    """A tile cap below the blob's occupied tiles: the window reports the
+    overflow, fit_frame moves to the golden engine for good and redoes the
+    frame there, eager (no replay, no K1 / K2 / K6 launch)."""
+    ident, cam = _thrown_ident(cuda)
+    gt = ident.generate_ground_truth(3e3, 0.3, [cam], 2)[1]
+    real = tiles.default_tile_config
+    monkeypatch.setattr(tiles, "default_tile_config",
+                        lambda g, n: real(g, n)._replace(n_occ_cap=1))
+    state = ident.reset_state()
+    loss, state, t, _ = ident.fit_frame(state, 0.0, cam, gt)
+    assert ident.sim_engine == "golden" and np.isfinite(float(loss))
+    before = _fit_graph_counts()
+    loss, _, _, _ = ident.fit_frame(state, t, cam, gt)
+    d = _fit_delta(before)
+    assert np.isfinite(float(loss))
+    assert d["replays"] == d["captures"] == d["host_reads"] == 0
+    assert d["k1"] == d["k2"] == d["k6"] == 0
