@@ -39,7 +39,9 @@
    parallel/ on a one-rank NCCL group built in this process
    (MeshSimEngine's tiled and psum frames against the single-device
    frames, the tile-sharded render against the stream render, K1 / K2 /
-   K4 against their twins on that path's inputs).
+   K4 against their twins on that path's inputs).  The sharded fit steps
+   (slice 5) run on a one-rank group of their own after the
+   identification path.
 8. Slice 6, the halo engines, on a one-rank NCCL group of their own at
    the bench's secondary shape (the 245,760-gaussian box on the 100^3
    grid, 100 substeps): auto-selection picks tiled (ROADMAP C); one
@@ -100,9 +102,24 @@
    and the window backward), the replays back to back.  identify, the
    steady fits (windowed and stream), camera-DP and ``--data_path`` run
    the same graphs.
-14. Every path is driven with every launch counter set to 0 just before it
+14. Slice 11, the mesh paths as one program, on the one-rank NCCL groups
+   of 7. and of the mesh fit: the tiled engine's frame (segments of the
+   captured substep, the grid's NCCL all-reduce inside the graph, the
+   gathered rebucket and the hard-drift flag eager between segments)
+   against its eager ``substep_tiled(group=)`` segment loop in turns
+   (eager, graph, eager, graph; 2 frames each) from one state:
+   substeps/s, exact K1 / K2 launches, captures / replays / host reads,
+   each field within 1e-4 of its max, the device clock's bits, the busy
+   share of one profiled frame of each; and the 1 x 1 sharded fit step
+   with the fitting window's graphs (the all-reduces of the forward, the
+   recompute and its VJP inside) against the same step on the
+   checkpointed ``substep_tiled_fitting(group=)`` loop in turns (2 steps
+   each): step seconds, exact K1 / K2 / K6 launches, replays and host
+   reads, g_logE / g_y within 1e-3 of the eager step's largest.  Each
+   group's cached graphs are freed before the group is destroyed.
+15. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-15. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+16. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -2138,9 +2155,12 @@ def mesh_fit_phase(dev, ident, gt, cams, wrappers):
     parameters (MESH_FIT_REL); the image's largest difference is printed
     beside the two single runs' and beside the rows render against the
     two-tier render of the same state.  Launches per step are exact; K4 /
-    K5 are held against their twins on the rows render's windows.  A
-    one-rank group cannot show a device-count factor: the CPU tests carry
-    that (tests/test_torch_parallel_fit.py)."""
+    K5 are held against their twins on the rows render's windows.  The
+    sharded step's window replays the fitting graphs with the group's
+    all-reduces inside; slice 11's turns (``_mesh_fit_turns``) hold it
+    against the checkpointed loop.  A one-rank group cannot show a
+    device-count factor: the CPU tests carry that
+    (tests/test_torch_parallel_fit.py)."""
     import os
 
     import torch.distributed as dist
@@ -2223,6 +2243,9 @@ def mesh_fit_phase(dev, ident, gt, cams, wrappers):
         sharded = _fit_summary(loss, img, sid.last_grads, sid.model.logE,
                                sid.model.y, secs, counts)
         d_sh = close(sharded, "sharded step")
+        graph_turns = _mesh_fit_turns(sid, logE0, y0, state0, cam, target,
+                                      wrappers, dict(per_step, blend_fwd=1,
+                                                     blend_bwd=1))
         # the routes' own image difference: the two-tier render of the
         # state that the sharded step rendered with its rows render
         with torch.no_grad():
@@ -2283,6 +2306,7 @@ def mesh_fit_phase(dev, ident, gt, cams, wrappers):
                               sid.model.y, secs_g, counts)
         d_go = _fit_diffs(golden, sharded)
         out.update(
+            graph_turns=graph_turns,
             sharded={k: v for k, v in sharded.items() if k != "image"},
             camdp={k: v for k, v in camdp.items() if k != "image"},
             golden_redo={k: v for k, v in golden.items() if k != "image"},
@@ -2316,7 +2340,164 @@ def mesh_fit_phase(dev, ident, gt, cams, wrappers):
                       + golden["launches"][k] for k in per_step}
         return counts_all, out
     finally:
-        dist.destroy_process_group()
+        _end_group("mesh fit")
+
+
+def _eager_fit_substeps(engine, state, model, bcs, t, n_sub, grid, dt,
+                        group=None):
+    """sim/fitting.fit_substeps on tiled_vjp as the checkpointed
+    substep_tiled_fitting(group=) loop: the sharded step's window as it
+    ran before it replayed the graphs (chip_smoke puts it in
+    parallel/sharded.py's namespace for the eager turns)."""
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
+
+    check(engine == "tiled_vjp", f"eager fit substeps: engine {engine}")
+    soa, n = soa_from_state(state), state.x.shape[0]
+    tc = tiles.default_tile_config(grid.n_grid, n)
+    ts = tiles.bootstrap(soa, model, grid, tc)
+    for _ in range(n_sub):
+        ts = tiles.substep_tiled_fitting(ts, model, bcs, t, grid, tc, dt,
+                                         group=group)
+        t = tiles._advance(t, dt)
+    soa = tiles.unpack_q(tiles.to_original_order(ts, n), soa)
+    return state_from_soa(soa), t, bool(ts.ok)
+
+
+def _mesh_fit_turns(sid, logE0, y0, state0, cam, target, wrappers, want):
+    """Slice 11: the 1 x 1 sharded step (sid.fit_frame on its mesh) with
+    the fitting window's graphs (the data group's all-reduces inside)
+    against the same step on the checkpointed loop, in turns from one
+    state and (logE, y) (eager, graph, eager, graph; FIT_GRAPH_FRAMES steps
+    each): step seconds, exact launches, the graphs' captures / replays /
+    host reads, g_logE / g_y of a graph step against an eager step's
+    (FIT_GRAPH_GRAD_REL of the largest)."""
+    from gsmpm_tpu_torch.parallel import sharded
+    from gsmpm_tpu_torch.sim import tiles
+
+    f = tiles.run_substeps_tiled_fitting
+    real = sharded.fit_substeps
+
+    def counters():
+        return dict(captures=f.captures, replays=f.replays,
+                    host_reads=f.host_reads, rebuckets=f.rebuckets)
+
+    def step(graph):
+        sid._set_params(logE0.clone(), y0.clone())
+        rebuilds = sid._total_rebuilds
+        if not graph:
+            sharded.fit_substeps = _eager_fit_substeps
+        try:
+            torch.cuda.synchronize()
+            _zero(wrappers)
+            g0 = counters()
+            t0 = time.perf_counter()
+            loss, _, _, _ = sid.fit_frame(state0, 0.0, cam, target)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            sharded.fit_substeps = real
+        counts = _counts(wrappers)
+        g = {k: v - g0[k] for k, v in counters().items()}
+        what = "graph" if graph else "eager"
+        check(sid.sim_engine == "tiled_vjp" and sid.n_dropped_last == 0
+              and sid._total_rebuilds == rebuilds,
+              f"mesh fit {what} step: engine {sid.sim_engine}, dropped "
+              f"{sid.n_dropped_last}")
+        check(np.isfinite(float(loss)), f"mesh fit {what}: loss {loss}")
+        check(counts == want, f"mesh fit {what} step: launches {counts}, "
+                              f"expected {want}")
+        if graph:
+            check(g["captures"] == 0 and g["replays"] == 2 * FIT_SUBSTEPS
+                  and g["host_reads"] == FIT_SUBSTEPS,
+                  f"mesh fit graph step: {g}")
+        else:
+            check(g == dict(captures=0, replays=0, host_reads=0,
+                            rebuckets=0), f"mesh fit eager step: {g}")
+        grads = tuple(x.detach().clone() for x in sid.last_grads)
+        return secs, g, float(loss), grads
+
+    turns, first, total = [], {}, {}
+    for name in ("eager", "graph", "eager", "graph"):
+        for _ in range(FIT_GRAPH_FRAMES):
+            secs, g, loss, grads = step(name == "graph")
+            turns.append(dict(run=name, secs=secs, loss=loss, **g))
+            first.setdefault(name, grads)
+            if name == "graph":
+                total = {k: total.get(k, 0) + v for k, v in want.items()}
+    diffs = {}
+    for key, a, b in zip(("g_logE", "g_y"), first["graph"], first["eager"]):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        diffs[key] = dict(max_abs=err, scale=scale, rel=err / scale)
+        check(scale > 0 and err <= FIT_GRAPH_GRAD_REL * scale,
+              f"mesh fit: {key} graph vs eager {err} (scale {scale}, rel "
+              f"tol {FIT_GRAPH_GRAD_REL})")
+    step_s = {n: [x["secs"] for x in turns if x["run"] == n]
+              for n in ("eager", "graph")}
+    # one graph step under torch.profiler: the device's busy share, the
+    # largest kernels and the host's largest operators (self time)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sid._set_params(logE0.clone(), y0.clone())
+    with torch.profiler.profile(activities=acts) as prof:
+        sid.fit_frame(state0, 0.0, cam, target)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if _device_us(e) > 0
+                      and e.device_type != torch.autograd.DeviceType.CPU),
+                     key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    check(busy_ms > 0, "mesh fit profile: no device time")
+    host = sorted((e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    profile = dict(
+        busy_ms=busy_ms, kernels=sum(e.count for e in kernels),
+        busy_pct=100 * busy_ms / (1e3 * float(np.mean(step_s["graph"]))),
+        top_kernels=[(e.key[:60], _device_us(e) / 1e3, e.count)
+                     for e in kernels[:6]],
+        top_host=[(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+                  for e in host[:8]])
+    print(f"mesh fit graph step profiled: device busy {busy_ms:.1f} ms in "
+          f"{profile['kernels']} kernels = {profile['busy_pct']:.1f}% of the "
+          f"turns' mean graph step; top kernels "
+          + "; ".join(f"{k} {ms:.1f} ms x{n}"
+                      for k, ms, n in profile["top_kernels"])
+          + "; top host operators (self ms) "
+          + "; ".join(f"{k} {ms:.1f} ms x{n}"
+                      for k, ms, n in profile["top_host"]), flush=True)
+    print(f"mesh fit graph turns (1 NCCL rank, data 1 x tile 1), "
+          f"{MAIN_N} gaussians, {FIT_RES}^2, {FIT_SUBSTEPS} substeps, turns "
+          f"of {FIT_GRAPH_FRAMES} steps: eager "
+          f"{[round(x, 4) for x in step_s['eager']]} s, graph "
+          f"{[round(x, 4) for x in step_s['graph']]} s; per graph step "
+          f"{FIT_SUBSTEPS} host reads, {2 * FIT_SUBSTEPS} replays, 0 "
+          f"captures; launches per step (both) "
+          f"{ {k: v for k, v in want.items() if v} }; graph vs eager "
+          f"g_logE rel {diffs['g_logE']['rel']:.3g}, g_y rel "
+          f"{diffs['g_y']['rel']:.3g} (tol {FIT_GRAPH_GRAD_REL})",
+          flush=True)
+    return dict(turns=turns, step_s=step_s, grad_diff=diffs,
+                profile=profile, launches=total)
+
+
+def _end_group(what: str) -> None:
+    """The process group's cached graphs freed, then the group destroyed;
+    the seconds of each printed."""
+    import torch.distributed as dist
+
+    from gsmpm_tpu_torch.sim import tiles
+
+    t0 = time.perf_counter()
+    n = tiles._drop_group_graphs()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dist.destroy_process_group()
+    t2 = time.perf_counter()
+    print(f"{what}: released {n} cached graph set(s) of the process group "
+          f"({t1 - t0:.3f} s), then destroyed it ({t2 - t1:.3f} s)",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2587,7 +2768,9 @@ def mesh_phase(dev, wrappers):
     the mesh render (render_block_rows, K4) against K4's twin blending the
     same windows (the stream render of the same state beside it), and K1,
     K2, K4 against their twins on the mesh path's inputs.  K1 / K2
-    launches are exact per substep."""
+    launches are exact per substep.  The tiled frame replays its captured
+    substep; slice 11's turns (``_mesh_graph_turns``) hold it against the
+    eager segment loop."""
     import os
 
     import torch.distributed as dist
@@ -2605,6 +2788,12 @@ def mesh_phase(dev, wrappers):
     from gsmpm_tpu_torch.sim import cuda_mpm, tiles
     from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
     from gsmpm_tpu_torch.sim.solver import postprocess, run_substeps
+
+    laps = [time.perf_counter()]
+
+    def lap():  # seconds since the previous lap
+        laps.append(time.perf_counter())
+        return laps[-1] - laps[-2]
 
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                       WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
@@ -2635,6 +2824,7 @@ def mesh_phase(dev, wrappers):
             engines[engine] = (eng, st, counts)
             out[engine] = dict(frame_s=wall, substeps_per_s=steps / wall,
                                launches=counts)
+        laps_s = dict(engines=lap())
         # the single-device frames from the same start state
         ts = tiles.bootstrap(soa_from_state(su.state), su.model, su.grid,
                              su.tc)
@@ -2660,10 +2850,17 @@ def mesh_phase(dev, wrappers):
                       f"{k} {v:.3g}" for k, v in errs.items())
                   + " (tol 1e-4)", flush=True)
 
+        # slice 11: the tiled engine's frame (its captured substep) against
+        # the eager segment loop it replaced
+        laps_s["single"] = lap()
+        eng_t, st_t, _ = engines["tiled"]
+        out["tiled"]["graph_turns"] = _mesh_graph_turns(
+            mesh, eng_t, st0, md0, su, wrappers)
+        laps_s["graph_turns"] = lap()
+
         # K1 / K2 against their twins on the rank's chunks after the frame,
         # given seeded motion (the falling box's C is ~1e-6: every term of
         # the transfers must count)
-        eng_t, st_t, _ = engines["tiled"]
         ts_loc = seeded_motion(eng_t._tiled[2])
         tc = eng_t._tiled[1]
         ts_loc, sig = tiles.particle_phase(ts_loc, md0, su.bcs, 0.0, dt)
@@ -2741,6 +2938,10 @@ def mesh_phase(dev, wrappers):
         check(err4 <= 2e-3, f"mesh K4: max err {err4}")
         check(done4 <= 1e-4, f"mesh K4: done flags differ {done4}")
         ms4 = cuda_ms(lambda: cb.blend_fwd(counts, F, meta), 5)
+        laps_s["twins_render"] = lap()
+        out["laps_s"] = laps_s
+        print("mesh phase laps (s): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in laps_s.items()), flush=True)
         out["render"] = dict(render_ms=render_ms, renders=renders,
                              k_row=rcfg.k_row, k_block=rcfg.k_block,
                              K=int(F.shape[2]), img_err_vs_twin=img_err,
@@ -2767,7 +2968,141 @@ def mesh_phase(dev, wrappers):
         counts_all["blend_fwd"] = k4_launches
         return counts_all, out
     finally:
-        dist.destroy_process_group()
+        _end_group("mesh")
+
+
+MESH_GRAPH_FRAMES = 2
+
+
+def _mesh_eager_frame(mesh, ts, t, model, bcs, grid, tc, dt, steps, seg):
+    """parallel/tiled_sharded.py's frame as the eager loop it ran before it
+    replayed the substep graph: per segment the gathered rebucket, seg
+    substep_tiled(group=) substeps, the hard-drift flag; then the
+    replicated original-order rows.  Returns (ts, q, t)."""
+    import torch.distributed as dist
+
+    from gsmpm_tpu_torch.parallel.tiled_sharded import (
+        _hard_drift, gather_tiled, shard_tiled,
+    )
+    from gsmpm_tpu_torch.sim import tiles
+
+    ok = ts.ok
+    for _ in range(steps // seg):
+        ts = shard_tiled(tiles.rebucket(gather_tiled(ts, mesh), grid, tc),
+                         mesh, tc)
+        ok = ok & ts.ok
+        for _ in range(seg):
+            ts = tiles.substep_tiled(ts, model, bcs, t, grid, tc, dt,
+                                     group=mesh.group,
+                                     rebucket_on_drift=False)
+            t = tiles._advance(t, dt)
+        bad = _hard_drift(ts.q, grid, tc, ts.chunk_tile).to(torch.int32)
+        dist.all_reduce(bad.reshape(1), op=dist.ReduceOp.MAX,
+                        group=mesh.group)
+        ok = ok & (bad == 0)
+    ts = dataclasses.replace(ts, ok=ok)
+    q = tiles.to_original_order(ts, tc.n_particles).contiguous()
+    dist.all_reduce(q, group=mesh.group)
+    return ts, q, t
+
+
+def _mesh_graph_turns(mesh, eng, st0, md0, su, wrappers):
+    """Slice 11: the MeshSimEngine's tiled frame function (segments of the
+    captured substep, the grid's NCCL all-reduce inside; its graph was
+    captured by the engine's frame) against the eager segment loop, in
+    turns from one state (eager, graph, eager, graph; MESH_GRAPH_FRAMES
+    frames each): substeps/s, K1 / K2 exactly one a substep, captures /
+    replays / host reads per frame, each field's relative difference
+    (SOLVER_RTOL), the device busy share of one profiled graph frame."""
+    from gsmpm_tpu_torch.parallel.engines import _largest_divisor_leq
+    from gsmpm_tpu_torch.parallel.tiled_sharded import shard_tiled
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
+
+    start = time.perf_counter()
+    fn, tc, _ = eng._tiled
+    steps, dt = eng.n_steps, eng.dt
+    seg = _largest_divisor_leq(steps, 10)  # the engine's rebucket_every
+    ts0 = shard_tiled(tiles.bootstrap(soa_from_state(st0), md0, su.grid, tc),
+                      mesh, tc)
+    soa0 = soa_from_state(st0)
+    f = tiles.frame_tiled
+
+    def counters():
+        return dict(captures=f.captures, replays=f.replays,
+                    host_reads=f.host_reads, rebuckets=f.rebuckets)
+
+    def graph(n_frames):
+        ts, t = ts0, 0.0
+        for _ in range(n_frames):
+            ts, q, t = fn(ts, t)
+        return ts, q, t
+
+    def eager(n_frames):
+        ts, t = ts0, 0.0
+        for _ in range(n_frames):
+            ts, q, t = _mesh_eager_frame(mesh, ts, t, md0, su.bcs, su.grid,
+                                         tc, dt, steps, seg)
+        return ts, q, t
+
+    turns, results, total = [], {}, {}
+    for name in ("eager", "graph", "eager", "graph"):
+        torch.cuda.synchronize()
+        _zero(wrappers)
+        g0 = counters()
+        t0 = time.perf_counter()
+        ts, q, t = (graph if name == "graph" else eager)(MESH_GRAPH_FRAMES)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts(wrappers)
+        g = {k: v - g0[k] for k, v in counters().items()}
+        want = MESH_GRAPH_FRAMES * steps
+        check(bool(ts.ok), f"mesh graph turns {name}: not ok")
+        check(counts["p2g_tiled"] == counts["g2p_tiled"] == want,
+              f"mesh graph turns {name}: launches {counts}, expected {want}")
+        if name == "graph":
+            check(g == dict(captures=0, replays=want, host_reads=0,
+                            rebuckets=0), f"mesh graph turns: {g}")
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        else:
+            check(g == dict(captures=0, replays=0, host_reads=0,
+                            rebuckets=0), f"mesh eager turns: {g}")
+        turns.append(dict(run=name, secs=secs, substeps_per_s=want / secs,
+                          k1=counts["p2g_tiled"], k2=counts["g2p_tiled"],
+                          **g))
+        results.setdefault(name, (q, t))
+    (q_e, t_e), (q_g, t_g) = results["eager"], results["graph"]
+    check(t_e == t_g, f"mesh graph turns: clocks {t_e} vs {t_g}")
+    entry = next(e for e in tiles._GRAPHS.values() if e.group is mesh.group)
+    check(entry.clock.cpu().numpy().view(np.uint32)
+          == np.float32(t_g).view(np.uint32),
+          f"mesh graph: device clock {float(entry.clock)} vs host {t_g}")
+    rel = _rel_errs(state_from_soa(tiles.unpack_q(q_g, soa0)),
+                    state_from_soa(tiles.unpack_q(q_e, soa0)))
+    check(max(rel.values()) <= SOLVER_RTOL,
+          f"mesh graph vs eager segments: {rel} (tol {SOLVER_RTOL})")
+    frame_ms = {n: 1e3 * float(np.mean([x["secs"] for x in turns
+                                        if x["run"] == n])) / MESH_GRAPH_FRAMES
+                for n in ("eager", "graph")}
+    busy_ms, n_kernels = _profiled_busy_ms(lambda: graph(1))
+    busy = dict(busy_ms=busy_ms, kernels=n_kernels,
+                busy_pct=100 * busy_ms / frame_ms["graph"])
+    sps = {n: [round(x["substeps_per_s"], 2) for x in turns if x["run"] == n]
+           for n in ("eager", "graph")}
+    print(f"mesh graph turns (tiled, 1 NCCL rank): {MAIN_N} gaussians, "
+          f"n_grid {su.grid.n_grid}, turns of {MESH_GRAPH_FRAMES} frames x "
+          f"{steps} substeps (segments of {seg}): eager {sps['eager']} "
+          f"substeps/s, graph {sps['graph']}; per graph frame 0 captures, "
+          f"{steps} replays, 0 host reads, {steps // seg} gathered "
+          f"rebuckets, K1/K2 {steps}/{steps}; graph vs eager rel "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" (tol {SOLVER_RTOL}); device busy (torch.profiler, one graph "
+          f"frame) {busy_ms:.1f} ms in {n_kernels} kernels = "
+          f"{busy['busy_pct']:.1f}% of {frame_ms['graph']:.1f} ms (eager "
+          f"frame {frame_ms['eager']:.1f} ms); the turns and the profile "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return dict(turns=turns, substeps_per_s=sps, frame_ms=frame_ms,
+                rel_err=rel, busy=busy, segment=seg, launches=total)
 
 
 
@@ -2896,7 +3231,7 @@ def halo_phase(dev, wrappers):
                       for k in out["halo_tiled"]["launches"]}
         return counts_all, out
     finally:
-        dist.destroy_process_group()
+        _end_group("halo")
 
 
 def _avi_frames(path: str):
@@ -3457,6 +3792,10 @@ def main() -> int:
                    "mesh_fit": mesh_fit_counts[name],
                    "halo": halo_counts[name], "graph": graph_counts[name],
                    "fit_graph": fit_graph_counts[name],
+                   "mesh_graph": mesh["tiled"]["graph_turns"]["launches"][
+                       name],
+                   "mesh_fit_graph": mesh_fit["graph_turns"]["launches"][
+                       name],
                    "solver": solver_counts[name],
                    "data_path": data_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")

@@ -49,6 +49,7 @@ from gsmpm_tpu_torch.models.synthetic import synthetic_blob_scene
 from gsmpm_tpu_torch.render.camera import make_camera
 from gsmpm_tpu_torch.render.renderer import RasterConfig
 from gsmpm_tpu_torch.sim.fitting import FitConfig, SystemIdentifier, cfl_dt_limit
+from gsmpm_tpu_torch.sim.tiles import _drop_group_graphs
 from gsmpm_tpu_torch.utils import resolve_device
 
 MODEL_ROOT = "models_extra"
@@ -363,6 +364,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     identify(build_parser().parse_args(argv))
     if torch.distributed.is_initialized():
+        _drop_group_graphs()  # before the communicators they captured go
         torch.distributed.destroy_process_group()
 
 

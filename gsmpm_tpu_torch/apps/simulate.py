@@ -84,6 +84,7 @@ from gsmpm_tpu_torch.sim.kernels import soa_from_state, state_from_soa
 from gsmpm_tpu_torch.sim.solver import postprocess, run_substeps
 from gsmpm_tpu_torch.sim.state import GridConfig, init_model, init_state
 from gsmpm_tpu_torch.sim.tiles import (
+    _drop_group_graphs,
     bootstrap,
     default_tile_config,
     frame_tiled,
@@ -498,6 +499,7 @@ def main(argv=None):
              checkpoint_interval=args.checkpoint_interval,
              resume=args.resume, mesh=args.mesh)
     if torch.distributed.is_initialized():
+        _drop_group_graphs()  # before the communicators they captured go
         torch.distributed.destroy_process_group()
 
 

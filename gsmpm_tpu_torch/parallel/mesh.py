@@ -376,7 +376,13 @@ class _AllReduceSum(torch.autograd.Function):
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of t over the ranks of group; differentiable when autograd
-    records t, else summed in place (no copy)."""
+    records t, else summed in place (no copy).
+
+    Legal inside a CUDA graph capture (sim/tiles.py's graphs hold it): it
+    reads nothing on the host, its copies are made on the current stream
+    (while capturing, in the graph's pool), and the backward's all-reduce
+    is issued on the stream autograd runs the node on, the capture stream
+    when the backward is itself captured."""
     if torch.is_grad_enabled() and t.requires_grad:
         return _AllReduceSum.apply(t, group)
     dist.all_reduce(t, group=group)

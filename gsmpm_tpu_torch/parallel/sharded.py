@@ -230,7 +230,9 @@ def make_sharded_fit_step(
 
     sim_engine: "auto" (tiled_vjp on CUDA, golden elsewhere), "tiled_vjp"
     (each rank buckets its own shard; the folded grid is all-reduced over
-    the data axis inside every checkpointed substep) or "golden".  sim_ok
+    the data axis in every substep and its recompute: on CUDA inside the
+    fitting window's two CUDA graphs, sim/tiles.py's ``_FittingWindow``,
+    elsewhere inside every checkpointed substep) or "golden".  sim_ok
     False (the tiled engine overflowed on some rank) means the caller
     rebuilds with "golden" and re-runs the step.
     """

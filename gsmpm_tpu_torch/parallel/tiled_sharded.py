@@ -8,12 +8,18 @@ parallel/mesh.py:
   over the ranks: each holds nchunk / N contiguous chunks and runs the
   particle phase, P2G (K1) and G2P (K2) on them only, with the kernels
   unchanged (they take the chunk count from the tables they are given);
-- the folded blocked grid of each rank is all-reduced once per substep
-  (``substep_tiled(..., group=...)``); the grid update, the BCs and the
-  window extraction then run replicated;
+- the folded blocked grid of each rank is all-reduced once per substep;
+  the grid update, the BCs and the window extraction then run
+  replicated;
 - rebucketing is global, at the start of every segment of
   ``rebucket_every`` substeps, as in the JAX engine: the chunks are
   all-gathered, rebucketed identically on every rank and re-sliced;
+- a segment's substeps are gsmpm_tpu's ``sub_body`` scan: the cached
+  substep graph of sim/tiles.py (``_substep_graph`` with the group) is
+  loaded with the rebucketed slice and the host clock, then stepped
+  ``rebucket_every`` times with no host read.  On CUDA each step replays
+  one CUDA graph that holds the grid's NCCL all-reduce; on the CPU the
+  same body runs eagerly (``substep_tiled(..., group=...)``'s work);
 - ``ok`` goes False on a tile-cap overflow at a rebucket or on hard drift
   (a real particle whose stencil base left its window's support, a flag
   all-reduced with MAX at the end of each segment), the same on every
@@ -40,9 +46,9 @@ from gsmpm_tpu_torch.sim.tiles import (
     TileConfig,
     TiledState,
     _advance,
+    _substep_graph,
     default_tile_config,
     rebucket,
-    substep_tiled,
     to_original_order,
 )
 
@@ -104,7 +110,9 @@ def make_sharded_frame_tiled(mesh: Mesh, *, model: MPMModel, bcs,
     ts is this rank's slice of a global TiledState (``shard_tiled``); q is
     the (QROWS, n_particles) packed state in original particle order,
     replicated on every rank.  ts.ok is False, the same on every rank, on a
-    tile-cap overflow or hard drift.
+    tile-cap overflow or hard drift.  Every rank runs the same segments, so
+    every rank replays (or, once, warms up and captures) the same graph in
+    the same order; ``frame_tiled.captures`` / ``replays`` count them.
     """
     ndev = mesh.world_size
     if tc.nchunk % ndev:
@@ -123,16 +131,18 @@ def make_sharded_frame_tiled(mesh: Mesh, *, model: MPMModel, bcs,
         for _ in range(n_substeps // seg):
             ts_loc = gathered_rebucket(ts_loc)
             ok = ok & ts_loc.ok
+            graph = _substep_graph(ts_loc, model, bcs, grid, tc, dt,
+                                   mesh.group)
+            graph.load(ts_loc, time)
             for _ in range(seg):
-                ts_loc = substep_tiled(ts_loc, model, bcs, time, grid, tc,
-                                       dt, group=mesh.group,
-                                       rebucket_on_drift=False)
+                graph.step()
                 time = _advance(time, dt)
+            ts_loc = graph.ts  # the buffers: the next rebucket gathers them
             bad = _hard_drift(ts_loc.q, grid, tc,
                               ts_loc.chunk_tile).to(torch.int32).reshape(1)
             dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=mesh.group)
             ok = ok & (bad[0] == 0)
-        ts_loc = dataclasses.replace(ts_loc, ok=ok)
+        ts_loc = dataclasses.replace(graph.state(), ok=ok)
         # original-order view: local scatter + all-reduce (orig is global)
         q_full = to_original_order(ts_loc, tc.n_particles).contiguous()
         dist.all_reduce(q_full, group=mesh.group)

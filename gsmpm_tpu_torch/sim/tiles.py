@@ -20,7 +20,11 @@ every substep; the rebucket stays eager between replays.  The fitting
 window (gsmpm_tpu's jitted ``value_and_grad`` of a checkpointed scan) is
 ``_FittingWindow``: a forward graph of one fitting substep replayed N
 times, and in the backward pass an adjoint graph (the substep recomputed
-from its kept input rows, then its VJP) replayed for k = N-1 ... 0.
+from its kept input rows, then its VJP) replayed for k = N-1 ... 0.  The
+mesh paths (gsmpm_tpu's ``shard_map`` programs) take the same graphs with
+a process group: the grid's all-reduce (and in the adjoint its VJP's) is
+captured inside them, and ``_drop_group_graphs`` frees a group's graphs
+before the group is destroyed.
 
 Differences from the JAX engine, none of which changes a result:
 - the drift check that triggers a rebucket is a host-side ``if`` (one
@@ -41,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.utils.checkpoint
 
 from gsmpm_tpu_torch.ops.constitutive import (
@@ -712,12 +717,13 @@ def _advance(time: float, dt: float) -> float:
 
 def _substep_body(ts: TiledState, model: MPMModel, bcs,
                   clock: torch.Tensor, grid: GridConfig, tc: TileConfig,
-                  dt: float) -> None:
+                  dt: float, group=None) -> None:
     """The captured part of a substep, in place on static buffers: the
-    device work of ``substep_tiled`` at the 0-d float32 ``clock``, its
-    results copied into ts.q and ts.need_rebucket, then clock += dt (the
-    float32 sum gsmpm_tpu's scan carries, ``_advance``'s value)."""
-    new_q, need = _transfer(ts, model, bcs, clock, grid, tc, dt)
+    device work of ``substep_tiled`` at the 0-d float32 ``clock`` (with a
+    process ``group``, the folded grid's all-reduce among it), its results
+    copied into ts.q and ts.need_rebucket, then clock += dt (the float32
+    sum gsmpm_tpu's scan carries, ``_advance``'s value)."""
+    new_q, need = _transfer(ts, model, bcs, clock, grid, tc, dt, group)
     ts.q.copy_(new_q)
     ts.need_rebucket.copy_(need)
     clock.add_(dt)
@@ -785,6 +791,12 @@ class _Captured:
         self.graph = graph
         self.counters.captures += 1
 
+    def release(self) -> None:
+        """Free the graph now, whoever else still holds this object."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
 
 class _StaticState:
     """The static buffers a captured graph reads and writes: a tiled state
@@ -815,27 +827,37 @@ class _SubstepGraph(_StaticState):
 
     A substep reads the drift flag on the host once (gsmpm_tpu's
     ``lax.cond``); on drift it rebuckets eagerly and copies the new tables
-    into the same buffers, so the graph stays valid.  The graph bakes in
-    the addresses of the buffers and of ``model``'s and ``bcs``' tensors.
+    into the same buffers, so the graph stays valid.  With a process
+    ``group`` (parallel/tiled_sharded.py: ts holds this rank's chunks) the
+    graph holds the grid's all-reduce among the group, and the rebucket
+    is the caller's: a substep reads nothing on the host.  The graph bakes
+    in the addresses of the buffers and of ``model``'s and ``bcs``'
+    tensors.
     """
 
     def __init__(self, ts: TiledState, model: MPMModel, bcs,
-                 grid: GridConfig, tc: TileConfig, dt: float, refs=()):
+                 grid: GridConfig, tc: TileConfig, dt: float, group=None,
+                 refs=()):
         super().__init__(ts)
-        self.refs = refs  # the tensors its cache key names by identity
+        self.refs = refs  # what its cache key names by identity
         self.model, self.bcs, self.grid, self.tc, self.dt = (
             model, bcs, grid, tc, dt)
+        self.group = group
         self.substep = _Captured(ts.q.device, frame_tiled)
 
     def _body(self) -> None:
         _substep_body(self.ts, self.model, self.bcs, self.clock, self.grid,
-                      self.tc, self.dt)
+                      self.tc, self.dt, self.group)
+
+    def release(self) -> None:
+        self.substep.release()
 
     def step(self) -> None:
-        frame_tiled.host_reads += 1
-        if bool(self.ts.need_rebucket):
-            self._assign(rebucket(self.ts, self.grid, self.tc))
-            frame_tiled.rebuckets += 1
+        if self.group is None:
+            frame_tiled.host_reads += 1
+            if bool(self.ts.need_rebucket):
+                self._assign(rebucket(self.ts, self.grid, self.tc))
+                frame_tiled.rebuckets += 1
         self.substep(self._body)
 
 
@@ -846,10 +868,10 @@ _GRAPHS_KEPT = 4
 
 
 def _identity(obj, refs: list):
-    """What a captured substep closes over in obj: each tensor by its
-    identity (kept alive in refs, so no other tensor takes its id), the
-    rest by value."""
-    if isinstance(obj, torch.Tensor):
+    """What a captured substep closes over in obj: each tensor and process
+    group by its identity (kept alive in refs, so no other object takes
+    its id), the rest by value."""
+    if isinstance(obj, (torch.Tensor, torch.distributed.ProcessGroup)):
         refs.append(obj)
         return id(obj)
     if dataclasses.is_dataclass(obj):
@@ -861,19 +883,35 @@ def _identity(obj, refs: list):
 
 
 def _substep_graph(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
-                   tc: TileConfig, dt: float) -> _SubstepGraph:
+                   tc: TileConfig, dt: float, group=None) -> _SubstepGraph:
     """The cached substep graph of (tc, grid, dt, the device, model's and
-    bcs' tensors): a new model or BC set captures anew."""
+    bcs' tensors, the process group): a new model, BC set or group
+    captures anew."""
     refs: list = []
     key = (tc, grid, dt, ts.q.device, _identity(model, refs),
-           _identity(bcs, refs))
+           _identity(bcs, refs), _identity(group, refs))
     graph = _GRAPHS.pop(key, None)
     if graph is None:
         while len(_GRAPHS) >= _GRAPHS_KEPT:
             _GRAPHS.popitem(last=False)
-        graph = _SubstepGraph(ts, model, bcs, grid, tc, dt, refs)
+        graph = _SubstepGraph(ts, model, bcs, grid, tc, dt, group, refs)
     _GRAPHS[key] = graph
     return graph
+
+
+def _drop_group_graphs(group=None) -> int:
+    """Drop every cached graph (``_GRAPHS``, ``_FIT_GRAPHS``) captured on
+    ``group``, or with None on any process group, and free its CUDA graphs;
+    returns how many entries.  Call it before ``destroy_process_group``: a
+    graph must never replay, nor be freed, after the communicator it
+    captured is gone."""
+    dropped = 0
+    for cache in (_GRAPHS, _FIT_GRAPHS):
+        for key in [k for k, g in cache.items() if g.group is not None
+                    and (group is None or g.group is group)]:
+            cache.pop(key).release()
+            dropped += 1
+    return dropped
 
 
 def frame_tiled(
@@ -1004,17 +1042,20 @@ class _FittingGraphs(_StaticState):
 
     The learned parameters reach a fitting substep only through ts.aux, a
     buffer, so a new logE / y replays the same graphs; the graphs own
-    copies of the gravity and the BC set they were captured with.
+    copies of the gravity and the BC set they were captured with.  With a
+    process ``group`` (parallel/sharded.py: ts buckets this rank's
+    particle shard) both graphs hold the grid's all-reduces among it: the
+    forward's, and in the adjoint the recompute's and its VJP's.
     """
 
     def __init__(self, ts: TiledState, model: MPMModel, bcs,
-                 grid: GridConfig, tc: TileConfig, dt: float):
+                 grid: GridConfig, tc: TileConfig, dt: float, group=None):
         super().__init__(ts)
         self.dq = torch.zeros_like(ts.q)
         self.daux = torch.zeros_like(ts.aux)
         self.model = _Gravity(model.gravity.detach().clone())
         self.bcs = _owned(bcs)
-        self.grid, self.tc, self.dt = grid, tc, dt
+        self.grid, self.tc, self.dt, self.group = grid, tc, dt, group
         self.forward = _Captured(ts.q.device, run_substeps_tiled_fitting)
         self.adjoint = _Captured(ts.q.device, run_substeps_tiled_fitting)
 
@@ -1034,7 +1075,8 @@ class _FittingGraphs(_StaticState):
         ts = self.ts
         return _fitting_transfer(q, aux, ts.chunk_tile, ts.chunk_first,
                                  ts.chunk_live, self.model, self.bcs,
-                                 self.clock, self.grid, self.tc, self.dt)
+                                 self.clock, self.grid, self.tc, self.dt,
+                                 self.group)
 
     def _forward_body(self) -> None:
         """The forward graph's body, in place: the device work of
@@ -1059,6 +1101,10 @@ class _FittingGraphs(_StaticState):
                                            self.dq)
         self.dq.copy_(dq)
         self.daux.add_(daux)
+
+    def release(self) -> None:
+        self.forward.release()
+        self.adjoint.release()
 
     def step(self) -> None:
         """One forward substep (replay, or warm-up and capture)."""
@@ -1173,34 +1219,41 @@ def _values(obj):
 
 
 # the fitting window's graphs, least recently used first: their own cache,
-# so a fit does not evict the simulate graphs of _GRAPHS
+# so a fit does not evict the simulate graphs of _GRAPHS.  Four pairs: a
+# mesh step's (its shard, its group) and a tile-cap overflow's beside the
+# single-device fit's, so that neither evicts it
 _FIT_GRAPHS: "collections.OrderedDict[tuple, _FittingGraphs]" = (
     collections.OrderedDict())
-_FIT_GRAPHS_KEPT = 2
+_FIT_GRAPHS_KEPT = 4
 
 
 def _fitting_graphs(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
-                    tc: TileConfig, dt: float) -> _FittingGraphs:
+                    tc: TileConfig, dt: float, group=None) -> _FittingGraphs:
     """The cached fitting graphs of (tc, grid, dt, the device, gravity and
-    the BC set by value): a new logE / y (any other field of model) or a
-    new BC set with the same values captures nothing."""
-    key = (tc, grid, dt, ts.q.device, _values(model.gravity), _values(bcs))
+    the BC set by value, the process group by identity): a new logE / y
+    (any other field of model) or a new BC set with the same values
+    captures nothing, a new group captures anew (the graphs keep it
+    alive, so no later group takes its id)."""
+    key = (tc, grid, dt, ts.q.device, _values(model.gravity), _values(bcs),
+           _identity(group, []))
     graphs = _FIT_GRAPHS.pop(key, None)
     if graphs is None:
         while len(_FIT_GRAPHS) >= _FIT_GRAPHS_KEPT:
             _FIT_GRAPHS.popitem(last=False)
-        graphs = _FittingGraphs(ts, model, bcs, grid, tc, dt)
+        graphs = _FittingGraphs(ts, model, bcs, grid, tc, dt, group)
     _FIT_GRAPHS[key] = graphs
     return graphs
 
 
 def _fitting_window(ts: TiledState, model: MPMModel, bcs, time: float,
                     n_substeps: int, grid: GridConfig, tc: TileConfig,
-                    dt: float) -> TiledState:
+                    dt: float, group=None) -> TiledState:
     """n_substeps fitting substeps from a bucketed ts through
     ``_FittingWindow`` (graphs from ``_fitting_graphs``); differentiable in
-    ts.q and ts.aux."""
-    graphs = _fitting_graphs(ts, model, bcs, grid, tc, dt)
+    ts.q and ts.aux.  ``group``: ts buckets this rank's particle shard and
+    the grid is summed over the group's ranks, as in
+    ``substep_tiled_fitting``; ts.ok is this rank's."""
+    graphs = _fitting_graphs(ts, model, bcs, grid, tc, dt, group)
     return TiledState(*_FittingWindow.apply(ts.q, ts.aux, ts, graphs, time,
                                             n_substeps))
 
@@ -1224,22 +1277,22 @@ def run_substeps_tiled_fitting(
     frame on the golden engine (sim/solver.py:run_substeps).  While
     autograd records, only the particle rows are kept between substeps and
     the grid is recomputed in the backward pass, the JAX package's memory
-    policy: on CUDA without a ``group`` the window is one
-    ``_FittingWindow`` (a forward and an adjoint CUDA graph, captured once
-    per tile config, grid, dt, gravity and BC set;
-    ``run_substeps_tiled_fitting.captures`` / ``replays`` / ``host_reads``
-    / ``rebuckets`` count their work), elsewhere each substep is
-    checkpointed (``substep_tiled_fitting``).  ``group``: soa is this
-    rank's particle shard and the grid is summed over the group's ranks
-    (substep_tiled_fitting); ok is this rank's, the caller reduces it.
+    policy: on CUDA the window is one ``_FittingWindow`` (a forward and an
+    adjoint CUDA graph, captured once per tile config, grid, dt, gravity,
+    BC set and process group; ``run_substeps_tiled_fitting.captures`` /
+    ``replays`` / ``host_reads`` / ``rebuckets`` count their work),
+    elsewhere each substep is checkpointed (``substep_tiled_fitting``).
+    ``group``: soa is this rank's particle shard and the grid is summed
+    over the group's ranks, the all-reduces inside the graphs on CUDA; ok
+    is this rank's, the caller reduces it.
     """
     n = soa.mass.shape[0]
     if tc is None:
         tc = default_tile_config(grid.n_grid, n)
     ts = bootstrap(soa, model, grid, tc)
-    if (group is None and ts.q.device.type == "cuda"
-            and torch.is_grad_enabled()):
-        ts = _fitting_window(ts, model, bcs, time, n_substeps, grid, tc, dt)
+    if ts.q.device.type == "cuda" and torch.is_grad_enabled():
+        ts = _fitting_window(ts, model, bcs, time, n_substeps, grid, tc, dt,
+                             group)
         for _ in range(n_substeps):
             time = _advance(time, dt)
     else:

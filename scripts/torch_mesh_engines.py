@@ -48,6 +48,7 @@ def run(args) -> None:
     from gsmpm_tpu_torch.apps.simulate import simulate
     from gsmpm_tpu_torch.config import MPMConfig, RenderConfig, SimConfig
     from gsmpm_tpu_torch.parallel import mesh as pmesh
+    from gsmpm_tpu_torch.sim.tiles import _drop_group_graphs
 
     cfg = SimConfig(
         mpm=MPMConfig(E=2e5, nu=0.3, material="jelly", n_grid=args.n_grid,
@@ -66,6 +67,7 @@ def run(args) -> None:
         world, rank = dist.get_world_size(), dist.get_rank()
         sent = [None] * world
         dist.all_gather_object(sent, pmesh.neighbor_ppermute.bytes_sent)
+        _drop_group_graphs()  # before the communicators they captured go
         dist.destroy_process_group()
     if rank:
         return

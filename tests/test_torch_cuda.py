@@ -938,11 +938,11 @@ def _fit_delta(before):
     return {k: v - before[k] for k, v in _fit_graph_counts().items()}
 
 
-def _window(ident, state, graph: bool):
+def _window(ident, state, graph: bool, group=None):
     """The fitting window from state and d(loss)/d(logE, y) through it:
     run_substeps_tiled_fitting (on CUDA the graphs) or the checkpointed
-    substep_tiled_fitting loop.  Returns (tiled rows in original order,
-    gradients, ok)."""
+    substep_tiled_fitting loop, the grid summed over ``group`` when given.
+    Returns (tiled rows in original order, gradients, ok)."""
     from gsmpm_tpu_torch.sim.state import mu_lam_from_logE_y
 
     logE = ident.model.logE.detach().clone().requires_grad_(True)
@@ -956,13 +956,15 @@ def _window(ident, state, graph: bool):
         tc = tiles.default_tile_config(ident.grid.n_grid, n)
         if graph:
             out, _, ok = tiles.run_substeps_tiled_fitting(
-                soa, model, ident.bcs, 0.0, FIT_SUBSTEPS, ident.grid, dt)
+                soa, model, ident.bcs, 0.0, FIT_SUBSTEPS, ident.grid, dt,
+                group=group)
             q = tiles.pack_q(out)
         else:
             ts = tiles.bootstrap(soa, model, ident.grid, tc)
             for _ in range(FIT_SUBSTEPS):
                 ts = tiles.substep_tiled_fitting(ts, model, ident.bcs, 0.0,
-                                                 ident.grid, tc, dt)
+                                                 ident.grid, tc, dt,
+                                                 group=group)
             ok, q = ts.ok, tiles.to_original_order(ts, n)
         x, v, F = q[tiles.RX:tiles.RX + 3], q[tiles.RV:tiles.RV + 3], \
             q[tiles.RF:tiles.RF + 9]
@@ -1081,3 +1083,174 @@ def test_fit_graph_overflow_takes_golden_eager(cuda, monkeypatch):
     assert np.isfinite(float(loss))
     assert d["replays"] == d["captures"] == d["host_reads"] == 0
     assert d["k1"] == d["k2"] == d["k6"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths' graphs on a one-rank NCCL group (parallel/tiled_sharded.py,
+# the fitting window with a group)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group built here, its graphs dropped before it is
+    destroyed; skips without a GPU or NCCL."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gsmpm_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch build has no NCCL")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((("data", 1),), "cuda")
+    finally:
+        tiles._drop_group_graphs()
+        dist.destroy_process_group()
+
+
+def test_all_reduce_sum_replays_inside_a_graph(cuda, nccl_mesh):
+    """all_reduce_sum captured in a _Captured body, forward and backward
+    (autograd's _AllReduceSum inside the capture): each replay equals the
+    eager sum on new inputs."""
+    from types import SimpleNamespace
+
+    from gsmpm_tpu_torch.parallel.mesh import all_reduce_sum
+
+    group = nccl_mesh.group
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4096, device=cuda, generator=gen)
+    out, grad = torch.empty_like(x), torch.empty_like(x)
+
+    def body():
+        out.copy_(all_reduce_sum(2.0 * x, group))
+        leaf = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            s = all_reduce_sum(leaf * leaf, group)
+            grad.copy_(torch.autograd.grad(s.sum(), leaf)[0])
+
+    counters = SimpleNamespace(captures=0, replays=0)
+    graph = tiles._Captured(cuda, counters)
+    graph(body)  # warm-up, then the capture
+    assert counters.captures == 1
+    for _ in range(3):
+        x.copy_(torch.randn(4096, device=cuda, generator=gen))
+        graph(body)
+        torch.cuda.synchronize()
+        # one rank: the sum is its own term, the cotangent its own
+        assert torch.equal(out, 2.0 * x)
+        assert torch.equal(grad, 2.0 * x)
+    assert counters.replays == 3
+
+
+def _mesh_frame_case(dev, mesh):
+    """_graph_case's thrown box with its BCs as the one rank's chunk slice:
+    (solver, tile config, this rank's bootstrapped slice, frame fn)."""
+    from gsmpm_tpu_torch.parallel.tiled_sharded import (
+        make_sharded_frame_tiled, shard_tiled, sharded_tile_config,
+    )
+
+    s, _, _ = _graph_case(dev)
+    n = s.state.n_particles
+    tc = sharded_tile_config(s.grid.n_grid, n, mesh.world_size)
+    ts = shard_tiled(tiles.bootstrap(soa_from_state(s.state), s.model,
+                                     s.grid, tc), mesh, tc)
+    fn = make_sharded_frame_tiled(mesh, model=s.model, bcs=s.bcs,
+                                  grid=s.grid, tc=tc, dt=s.cfg.substep_dt,
+                                  n_substeps=GRAPH_STEPS, rebucket_every=10)
+    return s, tc, ts, fn
+
+
+def _mesh_eager_frame(mesh, s, tc, ts, time=0.0):
+    """The sharded frame's eager segment loop: gathered rebucket, 10
+    substep_tiled(group=) substeps, the hard-drift flag."""
+    import torch.distributed as dist
+
+    from gsmpm_tpu_torch.parallel.tiled_sharded import (
+        _hard_drift, gather_tiled, shard_tiled,
+    )
+
+    dt = s.cfg.substep_dt
+    ok = ts.ok
+    for _ in range(GRAPH_STEPS // 10):
+        ts = shard_tiled(tiles.rebucket(gather_tiled(ts, mesh), s.grid, tc),
+                         mesh, tc)
+        ok = ok & ts.ok
+        for _ in range(10):
+            ts = tiles.substep_tiled(ts, s.model, s.bcs, time, s.grid, tc,
+                                     dt, group=mesh.group,
+                                     rebucket_on_drift=False)
+            time = tiles._advance(time, dt)
+        bad = _hard_drift(ts.q, s.grid, tc, ts.chunk_tile).to(torch.int32)
+        dist.all_reduce(bad.reshape(1), op=dist.ReduceOp.MAX,
+                        group=mesh.group)
+        ok = ok & (bad == 0)
+    return dataclasses.replace(ts, ok=ok), time
+
+
+def test_mesh_frame_graph_matches_eager_segments(cuda, nccl_mesh):
+    """make_sharded_frame_tiled on CUDA replays one captured substep (the
+    grid's NCCL all-reduce inside): one capture, no host read, K1 / K2 once
+    a substep, the device clock's bits the host clock's, rows within
+    SOLVER_RTOL (1e-4) of the eager segment loop's; a second frame replays
+    only."""
+    s, tc, ts0, fn = _mesh_frame_case(cuda, nccl_mesh)
+    want, t_want = _mesh_eager_frame(nccl_mesh, s, tc, ts0)
+    before = _graph_counts()
+    ts, q, t = fn(ts0, 0.0)
+    d = _delta(before)
+    assert d["captures"] == 1 and d["replays"] == GRAPH_STEPS - 1
+    assert d["host_reads"] == d["rebuckets"] == 0
+    assert d["k1"] == d["k2"] == GRAPH_STEPS
+    assert d["k1_captured"] == d["k2_captured"] == 1
+    assert t == t_want and bool(ts.ok) and bool(want.ok)
+    entry = next(reversed(tiles._GRAPHS.values()))
+    assert entry.group is nccl_mesh.group
+    assert entry.clock.cpu().numpy().view(np.uint32) == np.float32(t).view(
+        np.uint32)
+    _assert_close(ts, want, s.state.n_particles)
+    assert torch.equal(q, tiles.to_original_order(ts, tc.n_particles))
+    before = _graph_counts()
+    fn(ts, t)
+    d = _delta(before)
+    assert d["captures"] == 0 and d["replays"] == GRAPH_STEPS
+    assert d["k1"] == d["k2"] == GRAPH_STEPS
+
+
+def test_mesh_fit_window_matches_checkpointed(cuda, nccl_mesh):
+    """run_substeps_tiled_fitting(group=) under autograd on CUDA: the
+    window's two graphs with the all-reduces inside, rows within 1e-4 and
+    d logE / d y within FIT_GRAD_REL of the checkpointed
+    substep_tiled_fitting(group=) loop's; a second window replays only,
+    K1 / K2 / K6 exactly 90 / 150 / 60."""
+    ident, _ = _thrown_ident(cuda)
+    state = ident.reset_state()
+    group = nccl_mesh.group
+    q_e, g_e, ok_e = _window(ident, state, graph=False, group=group)
+    before = _fit_graph_counts()
+    q_g, g_g, ok_g = _window(ident, state, graph=True, group=group)
+    d = _fit_delta(before)
+    assert ok_e and ok_g
+    assert d["rebuckets"] >= 1 and d["host_reads"] == FIT_SUBSTEPS
+    assert d["captures"] == 2
+    assert d["captures"] + d["replays"] == 2 * FIT_SUBSTEPS
+    assert next(reversed(tiles._FIT_GRAPHS.values())).group is group
+    _assert_rows_close(q_g, q_e)
+    for a, b in zip(g_g, g_e):
+        assert float((a - b).abs().max()) <= FIT_GRAD_REL * float(
+            b.abs().max())
+    before = _fit_graph_counts()
+    _window(ident, state, graph=True, group=group)
+    d = _fit_delta(before)
+    assert d["captures"] == 0 and d["replays"] == 2 * FIT_SUBSTEPS
+    assert (d["k1"], d["k2"], d["k6"]) == (3 * FIT_SUBSTEPS,
+                                           5 * FIT_SUBSTEPS,
+                                           2 * FIT_SUBSTEPS)
+    assert d["k1_captured"] == d["k2_captured"] == d["k6_captured"] == 0
