@@ -117,9 +117,24 @@
    each): step seconds, exact K1 / K2 / K6 launches, replays and host
    reads, g_logE / g_y within 1e-3 of the eager step's largest.  Each
    group's cached graphs are freed before the group is destroyed.
-15. Every path is driven with every launch counter set to 0 just before it
+15. Slice 12, the golden engine as one program: at simulate's width with
+   incremental_cov, ``sim/solver.run_substeps`` replaying its captured
+   golden substep against chip_smoke's own eager ``kernels.substep_soa``
+   loop in turns (eager, graph, eager, graph; one frame of 100 substeps
+   each) from one state: substeps/s, captures / replays, the pool bytes,
+   each field within 1e-4 of its max, the device clock's bits, the busy
+   share of one profiled graph frame and of 10 profiled eager substeps
+   (their launches a substep); and at the bench fit's width with the fit
+   forced onto the golden engine, fit frames whose window runs
+   ``_GoldenFittingWindow`` (a forward and an adjoint CUDA graph) against
+   frames on the checkpointed ``substep_soa`` loop, in turns (one frame
+   each): frame seconds, g_logE / g_y within 1e-3 of the largest, both
+   pools, peak memory.  The golden route, the solver's golden frame, the
+   ground truth, the psum mesh frame and the mesh fit's overflow redo
+   each assert that the golden graph counters moved.
+16. Every path is driven with every launch counter set to 0 just before it
    and read just after; each kernel of a path must have launched there.
-16. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
+17. Prints each path's numbers as JSON, the ``nvidia-smi`` name and power
    limit line, one JSON line with every kernel's numbers (error, kernel /
    twin / bound time and launches on its path), and a last line
    ``{"ok": true, "device": {...}}``.
@@ -1055,7 +1070,15 @@ def steady_fit(dev, ident, wrappers):
     from gsmpm_tpu_torch.apps.identify import make_ring_cameras
 
     cams = make_ring_cameras(ident.scene, FIT_RES)
+    g0 = _golden_graph_counts()
     gt = ident.generate_ground_truth(FIT_E_TRUE, 0.3, cams, FIT_FRAMES)
+    # the ground truth's frames replay the golden graph of its model
+    # (slice 12): one capture, every pass (a resize regenerates) whole
+    g = _golden_graph_delta(g0)
+    per_pass = (FIT_FRAMES - 1) * FIT_SUBSTEPS
+    check(g["captures"] == 1 and g["replays"] > 0
+          and (g["captures"] + g["replays"]) % per_pass == 0,
+          f"ground truth: golden graph counters {g}")
     rebuilds = ident._total_rebuilds
     state, t = ident.reset_state(), 0.0
     times, per_frame, first = [], [], None
@@ -1086,9 +1109,10 @@ def steady_fit(dev, ident, wrappers):
     for got in per_frame:
         check(got == want, f"launches per fit frame {got}, expected {want}")
     print(f"steady fit: {STEADY_FRAMES} frames {[round(x, 4) for x in times]}"
-          f" s (mean {np.mean(times):.4f} s), launches per frame {want}",
-          flush=True)
-    return dict(frame_s=times, launches_per_frame=want), first, gt, cams
+          f" s (mean {np.mean(times):.4f} s), launches per frame {want}; "
+          f"ground truth golden graph {g}", flush=True)
+    return (dict(frame_s=times, launches_per_frame=want,
+                 ground_truth_graph=g), first, gt, cams)
 
 
 def fit_profile(dev, ident, first, steady):
@@ -1353,6 +1377,281 @@ def fit_graph_phase(dev, ident, gt, cams, wrappers):
         grad_diff=diffs, loss=dict(eager=loss_e, graph=loss_g),
         profile=prof_out, replay_ms=dict(forward=fwd_ms, adjoint=adj_ms),
         captures_so_far=f.captures)
+
+
+# slice 12's golden_graph phase: frames per turn (of 100 substeps), the
+# substeps profiled of each loop (a golden substep is ~5,200 kernels: on
+# an H100 a profiled 100-substep graph frame recorded 525,610 kernel
+# events and took most of the phase's 86.8 s), each field of a graph
+# frame against the eager frame from one state relative to the field's
+# largest magnitude, at least 1 (cov: its own, ~1e-4; index_add_'s float
+# atomics over 100 substeps: the falling box's C, the velocity's stencil
+# moments, is ~1e-6 of noise around 0), and the golden fit's gradients
+# of a graph frame against the checkpointed loop's (FIT_GRAPH_GRAD_REL)
+GOLDEN_GRAPH_FRAMES = 1
+GOLDEN_PROFILE_STEPS = 10
+GOLDEN_GRAPH_RTOL = 1e-4
+
+
+def golden_graph_phase(dev, wrappers):
+    """Slice 12 on simulate's scene with incremental_cov (196,730
+    particles, n_grid 50, the ground collider; the golden engine for every
+    frame): sim/solver.run_substeps replaying its captured golden substep
+    against chip_smoke's own eager loop over kernels.substep_soa, in turns
+    from one state (eager, graph, eager, graph; GOLDEN_GRAPH_FRAMES frames
+    of 100 substeps each, after a 2-substep frame that captures).  Per
+    turn substeps/s, captures and replays, no kernel launch of K1-K9 (the
+    golden engine is plain torch); the graph's pool bytes; each field's
+    relative difference (GOLDEN_GRAPH_RTOL); the device clock's bits; the
+    launches a substep and busy share of GOLDEN_PROFILE_STEPS eager
+    substeps and of a graph frame of as many substeps under
+    torch.profiler; the replays back to back (CUDA events)."""
+    from gsmpm_tpu_torch.apps.simulate import prepare
+    from gsmpm_tpu_torch.sim import solver, tiles
+    from gsmpm_tpu_torch.sim.kernels import (
+        soa_from_state, state_from_soa, substep_soa,
+    )
+
+    cfg = bench_config()
+    cfg.mpm.incremental_cov = True
+    su = prepare(cfg, synthetic=MAIN_N, synthetic_res=MAIN_RES,
+                 device=str(dev), quiet=True)
+    steps, dt = cfg.mpm.steps_per_frame, cfg.mpm.substep_dt
+
+    def eager(n=steps):
+        with torch.no_grad():
+            soa, t = soa_from_state(su.state), 0.0
+            for _ in range(n):
+                soa = substep_soa(soa, su.model, su.bcs, t, su.grid, dt,
+                                  incremental_cov=True)
+                t = tiles._advance(t, dt)
+            return state_from_soa(soa), t
+
+    def graph(n=steps):
+        with torch.no_grad():
+            return solver.run_substeps(su.state, su.model, su.bcs, 0.0, n,
+                                       su.grid, dt, incremental_cov=True,
+                                       checkpoint_policy=None)
+
+    def timed(run, *args):
+        torch.cuda.synchronize()
+        _zero(wrappers)
+        g0 = _golden_graph_counts()
+        t0 = time.perf_counter()
+        out = run(*args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return out, secs, _counts(wrappers), _golden_graph_delta(g0)
+
+    _, capture_s, counts, g = timed(graph, 2)
+    check(g == dict(captures=1, replays=1), f"golden_graph: capture {g}")
+    entry = next(reversed(solver._GOLDEN_GRAPHS.values()))
+    pool_bytes = _graph_pool_bytes(entry.substep.graph)
+    turns, results, total = [], {}, {}
+    want = GOLDEN_GRAPH_FRAMES * steps
+    for name in ("eager", "graph", "eager", "graph"):
+        (st, t), secs, counts, g = timed(
+            eager if name == "eager" else graph, want)
+        check(not any(counts.values()),
+              f"golden_graph {name}: kernel launches {counts}")
+        if name == "graph":
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            check(g == dict(captures=0, replays=want),
+                  f"golden_graph: graph turn {g}")
+            check(entry.clock.cpu().numpy().view(np.uint32)
+                  == np.float32(t).view(np.uint32),
+                  f"golden_graph: device clock {float(entry.clock)} vs "
+                  f"host {t}")
+        else:
+            check(g == dict(captures=0, replays=0),
+                  f"golden_graph: eager turn {g}")
+        turns.append(dict(run=name, secs=secs, substeps_per_s=want / secs,
+                          **g))
+        results.setdefault(name, (st, t))
+    (st_e, t_e), (st_g, t_g) = results["eager"], results["graph"]
+    check(t_e == t_g, f"golden_graph: clocks {t_e} vs {t_g}")
+    rel = _rel_errs(st_g, st_e)
+    rel["cov"] = (float((st_g.cov - st_e.cov).abs().max())
+                  / float(st_e.cov.abs().max()))
+    abs_err = {f: float((getattr(st_g, f) - getattr(st_e, f)).abs().max())
+               for f in rel}
+    check(max(rel.values()) <= GOLDEN_GRAPH_RTOL,
+          f"golden_graph vs eager: {rel} (tol {GOLDEN_GRAPH_RTOL})")
+    moved = float((st_g.cov - su.state.cov).abs().max())
+    check(moved > 0, "golden_graph: incremental_cov left cov")
+    sps = {n: [x["substeps_per_s"] for x in turns if x["run"] == n]
+           for n in ("eager", "graph")}
+    frame_ms = {n: 1e3 * float(np.mean([x["secs"] for x in turns
+                                        if x["run"] == n]))
+                / GOLDEN_GRAPH_FRAMES for n in ("eager", "graph")}
+    # the eager loop's launches and busy share, over a few substeps only
+    eager_busy, eager_n = _profiled_busy_ms(
+        lambda: eager(GOLDEN_PROFILE_STEPS))
+    eager_ms = frame_ms["eager"] * GOLDEN_PROFILE_STEPS / steps
+    graph_busy, graph_n = _profiled_busy_ms(
+        lambda: graph(GOLDEN_PROFILE_STEPS))
+    graph_ms = frame_ms["graph"] * GOLDEN_PROFILE_STEPS / steps
+    busy = {"eager": 100 * eager_busy / eager_ms,
+            "graph": 100 * graph_busy / graph_ms}
+    entry.load(su.state, 0.0)
+    replay_ms = cuda_ms(entry.substep.graph.replay, reps=steps)
+    ratio = float(np.mean(sps["graph"]) / np.mean(sps["eager"]))
+    print(f"golden_graph phase: {su.state.x.shape[0]} particles, n_grid "
+          f"{cfg.mpm.n_grid}, incremental_cov, turns of "
+          f"{GOLDEN_GRAPH_FRAMES} frame(s) x {steps} substeps: eager "
+          f"{[round(x, 2) for x in sps['eager']]} substeps/s, graph "
+          f"{[round(x, 2) for x in sps['graph']]} ({ratio:.1f}x); capture "
+          f"frame (2 substeps) {capture_s:.3f} s, pool {pool_bytes} bytes; "
+          f"per graph frame {want} replays, 0 captures, no K1-K9 launch; "
+          f"graph vs eager abs "
+          + ", ".join(f"{k} {v:.3g}" for k, v in abs_err.items())
+          + ", rel " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" (tol {GOLDEN_GRAPH_RTOL}); device clock bits "
+          f"{int(entry.clock.cpu().numpy().view(np.uint32))} = host "
+          f"{t_g!r}", flush=True)
+    print(f"golden_graph phase: device busy (torch.profiler) eager "
+          f"{GOLDEN_PROFILE_STEPS} substeps {eager_busy:.1f} ms in {eager_n} "
+          f"kernels ({eager_n / GOLDEN_PROFILE_STEPS:.0f} a substep) = "
+          f"{busy['eager']:.1f}% of their unprofiled {eager_ms:.1f} ms; "
+          f"graph frame of {GOLDEN_PROFILE_STEPS} substeps {graph_busy:.1f} "
+          f"ms in {graph_n} kernels = {busy['graph']:.1f}% of their "
+          f"unprofiled {graph_ms:.1f} ms; replay back "
+          f"to back {replay_ms:.4f} ms a substep (CUDA events)", flush=True)
+    return total, dict(
+        turns=turns, substeps_per_s=sps, speedup=ratio,
+        capture_frame_s=capture_s, pool_bytes=pool_bytes, frame_ms=frame_ms,
+        rel_err=rel, abs_err=abs_err,
+        busy_ms=dict(eager=eager_busy, graph=graph_busy),
+        busy_kernels=dict(eager=eager_n, graph=graph_n), busy_pct=busy,
+        eager_launches_per_substep=eager_n / GOLDEN_PROFILE_STEPS,
+        replay_ms=replay_ms, particles=int(su.state.x.shape[0]))
+
+
+def _eager_golden_substeps(engine, state, model, bcs, t, n_sub, grid, dt,
+                           group=None):
+    """sim/fitting.fit_substeps on golden as the checkpointed substep_soa
+    loop: the golden fit's window as it ran before it replayed the graphs
+    (chip_smoke puts it in sim/fitting.py's namespace for the eager
+    turns)."""
+    import torch.utils.checkpoint
+
+    from gsmpm_tpu_torch.sim import tiles
+    from gsmpm_tpu_torch.sim.kernels import (
+        soa_from_state, state_from_soa, substep_soa,
+    )
+
+    check(engine == "golden", f"eager golden substeps: engine {engine}")
+    soa = soa_from_state(state)
+    for _ in range(n_sub):
+        soa = torch.utils.checkpoint.checkpoint(
+            substep_soa, soa, model, bcs, t, grid, dt, group=group,
+            fitting=True, use_reentrant=False)
+        t = tiles._advance(t, dt)
+    return state_from_soa(soa), t, True
+
+
+def golden_fit_graph_phase(dev, ident, gt, cams, wrappers):
+    """Slice 12 at the bench fit (245,760 gaussians, 512^2, 30 substeps,
+    the caps settled) with the fit forced onto the golden engine (the
+    engine after a tile-cap overflow): SystemIdentifier.fit_frame whose
+    window runs sim/solver.py's _GoldenFittingWindow (a forward and an
+    adjoint CUDA graph) against fit_frame whose window runs the
+    checkpointed substep_soa loop, from one state and (logE, y), in turns
+    (eager, graph, eager, graph; one frame each, after a frame that
+    captures).  Per turn: frame seconds, no K1 / K2 / K6 launch, the
+    render's K4 / K5 once per tier, the golden graphs' captures and
+    replays, peak device memory; both graphs' pool bytes; g_logE / g_y of
+    a graph frame against an eager frame's (FIT_GRAPH_GRAD_REL).  ident's
+    engine and parameters are restored."""
+    from gsmpm_tpu_torch.sim import fitting, solver
+
+    state, cam, target = ident.reset_state(), cams[1], gt[1]
+    logE0, y0 = ident.model.logE.clone(), ident.model.y.clone()
+    tiers = 2 if ident.raster_cfg.k_dense > 0 else 1
+    real, engine0 = fitting.fit_substeps, ident._sim_engine
+
+    def frame(graph):
+        ident._set_params(logE0.clone(), y0.clone())
+        if not graph:
+            fitting.fit_substeps = _eager_golden_substeps
+        try:
+            torch.cuda.synchronize()
+            _zero(wrappers)
+            g0 = _golden_graph_counts()
+            t0 = time.perf_counter()
+            loss, _, _, _ = ident.fit_frame(state, 0.0, cam, target)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            fitting.fit_substeps = real
+        counts, g = _counts(wrappers), _golden_graph_delta(g0)
+        what = "graph" if graph else "eager"
+        check(ident.sim_engine == "golden" and ident.n_dropped_last == 0,
+              f"golden fit {what}: engine {ident.sim_engine}, dropped "
+              f"{ident.n_dropped_last}")
+        check(np.isfinite(float(loss)), f"golden fit {what}: loss {loss}")
+        check(counts["p2g_tiled"] == counts["g2p_tiled"]
+              == counts["sored_tiled"] == 0
+              and counts["blend_fwd"] == counts["blend_bwd"] == tiers,
+              f"golden fit {what}: launches {counts}")
+        return secs, counts, g, (float(loss), *(x.detach().clone()
+                                                for x in ident.last_grads))
+
+    ident._sim_engine = "golden"
+    try:
+        capture_s, _, g, _ = frame(True)
+        check(g["captures"] + g["replays"] == 2 * FIT_SUBSTEPS,
+              f"golden fit: capture frame {g}")
+        entry = next(reversed(solver._GOLDEN_FIT_GRAPHS.values()))
+        pools = dict(forward=_graph_pool_bytes(entry.forward.graph),
+                     adjoint=_graph_pool_bytes(entry.adjoint.graph))
+        turns, results, total = [], {}, {}
+        for name in ("eager", "graph", "eager", "graph"):
+            torch.cuda.reset_peak_memory_stats()
+            secs, counts, g, res = frame(name == "graph")
+            if name == "graph":
+                check(g == dict(captures=0, replays=2 * FIT_SUBSTEPS),
+                      f"golden fit graph frame: {g}")
+                total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            else:
+                check(g == dict(captures=0, replays=0),
+                      f"golden fit eager frame: {g}")
+            turns.append(dict(run=name, secs=secs,
+                              peak_bytes=torch.cuda.max_memory_allocated(),
+                              **g))
+            results.setdefault(name, res)
+    finally:
+        ident._sim_engine = engine0
+        ident._set_params(logE0, y0)
+    (loss_e, ge_logE, ge_y), (loss_g, gg_logE, gg_y) = (
+        results["eager"], results["graph"])
+    diffs = {}
+    for key, a, b in (("g_logE", gg_logE, ge_logE), ("g_y", gg_y, ge_y)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        diffs[key] = dict(max_abs=err, scale=scale, rel=err / scale)
+        check(scale > 0 and err <= FIT_GRAPH_GRAD_REL * scale,
+              f"golden fit: {key} graph vs eager {err} (scale {scale}, rel "
+              f"tol {FIT_GRAPH_GRAD_REL})")
+    frame_s = {n: [x["secs"] for x in turns if x["run"] == n]
+               for n in ("eager", "graph")}
+    peak = {n: [x["peak_bytes"] for x in turns if x["run"] == n]
+            for n in ("eager", "graph")}
+    print(f"golden_graph phase (fit): {MAIN_N} gaussians, {FIT_RES}^2, "
+          f"{FIT_SUBSTEPS} substeps on the golden engine, turns of one "
+          f"frame: eager (checkpointed loop) "
+          f"{[round(x, 4) for x in frame_s['eager']]} s, graph "
+          f"{[round(x, 4) for x in frame_s['graph']]} s; capture frame "
+          f"{capture_s:.3f} s; per graph frame {2 * FIT_SUBSTEPS} replays, "
+          f"0 captures, K1/K2/K6 0, K4/K5 {tiers}/{tiers}; pools forward "
+          f"{pools['forward']} bytes, adjoint {pools['adjoint']} bytes; "
+          f"peak memory eager {peak['eager']} graph {peak['graph']} bytes; "
+          f"graph vs eager loss {loss_g:.7g} / {loss_e:.7g}, g_logE rel "
+          f"{diffs['g_logE']['rel']:.3g}, g_y rel {diffs['g_y']['rel']:.3g} "
+          f"(tol {FIT_GRAPH_GRAD_REL})", flush=True)
+    return total, dict(turns=turns, frame_s=frame_s, capture_frame_s=capture_s,
+                       pool_bytes=pools, peak_bytes=peak, grad_diff=diffs,
+                       loss=dict(eager=loss_e, graph=loss_g))
 
 
 def _contrib_pairs_windows(F, out, meta) -> float:
@@ -2292,11 +2591,18 @@ def mesh_fit_phase(dev, ident, gt, cams, wrappers):
             lambda g, n: real(g, n)._replace(n_occ_cap=1)
         try:
             sid._set_params(logE0.clone(), y0.clone())
+            g0 = _golden_graph_counts()
             (loss_g, _, _, img_g), secs_g, counts = timed(
                 lambda: sid.fit_frame(state0, 0.0, cam, target))
+            redo_graph = _golden_graph_delta(g0)
         finally:
             tiles.default_tile_config = real
         check(sid.sim_engine == "golden", f"overflow: engine {sid.sim_engine}")
+        # the redo runs the golden window (slice 12): its forward and
+        # adjoint graphs, captured on this group, the all-reduces inside
+        check(redo_graph["replays"] > 0 and redo_graph["captures"]
+              + redo_graph["replays"] == 2 * FIT_SUBSTEPS,
+              f"golden redo: graph counters {redo_graph}")
         check(np.isfinite(float(loss_g)) and bool(torch.isfinite(img_g).all()),
               f"golden redo: loss {float(loss_g)}")
         expect(counts, "overflow step", p2g_tiled=FIT_SUBSTEPS,
@@ -2311,7 +2617,8 @@ def mesh_fit_phase(dev, ident, gt, cams, wrappers):
             camdp={k: v for k, v in camdp.items() if k != "image"},
             golden_redo={k: v for k, v in golden.items() if k != "image"},
             diff_sharded=d_sh, diff_camdp=d_dp, route_image=route,
-            golden_vs_tiled=d_go, rows_K=int(F.shape[2]),
+            golden_vs_tiled=d_go, golden_redo_graph=redo_graph,
+            rows_K=int(F.shape[2]),
             rows_windows=int(F.shape[0]), k4_err=err4, k5_rel=rel5,
             k4_ms=ms4, k5_ms=ms5, k_row=sid.raster_cfg.k_row,
             k_block=sid.raster_cfg.k_block)
@@ -2320,7 +2627,8 @@ def mesh_fit_phase(dev, ident, gt, cams, wrappers):
               f"{FIT_SUBSTEPS} substeps, tied: single fit_frame "
               f"{singles[0]['s']:.3f} / {singles[1]['s']:.3f} s, sharded step "
               f"{sharded['s']:.3f} s, camera-DP step {camdp['s']:.3f} s, "
-              f"golden redo after the forced overflow {secs_g:.3f} s; "
+              f"golden redo after the forced overflow {secs_g:.3f} s "
+              f"(golden graphs {redo_graph}); "
               f"single-run spread {fmt(spread)}; sharded vs single "
               f"{fmt(d_sh)} (the rows render vs the two-tier render of its "
               f"state: image {route:.3g}); camera-DP vs single {fmt(d_dp)} "
@@ -2513,6 +2821,19 @@ def _counts(wrappers):
     return {w.__name__: w.launches for w in wrappers}
 
 
+def _golden_graph_counts():
+    """sim/solver.run_substeps's captures and replays: the golden engine's
+    CUDA graphs (slice 12)."""
+    from gsmpm_tpu_torch.sim import solver
+
+    f = solver.run_substeps
+    return dict(captures=f.captures, replays=f.replays)
+
+
+def _golden_graph_delta(before):
+    return {k: v - before[k] for k, v in _golden_graph_counts().items()}
+
+
 def _check_frames(frames, n, stats, what):
     check(len(frames) == n + 1, f"{what}: {len(frames)} frames")
     for f in frames:
@@ -2583,6 +2904,7 @@ def golden_route_phase(dev, wrappers):
                 lambda g, m, cap=cap: default_tc(g, m)._replace(n_occ_cap=cap))
         stats = {}
         _zero(wrappers)
+        g0 = _golden_graph_counts()
         t0 = time.perf_counter()
         try:
             frames = sim_app.simulate(
@@ -2593,6 +2915,7 @@ def golden_route_phase(dev, wrappers):
             sim_app.default_tile_config = default_tc
         wall = time.perf_counter() - t0
         counts = _counts(wrappers)
+        graph = _golden_graph_delta(g0)
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         motion = _check_frames(frames, n, stats, name)
         check(stats["engine"] == ["golden"] * n,
@@ -2605,6 +2928,10 @@ def golden_route_phase(dev, wrappers):
             check(k1 == k2 == steps, f"{name}: K1/K2 launches {k1}/{k2}")
         else:
             check(k1 == k2 == 0, f"{name}: K1/K2 launches {k1}/{k2}")
+        # every golden substep of the run replays the golden graph of its
+        # model (slice 12), captured at its first
+        check(graph == dict(captures=1, replays=n * steps - 1),
+              f"{name}: golden graph counters {graph}")
         check(counts["stream_blend"] >= n + 1,
               f"{name}: K3 launches {counts['stream_blend']}")
         sps = n * steps / sum(stats["sim_s"])
@@ -2612,13 +2939,13 @@ def golden_route_phase(dev, wrappers):
         out[name] = dict(frames=n, wall_s=wall, substeps_per_s=sps,
                          sim_s=stats["sim_s"], render_s=stats["render_s"],
                          engine=stats["engine"], motion=motion,
-                         tiled_substeps=k1, cap=cap)
+                         tiled_substeps=k1, cap=cap, golden_graph=graph)
         print(f"golden route ({name}): {n} frame(s) x {steps} substeps, "
               f"engines {stats['engine']}, {sps:.2f} substeps/s (sim "
               f"{['%.3f' % t for t in stats['sim_s']]} s), render "
               f"{['%.1f' % (1e3 * t) for t in stats['render_s']]} ms, "
-              f"tiled substeps (abandoned) {k1}, motion {motion:.3g}, "
-              f"wall {wall:.1f} s", flush=True)
+              f"tiled substeps (abandoned) {k1}, golden graph {graph}, "
+              f"motion {motion:.3g}, wall {wall:.1f} s", flush=True)
     # the overflow runs take frame 1 on the golden engine from the same
     # start state: only index_add_'s float atomics differ, whose spread the
     # boot case run twice shows.  The state carries the gate (the CPU
@@ -2812,18 +3139,25 @@ def mesh_phase(dev, wrappers):
             eng = MeshSimEngine(mesh, bcs=su.bcs, grid=su.grid,
                                 substep_dt=dt, n_steps=steps, prefer=engine)
             _zero(wrappers)
+            g0 = _golden_graph_counts()
             t0 = time.perf_counter()
             st, t, _ = eng.frame(st0, md0, 0.0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _counts(wrappers)
+            g = _golden_graph_delta(g0)
             check(eng.engine == engine, f"mesh {engine}: fell back")
             want = steps if engine == "tiled" else 0
             check(counts["p2g_tiled"] == counts["g2p_tiled"] == want,
                   f"mesh {engine}: transfer launches {counts}")
+            # the psum frame replays the golden graph, the grid's NCCL
+            # all-reduce inside (slice 12)
+            want_g = (dict(captures=1, replays=steps - 1)
+                      if engine == "psum" else dict(captures=0, replays=0))
+            check(g == want_g, f"mesh {engine}: golden graph counters {g}")
             engines[engine] = (eng, st, counts)
             out[engine] = dict(frame_s=wall, substeps_per_s=steps / wall,
-                               launches=counts)
+                               launches=counts, golden_graph=g)
         laps_s = dict(engines=lap())
         # the single-device frames from the same start state
         ts = tiles.bootstrap(soa_from_state(su.state), su.model, su.grid,
@@ -3333,16 +3667,22 @@ def solver_phase(dev, wrappers, main):
     try:
         capped = new_solver()
         _zero(wrappers)
+        g0 = _golden_graph_counts()
         t0 = time.perf_counter()
         capped.step_frame(SOLVER_GOLDEN_STEPS)
         torch.cuda.synchronize()
         golden_s = time.perf_counter() - t0
         capped_counts = _counts(wrappers)
+        golden_graph = _golden_graph_delta(g0)
     finally:
         solver.default_tile_config = default_tc
     check(not capped.use_tiled and capped_counts["p2g_tiled"]
           == capped_counts["g2p_tiled"] == 0,
           f"solver cap {occ - 1}: tiled {capped.use_tiled}, {capped_counts}")
+    # the solver's golden frame replays the golden graph (slice 12)
+    check(golden_graph == dict(captures=1,
+                               replays=SOLVER_GOLDEN_STEPS - 1),
+          f"solver golden frame: graph counters {golden_graph}")
     gold, t_gold = solver.run_substeps(su.state, su.model, su.bcs, 0.0,
                                        SOLVER_GOLDEN_STEPS, su.grid,
                                        mpm.substep_dt, checkpoint_policy=None)
@@ -3420,6 +3760,7 @@ def solver_phase(dev, wrappers, main):
     return counts, dict(
         substeps_per_s=sps, frame_s=frame_s, rel_err_vs_frame_tiled=errs,
         motion=motion, boot_occupancy=occ, golden_s=golden_s,
+        golden_graph=golden_graph,
         golden_rel_err=gold_errs, native_io=status,
         ply=dict(gaussians=n_g, properties=n_p, bytes=len(raw),
                  native_read_s=native_read_s, numpy_read_s=py_read_s,
@@ -3692,6 +4033,11 @@ def main() -> int:
     graph_counts, graph = graph_phase(dev, wrappers)
     graph["phase_s"] = time.perf_counter() - t0
     print(f"graph phase: {graph['phase_s']:.1f} s", flush=True)
+    # slice 12: the golden engine's substep graph against the eager loop
+    t0 = time.perf_counter()
+    golden_graph_counts, golden_graph = golden_graph_phase(dev, wrappers)
+    golden_graph["phase_s"] = time.perf_counter() - t0
+    print(f"golden_graph phase: {golden_graph['phase_s']:.1f} s", flush=True)
 
     # slice 2: the identification path
     ident, fit_counts, fit = identify_path(dev, wrappers)
@@ -3703,6 +4049,13 @@ def main() -> int:
                                                   fit_cams, wrappers)
     fit_graph["phase_s"] = time.perf_counter() - t0
     print(f"fit_graph phase: {fit_graph['phase_s']:.1f} s", flush=True)
+    # slice 12: the golden fit window's graphs against the checkpointed loop
+    t0 = time.perf_counter()
+    golden_fit_counts, golden_graph["fit"] = golden_fit_graph_phase(
+        dev, ident, fit_gt, fit_cams, wrappers)
+    golden_graph["fit"]["phase_s"] = time.perf_counter() - t0
+    print(f"golden_graph phase (fit): {golden_graph['fit']['phase_s']:.1f} s",
+          flush=True)
     blend_rows, fit["blend_tiers"] = blend_phases(dev, ident, first)
     rows += blend_rows + [sored_phase(dev, ident, first)]
     # K1 and K2 at the fit's shapes, beside their rows at simulate's
@@ -3796,6 +4149,8 @@ def main() -> int:
                        name],
                    "mesh_fit_graph": mesh_fit["graph_turns"]["launches"][
                        name],
+                   "golden_graph": golden_graph_counts[name],
+                   "golden_fit_graph": golden_fit_counts[name],
                    "solver": solver_counts[name],
                    "data_path": data_counts[name]}
         check(max(by_path.values()) > 0, f"{name} launched on no path")
@@ -3821,7 +4176,8 @@ def main() -> int:
                       "mesh_path": mesh, "slice4_s": slice4_s,
                       "mesh_fit_path": mesh_fit, "halo_path": halo,
                       "solver_path": solver, "data_path": data_path,
-                      "graph_path": graph, "fit_graph_path": fit_graph}))
+                      "graph_path": graph, "fit_graph_path": fit_graph,
+                      "golden_graph_path": golden_graph}))
     print(card)  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ JAX package's halo fold does.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -171,7 +172,10 @@ def g2p_soa(state: SoAState, grid_v: Tuple, grid: GridConfig, dt,
     g = grid.n_grid
     fxs, ws, dws, nodes = _stencil(state.x, grid)
     ids = _node_ids(nodes, g)                           # (27, N)
-    gv_all = torch.stack(grid_v)[:, ids]                # (3, 27, N)
+    # index_select, whose backward is one index_add_ (where an indexing
+    # gather's is an accumulating index_put_)
+    gv_all = torch.stack(grid_v).index_select(
+        1, ids.reshape(-1)).reshape(3, 27, -1)          # (3, 27, N)
     zero = torch.zeros_like(state.x[0])
     new_v = [zero] * 3
     new_C = [zero] * 9
@@ -204,13 +208,25 @@ def g2p_soa(state: SoAState, grid_v: Tuple, grid: GridConfig, dt,
                           F_trial=new_F_trial, cov=new_cov)
 
 
-def substep_soa(state: SoAState, model: MPMModel, bcs, time: float,
+@functools.lru_cache(maxsize=4)
+def _grid_coords(g: int, device: str) -> torch.Tensor:
+    """(g^3, 3) float32 coordinates of the dense grid's nodes, built once
+    per (g, device)."""
+    ar = torch.arange(g, dtype=torch.float32, device=device)
+    return torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
+                       dim=-1).reshape(-1, 3)
+
+
+def substep_soa(state: SoAState, model: MPMModel, bcs, time,
                 grid: GridConfig, dt: float, incremental_cov: bool = False,
                 group=None, fitting: bool = False) -> SoAState:
     """One golden substep: particle BCs -> stress -> P2G -> grid update +
     grid BCs -> G2P.  ``fitting`` takes the Green StVK stress on F with no
     particle BCs and advances F := F_trial (the fitting semantics);
-    ``incremental_cov`` and ``group`` go to g2p_soa and p2g_soa."""
+    ``incremental_cov`` and ``group`` go to g2p_soa and p2g_soa.  ``time``
+    is a host float or a 0-d float32 tensor (a captured substep's device
+    clock, sim/solver.py); the BCs' windows read either, and the substep
+    reads nothing on the host."""
     if not fitting and bcs.particle_ops:
         v_aos = m33.vec_to_aos(state.v)
         x_aos = m33.vec_to_aos(state.x)
@@ -230,10 +246,7 @@ def substep_soa(state: SoAState, model: MPMModel, bcs, time: float,
     grid_mass, grid_mom = p2g_soa(state, stress, grid, dt, group)
     grid_v = grid_update_soa(grid_mass, grid_mom, model.gravity, dt)
     if bcs.grid_ops:
-        g = grid.n_grid
-        ar = torch.arange(g, dtype=torch.float32, device=grid_mass.device)
-        coords = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
-                             dim=-1).reshape(-1, 3)
+        coords = _grid_coords(grid.n_grid, str(grid_mass.device))
         gv_aos = torch.stack(grid_v, dim=-1)
         for op in bcs.grid_ops:
             gv_aos = op.apply_grid(gv_aos, coords, time, dt, grid.dx)

@@ -10,7 +10,10 @@ Port of gsmpm_tpu/sim/solver.py.
   (sim/kernels.substep_soa), converting at the boundary.
 - ``run_substeps``: n substeps of the golden engine, which generates the
   fitting ground truth, runs simulate's frames with ``incremental_cov`` or
-  after a tiled-engine overflow, and is the fitting engine after one.
+  after a tiled-engine overflow, and is the fitting engine after one.  On
+  CUDA it is gsmpm_tpu's one jitted scan: a captured substep replayed
+  (``_GoldenGraph``), or for a recorded fitting window a forward and an
+  adjoint graph (``_GoldenFittingWindow``).
 - ``postprocess``: cov = F Sigma0 F^T and the SH polar rotation.
 - ``MPMSolver``: the facade that carries state, model, BCs and the clock
   between frames; on CUDA it steps with the tiled engine (sim/tiles.py,
@@ -25,8 +28,9 @@ same substeps.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -50,7 +54,16 @@ from gsmpm_tpu_torch.sim.boundary import (
     sticky_ground,
 )
 from gsmpm_tpu_torch.sim.coupling import mat_from_upper, upper_from_mat
+from gsmpm_tpu_torch.sim.graphs import (
+    _cached,
+    _Captured,
+    _identity,
+    _owned,
+    _register,
+    _values,
+)
 from gsmpm_tpu_torch.sim.kernels import (
+    SoAState,
     postprocess_soa,
     soa_from_state,
     state_from_soa,
@@ -229,6 +242,363 @@ def _substep_aos(state: MPMState, model: MPMModel, bcs: BCSet, time: float,
     return state
 
 
+# ---------------------------------------------------------------------------
+# the golden engine as one program (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# the planes of a golden state as rows of one (49, N) buffer: (field, rows),
+# the fields a fitting substep carries gradient through first (x, v, C, F,
+# and cov when it advances it)
+_LAYOUT = (("x", 3), ("v", 3), ("C", 9), ("F", 9), ("cov", 6),
+           ("F_trial", 9), ("yield_stress", 1), ("vol", 1), ("density", 1),
+           ("mass", 1), ("init_cov", 6))
+
+
+def _spans(layout):
+    spans, lo = {}, 0
+    for name, k in layout:
+        spans[name] = (lo, lo + k)
+        lo += k
+    return spans, lo
+
+
+_SPANS, _ROWS = _spans(_LAYOUT)
+
+
+def _carried(incremental_cov: bool) -> tuple:
+    """The fields a fitting substep differentiates, the buffer's first
+    rows: x, v, C, F (24 rows), and cov (6 more) when it advances it."""
+    return ("x", "v", "C", "F") + (("cov",) if incremental_cov else ())
+
+
+def _planes(soa: SoAState) -> list:
+    """Every plane of soa, in the order of its fields."""
+    return [p for f in soa for p in (f if isinstance(f, tuple) else (f,))]
+
+
+def _aos(rows: torch.Tensor) -> torch.Tensor:
+    """The (k, N) rows of one field as its own contiguous (N,), (N, k) or,
+    for 9 rows, (N, 3, 3) tensor."""
+    k, n = rows.shape
+    if k == 1:
+        return rows[0].clone()
+    out = rows.T.contiguous()
+    return out.reshape(n, 3, 3) if k == 9 else out
+
+
+def _soa_of(rows: torch.Tensor) -> SoAState:
+    """The SoAState whose planes are the rows of a (49, N) buffer."""
+    fields = {}
+    for name, (lo, hi) in _SPANS.items():
+        fields[name] = rows[lo] if hi - lo == 1 else tuple(rows[lo:hi])
+    return SoAState(**fields)
+
+
+def _assign(dst: SoAState, src: SoAState) -> None:
+    """dst's planes := src's, in place, in the order of SoAState's fields,
+    each plane of src that is not dst's own.  A plane of src may be another
+    of dst's buffers (the jelly return map's F is its input F_trial):
+    SoAState lists F before F_trial, so that buffer is read before it is
+    written."""
+    for d, p in zip(_planes(dst), _planes(src)):
+        if p is not d:
+            d.copy_(p)
+
+
+class _GoldenStatic:
+    """The static buffers a golden graph reads and writes: every plane of
+    an SoAState, each a row of one (49, N) float32 buffer, and a 0-d
+    float32 clock (the counterpart of sim/tiles.py's ``_StaticState``)."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.buf = torch.zeros((_ROWS, n), dtype=torch.float32,
+                               device=device)
+        self.soa = _soa_of(self.buf)
+        self.clock = torch.zeros((), dtype=torch.float32, device=device)
+
+    def load(self, state: MPMState, time) -> None:
+        n = self.buf.shape[1]
+        for name, (lo, hi) in _SPANS.items():
+            self.buf[lo:hi].copy_(getattr(state, name).reshape(n, hi - lo).T)
+        self.clock.fill_(time)
+
+    def state(self) -> MPMState:
+        """An MPMState that owns its tensors (later replays leave it)."""
+        return MPMState(**{name: _aos(self.buf[lo:hi])
+                           for name, (lo, hi) in _SPANS.items()})
+
+
+class _GoldenGraph(_GoldenStatic):
+    """Static buffers of a golden state and a clock, and the golden
+    substep over them: on CUDA replayed from one CUDA graph, captured after
+    the first substep ran eagerly (``_Captured``); on the CPU the same body
+    run eagerly.  The body is ``substep_soa`` at the device clock, its
+    planes copied back in place, then clock += dt (``_advance``'s float32
+    value); it reads nothing on the host.  With a process ``group``
+    (parallel/sharded.py's psum engine: the buffers hold this rank's
+    particle shard) the graph holds the dense grid's all-reduce.  The graph
+    bakes in the addresses of the buffers and of ``model``'s and ``bcs``'
+    tensors."""
+
+    def __init__(self, state: MPMState, model: MPMModel, bcs,
+                 grid: GridConfig, dt: float, incremental_cov: bool,
+                 fitting: bool, group=None, refs=()):
+        super().__init__(state.x.shape[0], state.x.device)
+        self.refs = refs  # what its cache key names by identity
+        self.model, self.bcs, self.grid, self.dt = model, bcs, grid, dt
+        self.incremental_cov, self.fitting = incremental_cov, fitting
+        self.group = group
+        self.substep = _Captured(state.x.device, run_substeps)
+
+    def _body(self) -> None:
+        _assign(self.soa, substep_soa(
+            self.soa, self.model, self.bcs, self.clock, self.grid, self.dt,
+            incremental_cov=self.incremental_cov, group=self.group,
+            fitting=self.fitting))
+        self.clock.add_(self.dt)
+
+    def release(self) -> None:
+        self.substep.release()
+
+    def step(self) -> None:
+        self.substep(self._body)
+
+
+# captured golden substeps, least recently used first: simulate's golden
+# frames, MPMSolver's, the ground truth's and the psum engine's
+_GOLDEN_GRAPHS: "collections.OrderedDict[tuple, _GoldenGraph]" = (
+    _register(4))
+
+
+def _golden_graph(state: MPMState, model: MPMModel, bcs, grid: GridConfig,
+                  dt: float, incremental_cov: bool, fitting: bool,
+                  group=None) -> _GoldenGraph:
+    """The cached golden substep graph of (N, grid, dt, incremental_cov,
+    fitting, the device, model's and bcs' tensors, the process group): a
+    new model, BC set or group captures anew."""
+    refs: list = []
+    key = (state.x.shape[0], grid, dt, incremental_cov, fitting,
+           state.x.device, _identity(model, refs), _identity(bcs, refs),
+           _identity(group, refs))
+    return _cached(_GOLDEN_GRAPHS, key, lambda: _GoldenGraph(
+        state, model, bcs, grid, dt, incremental_cov, fitting, group, refs))
+
+
+class _Elastic(NamedTuple):
+    """What a fitting substep reads of its MPMModel: the per-particle mu
+    and lam (the Green StVK stress) and the grid phase's gravity."""
+
+    mu: torch.Tensor
+    lam: torch.Tensor
+    gravity: torch.Tensor
+
+
+class _GoldenFittingGraphs(_GoldenStatic):
+    """The golden fitting window's two graphs over shared static buffers
+    (a golden state, a clock, mu, lam and the cotangents of the carried
+    rows, mu and lam): the forward substep and its adjoint, each a
+    ``_Captured`` (on CUDA one capture, then replays; on the CPU its body
+    run eagerly).
+
+    mu and lam reach a fitting substep only through their buffers, so a
+    new logE / y replays the same graphs; the graphs own copies of the
+    gravity and the BC set they were captured with.  With a process
+    ``group`` (the buffers hold this rank's particle shard) both graphs
+    hold the grid's all-reduces among it: the forward's, and in the
+    adjoint the recompute's and its VJP's."""
+
+    def __init__(self, state: MPMState, model: MPMModel, bcs,
+                 grid: GridConfig, dt: float, incremental_cov: bool,
+                 group=None):
+        n, device = state.x.shape[0], state.x.device
+        super().__init__(n, device)
+        self.carried_fields = _carried(incremental_cov)
+        self.carried = self.buf[:_SPANS[self.carried_fields[-1]][1]]
+        self.dcarried = torch.zeros_like(self.carried)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.mu, self.lam = torch.zeros(n, **f32), torch.zeros(n, **f32)
+        self.dmu, self.dlam = torch.zeros(n, **f32), torch.zeros(n, **f32)
+        self.gravity = model.gravity.detach().clone()
+        self.bcs = _owned(bcs)
+        self.grid, self.dt, self.group = grid, dt, group
+        self.incremental_cov = incremental_cov
+        self.forward = _Captured(device, run_substeps)
+        self.adjoint = _Captured(device, run_substeps)
+
+    def load(self, state: MPMState, time, mu, lam) -> None:
+        """The state's planes, the clock and mu / lam into the buffers."""
+        super().load(state, time)
+        self.mu.copy_(mu)
+        self.lam.copy_(lam)
+
+    def _substep(self, soa: SoAState, mu, lam) -> SoAState:
+        return substep_soa(soa, _Elastic(mu, lam, self.gravity), self.bcs,
+                           self.clock, self.grid, self.dt,
+                           incremental_cov=self.incremental_cov,
+                           group=self.group, fitting=True)
+
+    def _forward_body(self) -> None:
+        """The forward graph's body, in place: ``substep_soa(fitting=True)``
+        on the buffers at the clock, its planes copied back, then clock +=
+        dt (``_advance``'s value)."""
+        _assign(self.soa, self._substep(self.soa, self.mu, self.lam))
+        self.clock.add_(self.dt)
+
+    def _adjoint_body(self) -> None:
+        """The adjoint graph's body, in place: the substep recomputed from
+        the carried rows (the other planes, mu, lam, the clock) with
+        autograd on, its VJP against dcarried, the cotangent of its output
+        rows; then dcarried := the cotangent of its input rows, and dmu /
+        dlam += those of mu / lam.  The leaves are made here, and
+        ``autograd.grad`` writes no ``.grad``."""
+        rows = self.carried.detach().requires_grad_(True)
+        mu = self.mu.detach().requires_grad_(True)
+        lam = self.lam.detach().requires_grad_(True)
+        with torch.enable_grad():
+            soa = self.soa._replace(**{
+                f: tuple(rows[_SPANS[f][0]:_SPANS[f][1]])
+                for f in self.carried_fields})
+            new = self._substep(soa, mu, lam)
+            out = [p for f in self.carried_fields for p in getattr(new, f)]
+            d_rows, dmu, dlam = torch.autograd.grad(
+                out, (rows, mu, lam), tuple(self.dcarried))
+        self.dcarried.copy_(d_rows)
+        self.dmu.add_(dmu)
+        self.dlam.add_(dlam)
+
+    def release(self) -> None:
+        self.forward.release()
+        self.adjoint.release()
+
+    def step(self) -> None:
+        """One forward substep (replay, or warm-up and capture)."""
+        self.forward(self._forward_body)
+
+    def adjoint_step(self) -> None:
+        """One adjoint substep on the loaded rows, clock and dcarried."""
+        self.adjoint(self._adjoint_body)
+
+
+class _GoldenFittingWindow(torch.autograd.Function):
+    """N golden fitting substeps as one autograd node: the port's
+    counterpart of gsmpm_tpu's ``jax.checkpoint`` + ``lax.scan`` + ``jit``
+    of its golden fitting window (sim/tiles.py's ``_FittingWindow``
+    without the rebucket).
+
+    Forward: per substep the carried input rows (x, v, C, F, and cov with
+    incremental_cov) kept in a stack (the scan's carries, the checkpoint
+    path's memory), then the forward graph.  Backward: the window's other
+    planes, mu and lam loaded again, then for k = N-1 ... 0 the adjoint
+    graph on row k of the stack and the clock t_k.  Inputs (carried, mu,
+    lam, graphs, state, time, n_substeps), carried being state's carried
+    planes stacked and state detached; output the carried rows after the
+    window.
+    """
+
+    @staticmethod
+    def forward(ctx, carried, mu, lam, graphs, state, time, n_substeps):
+        g = graphs
+        g.load(state, time, mu, lam)
+        stack = carried.new_empty((n_substeps,) + tuple(carried.shape))
+        times = []
+        for k in range(n_substeps):
+            stack[k].copy_(g.carried)
+            times.append(time)
+            g.step()
+            time = _advance(time, g.dt)
+        ctx.graphs, ctx.stack, ctx.times = g, stack, times
+        ctx.inputs = (state, mu.detach(), lam.detach())
+        return g.carried.clone()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_carried):
+        g = ctx.graphs
+        state, mu, lam = ctx.inputs
+        g.load(state, 0.0, mu, lam)
+        g.dcarried.copy_(d_carried)
+        g.dmu.zero_()
+        g.dlam.zero_()
+        for k in reversed(range(len(ctx.times))):
+            g.carried.copy_(ctx.stack[k])
+            g.clock.fill_(ctx.times[k])
+            g.adjoint_step()
+        return (g.dcarried.clone(), g.dmu.clone(), g.dlam.clone(), None,
+                None, None, None)
+
+
+# the golden fitting window's graphs, least recently used first: a single
+# device fit's, a mesh step's and camera-DP's (each after a tile-cap
+# overflow) side by side
+_GOLDEN_FIT_GRAPHS: "collections.OrderedDict[tuple, _GoldenFittingGraphs]" \
+    = _register(4)
+
+
+def _golden_fitting_graphs(state: MPMState, model: MPMModel, bcs,
+                           grid: GridConfig, dt: float,
+                           incremental_cov: bool = False,
+                           group=None) -> _GoldenFittingGraphs:
+    """The cached golden fitting graphs of (N, grid, dt, incremental_cov,
+    the device, gravity and the BC set by value, the process group by
+    identity): a new logE / y (any other field of model) or a new BC set
+    with the same values captures nothing, a new group captures anew."""
+    key = (state.x.shape[0], grid, dt, incremental_cov, state.x.device,
+           _values(model.gravity), _values(bcs), _identity(group, []))
+    return _cached(_GOLDEN_FIT_GRAPHS, key, lambda: _GoldenFittingGraphs(
+        state, model, bcs, grid, dt, incremental_cov, group))
+
+
+def _golden_window(state: MPMState, model: MPMModel, bcs, time: float,
+                   n_substeps: int, grid: GridConfig, dt: float,
+                   incremental_cov: bool = False, group=None):
+    """n_substeps golden fitting substeps through ``_GoldenFittingWindow``
+    (graphs from ``_golden_fitting_graphs``); differentiable in the state's
+    x, v, C and F (cov too with incremental_cov) and in model.mu /
+    model.lam.  Returns (state, time)."""
+    for name in ("vol", "mass", "density", "init_cov"):
+        if getattr(state, name).requires_grad:
+            raise ValueError(f"the golden fitting window differentiates x, "
+                             f"v, C, F, cov, mu and lam, not {name}")
+    if model.gravity.requires_grad:
+        raise ValueError("the golden fitting window does not differentiate "
+                         "gravity")
+    n = state.x.shape[0]
+    carried = torch.cat([getattr(state, f).reshape(n, -1).T
+                         for f in _carried(incremental_cov)])
+    graphs = _golden_fitting_graphs(state, model, bcs, grid, dt,
+                                    incremental_cov, group)
+    rows = _GoldenFittingWindow.apply(
+        carried, model.mu, model.lam, graphs,
+        MPMState(**{f.name: getattr(state, f.name).detach()
+                    for f in dataclasses.fields(state)}),
+        time, n_substeps)
+    for _ in range(n_substeps):
+        time = _advance(time, dt)
+
+    out = {f: _aos(rows[_SPANS[f][0]:_SPANS[f][1]])
+           for f in _carried(incremental_cov)}
+    return dataclasses.replace(state, F_trial=out["F"], **out), time
+
+
+def _records(*objs) -> bool:
+    """Whether autograd records a call on objs: grad mode on and a tensor
+    in them (dataclasses and tuples walked) requiring grad."""
+    if not torch.is_grad_enabled():
+        return False
+
+    def any_grad(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.requires_grad
+        if dataclasses.is_dataclass(obj):
+            return any(any_grad(getattr(obj, f.name))
+                       for f in dataclasses.fields(obj))
+        if isinstance(obj, (tuple, list)):
+            return any(any_grad(o) for o in obj)
+        return False
+
+    return any_grad(objs)
+
+
 def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
                  n_substeps: int, grid: GridConfig, dt: float,
                  incremental_cov: bool = False, group=None,
@@ -242,11 +612,35 @@ def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
     through a differentiable all-reduce while autograd records the run.
 
     ``checkpoint_policy="substep"`` recomputes each substep in the backward
-    pass (``torch.utils.checkpoint``), keeping only the particle state
-    between substeps, the JAX package's memory policy; it only matters
-    when autograd records the run.  ``time`` is a host float advanced in
-    float32 as the JAX clock.
+    pass, keeping only the particle state between substeps, the JAX
+    package's memory policy; it only matters when autograd records the
+    run.  ``time`` is a host float advanced in float32 as the JAX clock.
+
+    On CUDA the run is gsmpm_tpu's one compiled program: when autograd
+    does not record the call (grad mode off, or no tensor of state, model
+    and bcs requires grad) the substeps replay one cached CUDA graph
+    (``_GoldenGraph``, captured once per N, grid, dt, incremental_cov,
+    fitting, model, BC set and process group; the returned state owns its
+    tensors), and a recorded ``fitting`` call under the "substep" policy
+    runs ``_GoldenFittingWindow`` (a forward and an adjoint graph, captured
+    once per N, grid, dt, incremental_cov, gravity, BC set and group).
+    ``run_substeps.captures`` / ``replays`` count their work.  Elsewhere,
+    and for a recorded call of another kind, each substep runs eagerly
+    (``torch.utils.checkpoint`` of ``substep_soa`` under the "substep"
+    policy).
     """
+    if state.x.device.type == "cuda":
+        if not _records(state, model, bcs):
+            graph = _golden_graph(state, model, bcs, grid, dt,
+                                  incremental_cov, fitting, group)
+            graph.load(state, time)
+            for _ in range(n_substeps):
+                graph.step()
+                time = _advance(time, dt)
+            return graph.state(), time
+        if fitting and checkpoint_policy == "substep":
+            return _golden_window(state, model, bcs, time, n_substeps, grid,
+                                  dt, incremental_cov, group)
     soa = soa_from_state(state)
     remat = checkpoint_policy == "substep" and torch.is_grad_enabled()
     for _ in range(n_substeps):
@@ -262,6 +656,9 @@ def run_substeps(state: MPMState, model: MPMModel, bcs, time: float,
                               fitting=fitting)
         time = _advance(time, dt)
     return state_from_soa(soa), time
+
+
+run_substeps.captures = run_substeps.replays = 0
 
 
 def postprocess(state: MPMState, rotate_sh: bool = False):

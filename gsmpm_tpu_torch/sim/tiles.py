@@ -24,7 +24,9 @@ from its kept input rows, then its VJP) replayed for k = N-1 ... 0.  The
 mesh paths (gsmpm_tpu's ``shard_map`` programs) take the same graphs with
 a process group: the grid's all-reduce (and in the adjoint its VJP's) is
 captured inside them, and ``_drop_group_graphs`` frees a group's graphs
-before the group is destroyed.
+before the group is destroyed.  The capture machinery (``_Captured``, the
+cache keys, ``_drop_group_graphs``) is sim/graphs.py's, shared with the
+golden engine's graphs (sim/solver.py).
 
 Differences from the JAX engine, none of which changes a result:
 - the drift check that triggers a rebucket is a host-side ``if`` (one
@@ -45,12 +47,20 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed
 import torch.utils.checkpoint
 
 from gsmpm_tpu_torch.ops.constitutive import (
     cauchy_stress_stvk_green_soa,
     compute_stress_soa,
+)
+from gsmpm_tpu_torch.sim.graphs import (  # noqa: F401 (tiles' names)
+    _cached,
+    _Captured,
+    _drop_group_graphs,
+    _identity,
+    _owned,
+    _register,
+    _values,
 )
 from gsmpm_tpu_torch.sim.kernels import SoAState, grid_update_soa
 from gsmpm_tpu_torch.sim.state import GridConfig, MPMModel
@@ -733,71 +743,6 @@ def _tensors(ts: TiledState):
     return [getattr(ts, f.name) for f in dataclasses.fields(ts)]
 
 
-class _Captured:
-    """A body that works in place on static buffers, run as a CUDA graph.
-
-    On CUDA the first call runs the body eagerly on the current stream (its
-    warm-up: the kernels' build, cached grid coordinates, the allocator,
-    autograd's device thread) and then captures it once on a side stream;
-    every later call replays the graph and adds the K1 / K2 / K6 launches
-    it holds to their wrappers' counters.  On the CPU every call runs the
-    body.  The graph bakes in every address the body reads.  ``counters``
-    (a function with ``captures`` and ``replays``) counts the work.  The
-    body is passed at each call, so the owner of the buffers holds this
-    object without a reference cycle.
-    """
-
-    def __init__(self, device: torch.device, counters):
-        self.device, self.counters = device, counters
-        self.graph = None
-        self.launches = {}  # wrapper -> launches one replay holds
-
-    def __call__(self, body) -> None:
-        from gsmpm_tpu_torch.sim import cuda_mpm
-
-        if self.graph is not None:
-            self.graph.replay()
-            self.counters.replays += 1
-            for wrapper, n in self.launches.items():
-                wrapper.launches += n
-            return
-        if self.device.type != "cuda":
-            body()
-            return
-        wrappers = (cuda_mpm.p2g_tiled, cuda_mpm.g2p_tiled,
-                    cuda_mpm.sored_tiled)
-        # the warm-up stays on the current stream: run on the capture
-        # stream, it left every later replay loop of simulate's bench frame
-        # ~0.46 ms a substep slower on an H100 (0.289 against 0.245 s a
-        # frame), the cause not found
-        body()
-        # torch.cuda.graph() would also empty the allocator's cache, and
-        # the next frame's render would allocate its buffers anew
-        torch.cuda.synchronize(self.device)
-        before = [w.captured for w in wrappers]
-        graph = torch.cuda.CUDAGraph()
-        current = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(stream):
-            # thread_local: the rest of the process (a NCCL watchdog) may
-            # go on querying the device while this thread captures
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                body()
-            finally:
-                graph.capture_end()
-        current.wait_stream(stream)
-        self.launches = {w: w.captured - b for w, b in zip(wrappers, before)}
-        self.graph = graph
-        self.counters.captures += 1
-
-    def release(self) -> None:
-        """Free the graph now, whoever else still holds this object."""
-        if self.graph is not None:
-            self.graph.reset()
-            self.graph = None
-
-
 class _StaticState:
     """The static buffers a captured graph reads and writes: a tiled state
     ``ts`` and a 0-d float32 ``clock``."""
@@ -862,24 +807,7 @@ class _SubstepGraph(_StaticState):
 
 
 # captured substeps, least recently used first
-_GRAPHS: "collections.OrderedDict[tuple, _SubstepGraph]" = (
-    collections.OrderedDict())
-_GRAPHS_KEPT = 4
-
-
-def _identity(obj, refs: list):
-    """What a captured substep closes over in obj: each tensor and process
-    group by its identity (kept alive in refs, so no other object takes
-    its id), the rest by value."""
-    if isinstance(obj, (torch.Tensor, torch.distributed.ProcessGroup)):
-        refs.append(obj)
-        return id(obj)
-    if dataclasses.is_dataclass(obj):
-        return (type(obj),) + tuple(_identity(getattr(obj, f.name), refs)
-                                    for f in dataclasses.fields(obj))
-    if isinstance(obj, (tuple, list)):
-        return tuple(_identity(o, refs) for o in obj)
-    return obj
+_GRAPHS: "collections.OrderedDict[tuple, _SubstepGraph]" = _register(4)
 
 
 def _substep_graph(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
@@ -890,28 +818,8 @@ def _substep_graph(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
     refs: list = []
     key = (tc, grid, dt, ts.q.device, _identity(model, refs),
            _identity(bcs, refs), _identity(group, refs))
-    graph = _GRAPHS.pop(key, None)
-    if graph is None:
-        while len(_GRAPHS) >= _GRAPHS_KEPT:
-            _GRAPHS.popitem(last=False)
-        graph = _SubstepGraph(ts, model, bcs, grid, tc, dt, group, refs)
-    _GRAPHS[key] = graph
-    return graph
-
-
-def _drop_group_graphs(group=None) -> int:
-    """Drop every cached graph (``_GRAPHS``, ``_FIT_GRAPHS``) captured on
-    ``group``, or with None on any process group, and free its CUDA graphs;
-    returns how many entries.  Call it before ``destroy_process_group``: a
-    graph must never replay, nor be freed, after the communicator it
-    captured is gone."""
-    dropped = 0
-    for cache in (_GRAPHS, _FIT_GRAPHS):
-        for key in [k for k, g in cache.items() if g.group is not None
-                    and (group is None or g.group is group)]:
-            cache.pop(key).release()
-            dropped += 1
-    return dropped
+    return _cached(_GRAPHS, key, lambda: _SubstepGraph(
+        ts, model, bcs, grid, tc, dt, group, refs))
 
 
 def frame_tiled(
@@ -1192,39 +1100,12 @@ class _FittingWindow(torch.autograd.Function):
         return g.dq.clone(), g.daux.clone(), None, None, None, None
 
 
-def _owned(obj):
-    """obj with each tensor in it cloned (dataclasses and tuples rebuilt)."""
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().clone()
-    if dataclasses.is_dataclass(obj):
-        return dataclasses.replace(obj, **{
-            f.name: _owned(getattr(obj, f.name))
-            for f in dataclasses.fields(obj) if f.init})
-    if isinstance(obj, tuple):
-        return tuple(_owned(o) for o in obj)
-    return obj
-
-
-def _values(obj):
-    """obj by value: each tensor's dtype, shape and elements (a host read
-    of a few floats here: gravity, BC boxes), the rest as it is."""
-    if isinstance(obj, torch.Tensor):
-        return (obj.dtype, tuple(obj.shape), tuple(obj.flatten().tolist()))
-    if dataclasses.is_dataclass(obj):
-        return (type(obj),) + tuple(_values(getattr(obj, f.name))
-                                    for f in dataclasses.fields(obj))
-    if isinstance(obj, (tuple, list)):
-        return tuple(_values(o) for o in obj)
-    return obj
-
-
 # the fitting window's graphs, least recently used first: their own cache,
 # so a fit does not evict the simulate graphs of _GRAPHS.  Four pairs: a
 # mesh step's (its shard, its group) and a tile-cap overflow's beside the
 # single-device fit's, so that neither evicts it
 _FIT_GRAPHS: "collections.OrderedDict[tuple, _FittingGraphs]" = (
-    collections.OrderedDict())
-_FIT_GRAPHS_KEPT = 4
+    _register(4))
 
 
 def _fitting_graphs(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
@@ -1236,13 +1117,8 @@ def _fitting_graphs(ts: TiledState, model: MPMModel, bcs, grid: GridConfig,
     alive, so no later group takes its id)."""
     key = (tc, grid, dt, ts.q.device, _values(model.gravity), _values(bcs),
            _identity(group, []))
-    graphs = _FIT_GRAPHS.pop(key, None)
-    if graphs is None:
-        while len(_FIT_GRAPHS) >= _FIT_GRAPHS_KEPT:
-            _FIT_GRAPHS.popitem(last=False)
-        graphs = _FittingGraphs(ts, model, bcs, grid, tc, dt, group)
-    _FIT_GRAPHS[key] = graphs
-    return graphs
+    return _cached(_FIT_GRAPHS, key, lambda: _FittingGraphs(
+        ts, model, bcs, grid, tc, dt, group))
 
 
 def _fitting_window(ts: TiledState, model: MPMModel, bcs, time: float,

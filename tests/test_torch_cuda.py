@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.utils.checkpoint
 
 from gsmpm_tpu_torch.apps.simulate import prepare, simulate
 from gsmpm_tpu_torch.config import MPMConfig, RenderConfig, SimConfig
@@ -1068,7 +1069,8 @@ def test_fit_graph_cap_bump_rerun_replays(cuda):
 def test_fit_graph_overflow_takes_golden_eager(cuda, monkeypatch):
     """A tile cap below the blob's occupied tiles: the window reports the
     overflow, fit_frame moves to the golden engine for good and redoes the
-    frame there, eager (no replay, no K1 / K2 / K6 launch)."""
+    frame there: no tiled replay and no K1 / K2 / K6 launch; the golden
+    window's graphs (sim/solver.py) replay, 2 a substep, captured once."""
     ident, cam = _thrown_ident(cuda)
     gt = ident.generate_ground_truth(3e3, 0.3, [cam], 2)[1]
     real = tiles.default_tile_config
@@ -1077,11 +1079,198 @@ def test_fit_graph_overflow_takes_golden_eager(cuda, monkeypatch):
     state = ident.reset_state()
     loss, state, t, _ = ident.fit_frame(state, 0.0, cam, gt)
     assert ident.sim_engine == "golden" and np.isfinite(float(loss))
-    before = _fit_graph_counts()
+    before, golden = _fit_graph_counts(), _golden_counts()
     loss, _, _, _ = ident.fit_frame(state, t, cam, gt)
-    d = _fit_delta(before)
+    d, g = _fit_delta(before), _golden_delta(golden)
     assert np.isfinite(float(loss))
     assert d["replays"] == d["captures"] == d["host_reads"] == 0
+    assert d["k1"] == d["k2"] == d["k6"] == 0
+    assert g["captures"] == 0 and g["replays"] == 2 * FIT_SUBSTEPS
+
+
+# ---------------------------------------------------------------------------
+# the golden engine's graphs (sim/solver.py: run_substeps on CUDA)
+# ---------------------------------------------------------------------------
+
+# (incremental_cov, fitting) of each golden frame
+GOLDEN_MODES = {"plain": (False, False), "incremental_cov": (True, False),
+                "fitting": (False, True)}
+GOLDEN_FIELDS = ("x", "v", "C", "F", "F_trial", "cov")
+
+
+def _golden_counts():
+    from gsmpm_tpu_torch.sim import solver
+
+    f = solver.run_substeps
+    return dict(captures=f.captures, replays=f.replays,
+                k1=cuda_mpm.p2g_tiled.launches, k2=cuda_mpm.g2p_tiled.launches,
+                k6=cuda_mpm.sored_tiled.launches,
+                captured=(cuda_mpm.p2g_tiled.captured
+                          + cuda_mpm.g2p_tiled.captured
+                          + cuda_mpm.sored_tiled.captured))
+
+
+def _golden_delta(before):
+    return {k: v - before[k] for k, v in _golden_counts().items()}
+
+
+def _golden_eager(state, model, bcs, grid, dt, steps, inc=False, fit=False,
+                  group=None, t=0.0):
+    """The golden frame as the plain loop over substep_soa."""
+    from gsmpm_tpu_torch.sim.kernels import state_from_soa, substep_soa
+
+    soa = soa_from_state(state)
+    for _ in range(steps):
+        soa = substep_soa(soa, model, bcs, t, grid, dt, incremental_cov=inc,
+                          group=group, fitting=fit)
+        t = tiles._advance(t, dt)
+    return state_from_soa(soa), t
+
+
+def _assert_states_close(got, want, fields=GOLDEN_FIELDS):
+    """index_add_'s float atomics add in a run-dependent order: 1e-4 of
+    each field's largest magnitude."""
+    for name in fields:
+        a, b = getattr(got, name).detach(), getattr(want, name).detach()
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * max(scale, 1e-30), (name, err, scale)
+
+
+@pytest.mark.parametrize("mode", list(GOLDEN_MODES))
+def test_golden_graph_matches_eager_loop(cuda, mode):
+    """run_substeps on CUDA without autograd replays one captured golden
+    substep: against the eager substep_soa loop from the same state (the
+    _graph_case box with its impulse and fixed cube windows inside the
+    frame) within 1e-4 of each field's max; one capture, then replays
+    only; no K1 / K2 / K6 launch in it; the device clock's bits equal the
+    returned host clock's; the returned state owns its tensors."""
+    from gsmpm_tpu_torch.sim import solver
+
+    inc, fit = GOLDEN_MODES[mode]
+    s, _, _ = _graph_case(cuda)
+    dt = s.cfg.substep_dt
+    args = (s.model, s.bcs, 0.0, GRAPH_STEPS, s.grid, dt)
+    want, t_want = _golden_eager(s.state, s.model, s.bcs, s.grid, dt,
+                                 GRAPH_STEPS, inc, fit)
+    before = _golden_counts()
+    with torch.no_grad():
+        got, t = solver.run_substeps(s.state, *args, incremental_cov=inc,
+                                     fitting=fit, checkpoint_policy=None)
+    d = _golden_delta(before)
+    assert d["captures"] == 1 and d["replays"] == GRAPH_STEPS - 1
+    assert d["k1"] == d["k2"] == d["k6"] == d["captured"] == 0
+    assert t == t_want
+    entry = next(reversed(solver._GOLDEN_GRAPHS.values()))
+    assert entry.clock.cpu().numpy().view(np.uint32) == np.float32(t).view(
+        np.uint32)
+    _assert_states_close(got, want)
+    held = got.x.clone()
+    before = _golden_counts()
+    with torch.no_grad():
+        solver.run_substeps(s.state, *args, incremental_cov=inc,
+                            fitting=fit, checkpoint_policy=None)
+    d = _golden_delta(before)
+    assert d["captures"] == 0 and d["replays"] == GRAPH_STEPS
+    assert torch.equal(got.x, held)
+
+
+def test_golden_graph_recaptures_for_a_new_model(cuda):
+    """A model with other tensors (gravity along +x) is a new golden graph:
+    one more capture, and its frame follows the new model; the first
+    model's graph stays cached."""
+    from gsmpm_tpu_torch.sim import solver
+
+    s, _, _ = _graph_case(cuda)
+    dt = s.cfg.substep_dt
+    solver.run_substeps(s.state, s.model, s.bcs, 0.0, 2, s.grid, dt,
+                        checkpoint_policy=None)
+    model = dataclasses.replace(
+        s.model, gravity=torch.tensor([50.0, 0.0, 0.0], device=cuda))
+    before = _golden_counts()
+    got, _ = solver.run_substeps(s.state, model, s.bcs, 0.0, GRAPH_STEPS,
+                                 s.grid, dt, checkpoint_policy=None)
+    assert _golden_delta(before)["captures"] == 1
+    want, _ = _golden_eager(s.state, model, s.bcs, s.grid, dt, GRAPH_STEPS)
+    _assert_states_close(got, want)
+    before = _golden_counts()
+    solver.run_substeps(s.state, s.model, s.bcs, 0.0, 2, s.grid, dt,
+                        checkpoint_policy=None)
+    assert _golden_delta(before)["captures"] == 0
+
+
+def _golden_fit(ident, state, graph: bool, group=None):
+    """The golden fitting window from state and d(loss)/d(logE, y) through
+    it: run_substeps(fitting=True) under autograd (on CUDA the window's
+    graphs) or the checkpointed substep_soa loop, the grid summed over
+    ``group`` when given.  Returns (state, gradients)."""
+    from gsmpm_tpu_torch.sim import solver
+    from gsmpm_tpu_torch.sim.kernels import state_from_soa, substep_soa
+    from gsmpm_tpu_torch.sim.state import mu_lam_from_logE_y
+
+    logE = ident.model.logE.detach().clone().requires_grad_(True)
+    y = ident.model.y.detach().clone().requires_grad_(True)
+    dt = 0.03 / FIT_SUBSTEPS
+    with torch.enable_grad():
+        mu, lam = mu_lam_from_logE_y(logE, y)
+        model = dataclasses.replace(ident.model, logE=logE, y=y, mu=mu,
+                                    lam=lam)
+        if graph:
+            st, _ = solver.run_substeps(state, model, ident.bcs, 0.0,
+                                        FIT_SUBSTEPS, ident.grid, dt,
+                                        group=group, fitting=True)
+        else:
+            soa, t = soa_from_state(state), 0.0
+            for _ in range(FIT_SUBSTEPS):
+                soa = torch.utils.checkpoint.checkpoint(
+                    substep_soa, soa, model, ident.bcs, t, ident.grid, dt,
+                    group=group, fitting=True, use_reentrant=False)
+                t = tiles._advance(t, dt)
+            st = state_from_soa(soa)
+        loss = (torch.sum(st.x * torch.sin(st.x)) + torch.sum(st.F * st.F)
+                + 0.1 * torch.sum(st.v * st.v))
+    grads = torch.autograd.grad(loss, (logE, y))
+    return st, grads
+
+
+def test_golden_window_matches_checkpointed(cuda):
+    """run_substeps(fitting=True) under autograd on CUDA runs the golden
+    window (a forward and an adjoint graph): the state within 1e-4 and
+    d logE / d y within FIT_GRAD_REL of their largest magnitudes of the
+    checkpointed loop's; no K1 / K2 / K6 launch; a second window with
+    other logE / y replays only, 2 a substep."""
+    ident, _ = _thrown_ident(cuda)
+    state = ident.reset_state()
+    st_e, g_e = _golden_fit(ident, state, graph=False)
+    before = _golden_counts()
+    st_g, g_g = _golden_fit(ident, state, graph=True)
+    d = _golden_delta(before)
+    assert d["captures"] + d["replays"] == 2 * FIT_SUBSTEPS
+    assert d["k1"] == d["k2"] == d["k6"] == d["captured"] == 0
+    _assert_states_close(st_g, st_e, ("x", "v", "C", "F"))
+    for a, b in zip(g_g, g_e):
+        assert float((a - b).abs().max()) <= FIT_GRAD_REL * float(
+            b.abs().max())
+    ident._set_params(ident.model.logE + 0.1, ident.model.y)
+    before = _golden_counts()
+    _golden_fit(ident, state, graph=True)
+    d = _golden_delta(before)
+    assert d["captures"] == 0 and d["replays"] == 2 * FIT_SUBSTEPS
+
+
+def test_ground_truth_replays_the_golden_graph(cuda):
+    """generate_ground_truth steps its frames on the golden graph: one
+    capture for its model, replays for every later substep (2 frames of
+    FIT_SUBSTEPS a pass; a render that drops candidates regenerates them,
+    replaying the same graph), no tiled kernel."""
+    ident, cam = _thrown_ident(cuda)
+    before = _golden_counts()
+    frames = ident.generate_ground_truth(3e3, 0.3, [cam], 3)
+    d = _golden_delta(before)
+    assert len(frames) == 3
+    assert all(bool(torch.isfinite(f).all()) for f in frames)
+    steps = d["captures"] + d["replays"]
+    assert d["captures"] == 1 and steps % (2 * FIT_SUBSTEPS) == 0
     assert d["k1"] == d["k2"] == d["k6"] == 0
 
 
@@ -1254,3 +1443,58 @@ def test_mesh_fit_window_matches_checkpointed(cuda, nccl_mesh):
                                            5 * FIT_SUBSTEPS,
                                            2 * FIT_SUBSTEPS)
     assert d["k1_captured"] == d["k2_captured"] == d["k6_captured"] == 0
+
+
+def test_golden_psum_graph_matches_eager_loop(cuda, nccl_mesh):
+    """run_substeps(group=) on CUDA without autograd (the psum engine)
+    replays one captured golden substep with the dense grid's NCCL
+    all-reduce inside: within 1e-4 of the eager substep_soa(group=) loop,
+    incremental_cov on; the cached graph names the group, and
+    _drop_group_graphs frees it."""
+    from gsmpm_tpu_torch.sim import solver
+
+    s, _, _ = _graph_case(cuda)
+    dt, group = s.cfg.substep_dt, nccl_mesh.group
+    want, t_want = _golden_eager(s.state, s.model, s.bcs, s.grid, dt,
+                                 GRAPH_STEPS, inc=True, group=group)
+    before = _golden_counts()
+    with torch.no_grad():
+        got, t = solver.run_substeps(s.state, s.model, s.bcs, 0.0,
+                                     GRAPH_STEPS, s.grid, dt,
+                                     incremental_cov=True, group=group,
+                                     checkpoint_policy=None)
+    d = _golden_delta(before)
+    assert d["captures"] == 1 and d["replays"] == GRAPH_STEPS - 1
+    assert t == t_want
+    _assert_states_close(got, want)
+    entry = next(reversed(solver._GOLDEN_GRAPHS.values()))
+    assert entry.group is group
+    tiles._drop_group_graphs(group)
+    assert all(e.group is None for e in solver._GOLDEN_GRAPHS.values())
+
+
+def test_golden_window_with_group_matches_checkpointed(cuda, nccl_mesh):
+    """The golden window with a group (the all-reduces of the forward, the
+    recompute and its VJP inside its graphs) against the checkpointed
+    substep_soa(group=) loop: state within 1e-4, d logE / d y within
+    FIT_GRAD_REL; then replays only."""
+    from gsmpm_tpu_torch.sim import solver
+
+    ident, _ = _thrown_ident(cuda)
+    state = ident.reset_state()
+    group = nccl_mesh.group
+    st_e, g_e = _golden_fit(ident, state, graph=False, group=group)
+    before = _golden_counts()
+    st_g, g_g = _golden_fit(ident, state, graph=True, group=group)
+    d = _golden_delta(before)
+    assert d["captures"] == 2
+    assert d["captures"] + d["replays"] == 2 * FIT_SUBSTEPS
+    assert next(reversed(solver._GOLDEN_FIT_GRAPHS.values())).group is group
+    _assert_states_close(st_g, st_e, ("x", "v", "C", "F"))
+    for a, b in zip(g_g, g_e):
+        assert float((a - b).abs().max()) <= FIT_GRAD_REL * float(
+            b.abs().max())
+    before = _golden_counts()
+    _golden_fit(ident, state, graph=True, group=group)
+    d = _golden_delta(before)
+    assert d["captures"] == 0 and d["replays"] == 2 * FIT_SUBSTEPS
