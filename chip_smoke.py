@@ -212,7 +212,9 @@ MESH_FIT_REL = dict(loss=2e-2, g_logE=1e-3, g_y=1e-3, logE=1e-6, y=1e-6)
 # a kernel row's numbers beyond the required keys, copied into the kernels
 # line: the share of the bound, K1 and K2 at the fit's shapes and their
 # blocks, K3's cull, K4/K5 per tier, the culled walks' blocks, cull,
-# all-walked bound, depth and rerun
+# all-walked bound, depth and rerun; K6's timed batches, its and its
+# float32 twin's error against the twin in float64, its registers, the
+# time of zero_ on its output's shape
 ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "fit_ms",
               "fit_plain_ms", "fit_bound_ms", "fit_bound_by", "fit_share",
               "fit_max_abs_err", "fit_rel_err", "fit_blocks",
@@ -220,7 +222,8 @@ ROW_EXTRAS = ("per_tier", "blocks", "rel_err", "share", "fit_ms",
               "bit_equal", "depth_max", "depth_mean", "mesh_rel_err",
               "mesh_max_abs_err", "mesh_ms", "mesh_K",
               "mesh_fit_max_abs_err", "mesh_fit_rel_err", "mesh_fit_ms",
-              "mesh_fit_K", "halo_rel_err")
+              "mesh_fit_K", "halo_rel_err", "ms_batches", "f64_rel_err",
+              "twin_f64_rel_err", "registers", "store_floor_ms")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -236,6 +239,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def batch_ms(fn, batches: int = 9, reps: int = 20):
+    """cuda_ms of fn over `batches` batches of `reps` calls: (the median,
+    every batch's ms)."""
+    ms = [cuda_ms(fn, reps, 2 if i == 0 else 0) for i in range(batches)]
+    return float(np.median(ms)), ms
+
+
+def card_state() -> str:
+    """nvidia-smi's SM and memory clocks, power draw and temperature."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -1876,10 +1895,15 @@ def blend_phases(dev, ident, first):
 
 def sored_phase(dev, ident, first):
     """K6 against its twin (the chunk form of transfer_vjp._sored_all) on
-    the fit state, with seeded window cotangents."""
+    the fit state, with seeded window cotangents: the twin's tolerance, row
+    63 and the dead chunks 0, a rerun's bits; K6's and the float32 twin's
+    error against the twin in float64 (printed, not held); K6's time as
+    the median of 9 batches of 20 launches; its build and launch
+    geometry."""
     from gsmpm_tpu_torch.sim import cuda_mpm, tiles
     from gsmpm_tpu_torch.sim import transfer_vjp as tv
     from gsmpm_tpu_torch.sim.kernels import soa_from_state
+    from gsmpm_tpu_torch.utils import build
 
     state = first[0]
     n = state.x.shape[0]
@@ -1891,21 +1915,48 @@ def sored_phase(dev, ident, first):
         np.float32)).to(dev)
     args = (ts.q, planes, ts.chunk_tile, ts.chunk_live, grid, tc)
     got = cuda_mpm.sored_tiled(*args)
+    again = cuda_mpm.sored_tiled(*args)
+    # timed before the twins: after their float32 and float64
+    # contractions this phase read K6 slower while zero_ did not move
+    # (PERF.md); the clocks are sampled before and after the batches
+    clk = [card_state()]
+    ms6, batches = batch_ms(lambda: cuda_mpm.sored_tiled(*args))
+    # the store stream alone: PyTorch's zero_ of a tensor of K6's output
+    # shape (the same bytes written, no arithmetic), a yardstick only
+    zms6 = batch_ms(torch.empty_like(got).zero_)[0]
+    clk.append(card_state())
     want = tv.sored_tiled_ref(*args)
+    want64 = tv.sored_tiled_ref(ts.q.double(), planes.double(),
+                                *args[2:])
     torch.cuda.synchronize()
-    rel = {}
+    # float64: the real slots whose stencil base floor(x inv_dx - 0.5) is
+    # the same in both precisions (a padding slot sits at a cell's centre,
+    # where float32 may round to the base below)
+    x = ts.q[tiles.RX:tiles.RX + 3]
+    same = torch.all(torch.floor(x * grid.inv_dx - 0.5).double()
+                     == torch.floor(x.double() * grid.inv_dx - 0.5), dim=0)
+    keep = (ts.q[tiles.RMASS] > 0) & same
+    rel, rel64, twin64 = {}, {}, {}
     for c in range(3):
         for gname, lo, hi in (("dW", 0, 3), ("dU", 3, 12), ("dD", 12, 21)):
             rows = slice(21 * c + lo, 21 * c + hi)
             scale = float(want[rows].abs().max())
             rel[f"{gname}{c}"] = float((got[rows] - want[rows]).abs().max()
                                        ) / max(scale, 1e-30)
+            ref = want64[rows][:, keep]
+            s64 = max(float(ref.abs().max()), 1e-300)
+            rel64[f"{gname}{c}"] = float(
+                (got[rows][:, keep].double() - ref).abs().max()) / s64
+            twin64[f"{gname}{c}"] = float(
+                (want[rows][:, keep].double() - ref).abs().max()) / s64
     err6 = float((got - want).abs().max())
+    live = torch.repeat_interleave(ts.chunk_live == 1, tc.S)
     # fp32 sums over the 27 stencil nodes in another order than the twin's
     # bmm contractions: 1e-4 of each row group's largest entry
     check(max(rel.values()) <= 1e-4, f"K6 sored: rel err {rel}")
     check(float(got[63].abs().max()) == 0.0, "K6 sored: padding row")
-    ms6 = cuda_ms(lambda: cuda_mpm.sored_tiled(*args), 20)
+    check(float(got[:, ~live].abs().sum()) == 0.0, "K6 sored: dead chunks")
+    check(torch.equal(got, again), "K6 sored: a rerun's bits differ")
     pms6 = cuda_ms(lambda: tv.sored_tiled_ref(*args), 1, 1)
     n_live = int(ts.chunk_live.sum()) * tc.S
     n_real = int((ts.q[tiles.RMASS] > 0).sum())
@@ -1916,17 +1967,39 @@ def sored_phase(dev, ident, first):
     # multiply-adds, ~2,800 flops
     b6 = bound_ms(n_live * 3 * 4 + occupied * 48 * 256 * 4
                   + 64 * tc.np_rows * 4, n_real * 2808.0)
+    info = cuda_mpm.sored_launch_info(tc.nchunk)
+    log = build.BUILD_DIR / "mpm_sored.log"
+    ptxas = [ln.strip() for ln in (log.read_text().splitlines()
+                                   if log.exists() else [])
+             if "registers" in ln or "spill" in ln or "smem" in ln]
     print(f"K6 sored: NP {tc.np_rows}, live slots {n_live}, occupied tiles "
           f"{occupied}: rel err " + ", ".join(f"{k} {v:.3g}"
                                               for k, v in rel.items())
-          + f"; {ms6:.4f} ms (plain {pms6:.2f} ms, bound {b6[0]:.4f} "
-          f"{b6[1]})", flush=True)
+          + f"; {ms6:.4f} ms median of 9 x 20 launches (spread "
+          f"{min(batches):.4f}-{max(batches):.4f}; plain {pms6:.2f} ms, "
+          f"bound {b6[0]:.4f} {b6[1]}, share {b6[0] / ms6:.3f}; zero_ of "
+          f"the output's shape {zms6:.4f} ms; SM, memory clocks, power, "
+          f"temperature before / after: {' / '.join(clk)}); rerun "
+          f"bit-equal, row 63 and {tc.nchunk - n_live // tc.S} dead chunks "
+          f"0", flush=True)
+    print(f"K6 vs the twin in float64 ({int(keep.sum())} real slots, "
+          f"{int((~same).sum())} slots whose base differs left out): K6 "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel64.items())
+          + "; float32 twin " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in twin64.items()),
+          flush=True)
+    print(f"K6 build: {'; '.join(ptxas) or 'no build log (built earlier)'}"
+          f"; launch {info}", flush=True)
     return dict(
         name="sored_tiled", route="cuda",
         source="gsmpm_tpu_torch/csrc/mpm_sored.cu",
         replaces="gsmpm_tpu/sim/pallas_mpm.py:443", max_abs_err=err6,
         tol="1e-4 x max per row group", ms=ms6, plain_ms=pms6,
         bound_ms=b6[0], bound_by=b6[1], library_ms=None,
+        rel_err=rel, ms_batches=batches, f64_rel_err=rel64,
+        twin_f64_rel_err=twin64, registers=info["registers"],
+        store_floor_ms=zms6,
+        blocks=info["ctas"], bit_equal=True,
         wrapper=cuda_mpm.sored_tiled)
 
 

@@ -33,7 +33,7 @@ from gsmpm_tpu_torch.sim.tiles import (
 from gsmpm_tpu_torch.utils import build
 
 __all__ = ["p2g_tiled", "g2p_tiled", "g2p_blocks", "sored_tiled",
-           "p2g_tiled_ref", "g2p_tiled_ref"]
+           "sored_launch_info", "p2g_tiled_ref", "g2p_tiled_ref"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -139,7 +139,24 @@ def _sored_lib():
     lib.gsmpm_sored_tiled.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP]
     lib.gsmpm_sored_tiled.restype = ctypes.c_int
+    lib.gsmpm_sored_info.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.gsmpm_sored_info.restype = ctypes.c_int
     return lib
+
+
+_SORED_INFO = ("ctas", "threads", "smem_bytes", "registers", "local_bytes",
+               "ctas_per_sm", "sms")
+
+
+def sored_launch_info(nchunk: int) -> dict:
+    """K6's launch over nchunk chunks on the current device, as the CUDA
+    runtime reports it: its persistent grid (CTAs, CTAs per SM, SMs), the
+    threads and dynamic shared memory of a CTA, and the kernel's registers
+    and local (spill) bytes per thread."""
+    lib = _sored_lib()
+    info = (_I * len(_SORED_INFO))()
+    build.check(lib, lib.gsmpm_sored_info(nchunk, info), "sored_launch_info")
+    return dict(zip(_SORED_INFO, info))
 
 
 def sored_tiled(q: torch.Tensor, win_planes: torch.Tensor,
@@ -159,6 +176,8 @@ def sored_tiled(q: torch.Tensor, win_planes: torch.Tensor,
     _need(q, "q", (QROWS, tc.np_rows), torch.float32, dev)
     _need(win_planes, "win_planes", (tc.ntiles, 48, 256),
           torch.float32, dev)
+    if win_planes.data_ptr() % 16:
+        raise ValueError("win_planes must start on 16 bytes (bulk copies)")
     for name, t in (("chunk_tile", chunk_tile), ("chunk_live", chunk_live)):
         _need(t, name, (tc.nchunk,), torch.int32, dev)
     out = torch.empty((64, tc.np_rows), dtype=torch.float32, device=dev)

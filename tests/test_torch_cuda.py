@@ -733,6 +733,106 @@ def test_sored_kernel_matches_twin(cuda):
     assert float(got[63].abs().max()) == 0.0
 
 
+def _edge_tiled_state(dev, n_grid=32, n_bulk=300_000, n_face=2_000):
+    """A tiled state over every tile of an n_grid^3 unit domain: n_bulk
+    particles spread uniformly, n_face whose coordinate on each axis lies,
+    with probability 1/3 each, within half a cell of the low face, of the
+    high face or anywhere (so stencils fold at both faces of every axis,
+    corners included).  Chunk tables of sharded_tile_config for 2 ranks."""
+    from gsmpm_tpu_torch.parallel.tiled_sharded import sharded_tile_config
+    from gsmpm_tpu_torch.sim.state import GridConfig
+
+    rng = np.random.default_rng(7)
+    grid = GridConfig(n_grid, 1.0)
+    half = 0.5 * grid.dx
+    kind = rng.integers(0, 3, (n_face, 3))       # per particle and axis
+    coord = np.where(kind == 0, rng.uniform(0, half, (n_face, 3)),
+                     np.where(kind == 1, rng.uniform(1 - half, 1, (n_face, 3)),
+                              rng.uniform(0, 1, (n_face, 3))))
+    x = np.concatenate([rng.uniform(0, 1, (n_bulk, 3)), coord])
+    n = x.shape[0]
+    tc = sharded_tile_config(n_grid, n, 2)
+    NP = tc.np_rows
+    q = torch.zeros((tiles.QROWS, NP), device=dev)
+    q[tiles.RX:tiles.RX + 3, :n] = torch.from_numpy(
+        x.T.astype(np.float32)).to(dev)
+    q[tiles.RMASS, :n] = 1.0
+    zeros = torch.zeros((tc.nchunk,), dtype=torch.int32, device=dev)
+    ts = tiles.TiledState(
+        q=q, aux=torch.zeros((tiles.AUXROWS, NP), device=dev),
+        material=torch.zeros((NP,), dtype=torch.int32, device=dev),
+        orig=torch.cat([torch.arange(n, device=dev),
+                        torch.full((NP - n,), -1, device=dev)]),
+        chunk_tile=zeros, chunk_first=zeros, chunk_live=zeros,
+        need_rebucket=torch.zeros((), dtype=torch.bool, device=dev),
+        ok=torch.ones((), dtype=torch.bool, device=dev))
+    return tiles.rebucket(ts, grid, tc), grid, tc
+
+
+def test_sored_kernel_edges(cuda):
+    """K6's persistent grid at its edges, against the twin: CTAs whose
+    chunks lie in several tiles, the dead tail (exact zeros, as row 63),
+    stencils folded at both faces of every axis, a rank's slice of the
+    chunk tables (parallel/tiled_sharded.shard_tiled) whose chunk count
+    does not divide among the CTAs, chunks in a shuffled order (tables
+    that revisit tiles, dead chunks among live ones), and two launches
+    with equal bits."""
+    from gsmpm_tpu_torch.parallel.mesh import Mesh
+    from gsmpm_tpu_torch.parallel.tiled_sharded import shard_tiled
+
+    ts, grid, tc = _edge_tiled_state(cuda)
+    assert bool(ts.ok)
+    mesh = Mesh(axis_names=("data",), sizes=(2,), rank=1, world_size=2,
+                device=cuda, group=None, coords=(1,), axis_groups=(None,))
+    ts1 = shard_tiled(ts, mesh, tc)
+    ncl = tc.nchunk // 2
+    # the rank's slice as its own tile config: the same cap, ncl chunks
+    tc1 = tc._replace(n_particles=(ncl - tc.occ_cap) * tc.S)
+    assert tc1.nchunk == ncl
+    rng = np.random.default_rng(3)
+    perm = torch.from_numpy(rng.permutation(tc.nchunk)).to(cuda)
+    slots = (perm[:, None] * tc.S + torch.arange(tc.S, device=cuda)).ravel()
+    shuffled = (ts.q[:, slots].contiguous(), ts.chunk_tile[perm].contiguous(),
+                ts.chunk_live[perm].contiguous())
+    planes = torch.from_numpy(rng.normal(size=(tc.ntiles, 48, 256))
+                              .astype(np.float32)).to(cuda)
+    for q, ctile, clive, cfg in (
+            (ts.q, ts.chunk_tile, ts.chunk_live, tc),
+            (ts1.q, ts1.chunk_tile, ts1.chunk_live, tc1),
+            shuffled + (tc,)):
+        live = clive.cpu().numpy() == 1
+        nchunk = cfg.nchunk
+        info = cuda_mpm.sored_launch_info(nchunk)
+        n = info["ctas"]
+        assert info["local_bytes"] == 0, info
+        # what the edges need: dead chunks, more chunks than CTAs and a
+        # remainder, and a CTA (chunks cta, cta + n, ...) whose live
+        # chunks lie in two tiles
+        assert not live.all() and nchunk > n and nchunk % n, (nchunk, n)
+        tiles_of = ctile.cpu().numpy()
+        assert max(np.unique(tiles_of[i::n][live[i::n]]).size
+                   for i in range(n)) >= 2
+        args = (q, planes, ctile, clive, grid, cfg)
+        # stale NaNs where the output will be allocated: every element the
+        # kernel leaves unwritten would show
+        torch.full((64, cfg.np_rows), float("nan"), device=cuda)
+        got = cuda_mpm.sored_tiled(*args)
+        again = cuda_mpm.sored_tiled(*args)
+        want = tv.sored_tiled_ref(*args)
+        assert torch.equal(got, again)
+        for c in range(3):
+            for lo, hi in ((0, 3), (3, 12), (12, 21)):
+                rows = slice(21 * c + lo, 21 * c + hi)
+                scale = float(want[rows].abs().max())
+                assert scale > 0
+                err = float((got[rows] - want[rows]).abs().max())
+                assert err <= 1e-4 * scale, (c, lo, err, scale)
+        assert float(got[63].abs().max()) == 0.0
+        dead = torch.from_numpy(np.repeat(~live, cfg.S)).to(cuda)
+        assert float(got[:, dead].abs().max()) == 0.0
+        assert bool(torch.isfinite(got).all())
+
+
 def test_fit_frame_gpu_matches_cpu(cuda):
     """One fit frame (3 tiled-VJP substeps, the windowed render, loss,
     backward, SGD) on the GPU kernels and on the CPU twins."""
