@@ -37,7 +37,6 @@ import csv
 import json
 import os
 import random
-import time
 from typing import Optional
 
 import numpy as np
@@ -51,6 +50,7 @@ from gsmpm_tpu_torch.render.renderer import RasterConfig
 from gsmpm_tpu_torch.sim.fitting import FitConfig, SystemIdentifier, cfl_dt_limit
 from gsmpm_tpu_torch.sim.tiles import _drop_group_graphs
 from gsmpm_tpu_torch.utils import resolve_device
+from gsmpm_tpu_torch.utils.spans import span
 
 MODEL_ROOT = "models_extra"
 IMAGE_WH = 512
@@ -249,23 +249,23 @@ def _identify(args, stats, dev, dataset, mesh, route):
         for fid in range(n_frames):
             cam_id = (rng.randrange(len(cameras)) if dataset is not None
                       else fid % len(cameras))
-            t0 = time.perf_counter()
-            if fid == 0:
-                if args.no_appearance:
-                    continue
-                loss = ident.appearance_step(opt, params,
-                                             camera=cameras[cam_id],
-                                             gt_image=gt_for(0, cam_id))
-                # appearance moved the gaussians: rebuild the sim state
-                state = ident.reset_state()
-            elif fit_camdp is not None:
-                loss, state, t = fit_camdp(state, t, fid)
-            else:
-                loss, state, t, _ = ident.fit_frame(state, t, cameras[cam_id],
-                                                    gt_for(fid, cam_id))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            secs = time.perf_counter() - t0
+            if fid == 0 and args.no_appearance:
+                continue
+            with span("app.frame", clock=True) as whole:
+                if fid == 0:
+                    loss = ident.appearance_step(opt, params,
+                                                 camera=cameras[cam_id],
+                                                 gt_image=gt_for(0, cam_id))
+                    # appearance moved the gaussians: rebuild the sim state
+                    state = ident.reset_state()
+                elif fit_camdp is not None:
+                    loss, state, t = fit_camdp(state, t, fid)
+                else:
+                    loss, state, t, _ = ident.fit_frame(
+                        state, t, cameras[cam_id], gt_for(fid, cam_id))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            secs = whole.seconds
             E, nu = ident.optimized_E, ident.optimized_nu
             if writer is not None:
                 writer.writerow([iteration, fid, float(loss), E, nu])

@@ -91,6 +91,7 @@ from gsmpm_tpu_torch.sim.tiles import (
 )
 from gsmpm_tpu_torch.sim.volume import particle_volume
 from gsmpm_tpu_torch.utils import resolve_device
+from gsmpm_tpu_torch.utils.spans import span
 
 _MAX_DROPFREE_REBUILDS = 6
 
@@ -137,10 +138,11 @@ class SimSetup:
 
     def world(self, x, cov):
         """Grid-space means and 6-packed covs -> world space."""
-        w_xyz, w_cov = grid2world(x, cov, self.scaling, self.pos_center,
-                                  self.grid_extent)
-        return (apply_inverse_rotations(w_xyz, self.mats),
-                apply_inverse_cov_rotations(w_cov, self.mats))
+        with span("render.world"):
+            w_xyz, w_cov = grid2world(x, cov, self.scaling, self.pos_center,
+                                      self.grid_extent)
+            return (apply_inverse_rotations(w_xyz, self.mats),
+                    apply_inverse_cov_rotations(w_cov, self.mats))
 
 
 def prepare(cfg: SimConfig, synthetic: Optional[int] = None,
@@ -372,11 +374,11 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
                       f"k_row {rcfg.k_row}, k_block {rcfg.k_block})")
 
     def emit(fid, st, R):
-        t0 = time.perf_counter()
-        img, nd = do_render(st, R)
-        frame = img.cpu().numpy()
+        with span("app.render", clock=True) as rendered:
+            img, nd = do_render(st, R)
+            frame = img.cpu().numpy()
         if stats is not None:
-            stats["render_s"].append(time.perf_counter() - t0)
+            stats["render_s"].append(rendered.seconds)
             stats["n_dropped"].append(nd)
         if nd and not quiet:
             print(f"WARNING: frame {fid}: {nd} candidates still dropped "
@@ -409,41 +411,45 @@ def simulate(cfg: SimConfig, synthetic: Optional[int] = None,
     frames_np = [emit(start_frame - 1, state, None)]
     ts = None  # the tiled engine's persistent state, bootstrapped lazily
     for fid in range(start_frame, num_frames + 1):
-        t0 = time.perf_counter()
-        if use_mesh:
-            state, t_sim, R = engine.frame(state, model, t_sim)
-        else:
-            out = tiled_frame(state, t_sim, ts) if engine == "tiled" else None
-            if out is not None:
-                ts, state, t_sim, R = out
-            else:
-                if engine == "tiled" and not quiet:
-                    print(f"frame {fid}: more occupied tiles than the tile "
-                          f"cap ({tc.occ_cap}); redoing the frame on the "
-                          "golden engine, which runs from here on",
-                          flush=True)
-                engine = "golden"
-                state, t_sim, R = golden_frame(state, t_sim)
-        _sync(dev)
-        sim_s = time.perf_counter() - t0
-        if stats is not None:
-            stats["sim_s"].append(sim_s)
-            stats["engine"].append(engine.engine if use_mesh else engine)
-        frames_np.append(emit(fid, state, R))
+        with span("app.frame", clock=True) as whole:
+            with span("sim.frame", clock=True,
+                      request=True) as simulated:
+                if use_mesh:
+                    state, t_sim, R = engine.frame(state, model, t_sim)
+                else:
+                    out = (tiled_frame(state, t_sim, ts) if engine == "tiled"
+                           else None)
+                    if out is not None:
+                        ts, state, t_sim, R = out
+                    else:
+                        if engine == "tiled" and not quiet:
+                            print(f"frame {fid}: more occupied tiles than "
+                                  f"the tile cap ({tc.occ_cap}); redoing the "
+                                  "frame on the golden engine, which runs "
+                                  "from here on", flush=True)
+                        engine = "golden"
+                        state, t_sim, R = golden_frame(state, t_sim)
+                _sync(dev)
+            sim_s = simulated.seconds
+            if stats is not None:
+                stats["sim_s"].append(sim_s)
+                stats["engine"].append(engine.engine if use_mesh else engine)
+            frames_np.append(emit(fid, state, R))
 
-        if checkpoint_interval and fid % checkpoint_interval == 0:
-            st_u, md_u = full((state, model))
-            if rank0:
-                save_checkpoint(ckpt_dir, fid, (st_u, md_u, t_sim),
-                                extra={"frame": fid})
-        if cfg.render.save_pcd and fid % cfg.render.save_pcd_interval == 0:
-            w_xyz, _ = su.world(*full((state.x, state.cov)))
-            if rank0:
-                scene.with_xyz_at(su.sim_idx, w_xyz).save_ply(os.path.join(
-                    out_dir, "point_cloud", f"iteration_{fid}",
-                    "point_cloud.ply"))
+            if checkpoint_interval and fid % checkpoint_interval == 0:
+                st_u, md_u = full((state, model))
+                if rank0:
+                    save_checkpoint(ckpt_dir, fid, (st_u, md_u, t_sim),
+                                    extra={"frame": fid})
+            if (cfg.render.save_pcd
+                    and fid % cfg.render.save_pcd_interval == 0):
+                w_xyz, _ = su.world(*full((state.x, state.cov)))
+                if rank0:
+                    scene.with_xyz_at(su.sim_idx, w_xyz).save_ply(
+                        os.path.join(out_dir, "point_cloud",
+                                     f"iteration_{fid}", "point_cloud.ply"))
         if not quiet:
-            print(f"frame {fid}/{num_frames}  {time.perf_counter() - t0:.2f}s "
+            print(f"frame {fid}/{num_frames}  {whole.seconds:.2f}s "
                   f"(sim {sim_s:.3f}s, {n_steps / sim_s:.2f} substeps/s)",
                   flush=True)
 

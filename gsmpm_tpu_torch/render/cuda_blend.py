@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from gsmpm_tpu_torch.utils import build
+from gsmpm_tpu_torch.utils.spans import span
 
 # candidate plane rows (renderer._raw_planes_nosentinel layout)
 CGX, CGY, CA, CB, CC, CLOGO, CR, CG, CB_, CRAD = range(10)
@@ -391,10 +392,11 @@ class _BlendCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        F, out = ctx.saved_tensors
-        g8 = torch.zeros_like(out)
-        g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
-        return blend_bwd(F, out, g8, ctx.meta), None, None
+        with span("render.backward"):
+            F, out = ctx.saved_tensors
+            g8 = torch.zeros_like(out)
+            g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
+            return blend_bwd(F, out, g8, ctx.meta), None, None
 
 
 def blend_inputs(cand_raw: torch.Tensor, counts: torch.Tensor,
@@ -558,11 +560,12 @@ class _BlendCorePacked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        F, counts, offs, out = ctx.saved_tensors
-        g8 = torch.zeros_like(out)
-        g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
-        return (blend_packed_bwd(counts, offs, F, out, g8, ctx.meta), None,
-                None, None)
+        with span("render.backward"):
+            F, counts, offs, out = ctx.saved_tensors
+            g8 = torch.zeros_like(out)
+            g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
+            return (blend_packed_bwd(counts, offs, F, out, g8, ctx.meta),
+                    None, None, None)
 
 
 def packed_inputs(cand_packed: torch.Tensor, slot_x0: torch.Tensor,

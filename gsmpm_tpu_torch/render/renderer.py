@@ -33,6 +33,7 @@ import torch
 
 from gsmpm_tpu_torch.render.camera import Camera
 from gsmpm_tpu_torch.render.sh import C0, band_basis
+from gsmpm_tpu_torch.utils.spans import span
 
 
 class RasterConfig(NamedTuple):
@@ -616,13 +617,14 @@ def render_with_aux(
     reference has no caps, so callers resize and re-render when it is > 0.
     Differentiable on every path.
     """
-    pre = preprocess(means3d, cov6, opacity, shs, camera, sh_degree, cfg,
-                     colors_precomp)
-    if cfg.stream:
-        from gsmpm_tpu_torch.render.stream_raster import render_stream
+    with span("render"):
+        pre = preprocess(means3d, cov6, opacity, shs, camera, sh_degree, cfg,
+                         colors_precomp)
+        if cfg.stream:
+            from gsmpm_tpu_torch.render.stream_raster import render_stream
 
-        return render_stream(pre, camera, bg, cfg)
-    return _render_windowed(pre, camera, bg, cfg)
+            return render_stream(pre, camera, bg, cfg)
+        return _render_windowed(pre, camera, bg, cfg)
 
 
 def _xla_stream_counts(pre: Preprocessed, camera: Camera, cfg: RasterConfig):

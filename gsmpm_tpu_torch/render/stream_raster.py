@@ -40,6 +40,7 @@ from gsmpm_tpu_torch.render.renderer import (
     preprocess,
 )
 from gsmpm_tpu_torch.utils import build
+from gsmpm_tpu_torch.utils.spans import span
 
 SENT = 2 ** 31 - 1  # sort key of an unused emission slot
 _TWIN_CHUNK = 32    # slots per step of the plain blend twin
@@ -544,11 +545,12 @@ class _StreamCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        splanes, bounds, out = ctx.saved_tensors
-        g8 = torch.zeros_like(out)
-        g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
-        dsp = stream_blend_bwd(splanes, bounds, out, g8, *ctx.args)
-        return dsp, None, None, None, None, None
+        with span("render.backward"):
+            splanes, bounds, out = ctx.saved_tensors
+            g8 = torch.zeros_like(out)
+            g8[:, 0:4] = g[:, 0:4]  # the bookkeeping rows carry no cotangent
+            dsp = stream_blend_bwd(splanes, bounds, out, g8, *ctx.args)
+            return dsp, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,7 @@ from gsmpm_tpu_torch.sim.state import (
 )
 from gsmpm_tpu_torch.sim.tiles import run_substeps_tiled_fitting
 from gsmpm_tpu_torch.sim.volume import particle_volume
+from gsmpm_tpu_torch.utils.spans import span
 
 
 class FitConfig(NamedTuple):
@@ -126,7 +127,9 @@ def fit_substeps(engine: str, state: MPMState, model, bcs, t: float,
         soa, t, ok = run_substeps_tiled_fitting(
             soa_from_state(state), model, bcs, t, n_sub, grid, dt,
             group=group)
-        return state_from_soa(soa), t, bool(ok)
+        with span("fit.unpack"):
+            state = state_from_soa(soa)
+        return state, t, bool(ok)
     state, t = run_substeps(state, model, bcs, t, n_sub, grid, dt,
                             fitting=True, checkpoint_policy="substep",
                             group=group)
@@ -305,9 +308,10 @@ class SystemIdentifier:
         ok), recorded by autograd from (logE, y).  ok is False when the
         tiled engine overflowed its occupied-tile cap (nothing is rendered
         then)."""
-        mu, lam = mu_lam_from_logE_y(logE, y)
-        model = dataclasses.replace(self.model, logE=logE, y=y, mu=mu,
-                                    lam=lam)
+        with span("fit.params"):
+            mu, lam = mu_lam_from_logE_y(logE, y)
+            model = dataclasses.replace(self.model, logE=logE, y=y, mu=mu,
+                                        lam=lam)
         fcfg = self.fit_cfg
         state2, t2, ok = fit_substeps(
             self.sim_engine, state, model, self.bcs, t,
@@ -315,13 +319,15 @@ class SystemIdentifier:
             fcfg.frame_dt / fcfg.substeps_per_frame)
         if not ok:
             return None, state2, t2, None, 0, False
-        xyz_w, cov_w = self._world_geometry(state2)
-        opacity, features = self._appearance()
+        with span("fit.geometry"):
+            xyz_w, cov_w = self._world_geometry(state2)
+            opacity, features = self._appearance()
         img, nd = render_with_aux(xyz_w, cov_w, opacity, features, camera,
                                   self.bg, self.scene.sh_degree,
                                   self.raster_cfg)
-        return (photometric_loss(img, gt_image), state2, t2, img, int(nd),
-                True)
+        with span("fit.loss"):
+            loss = photometric_loss(img, gt_image)
+        return loss, state2, t2, img, int(nd), True
 
     def fit_frame(self, state: MPMState, t: float, camera: Camera,
                   gt_image):
@@ -329,8 +335,14 @@ class SystemIdentifier:
 
         Returns (loss, new_state, new_t, rendered_image), all detached;
         updates self.model's logE / y."""
-        if self.mesh is not None:
-            return self._fit_frame_sharded(state, t, camera, gt_image)
+        with span("fit.frame", request=True):
+            if self.mesh is not None:
+                return self._fit_frame_sharded(state, t, camera, gt_image)
+            return self._fit_frame(state, t, camera, gt_image)
+
+    def _fit_frame(self, state: MPMState, t: float, camera: Camera,
+                   gt_image):
+        """fit_frame on one device."""
 
         def attempt():
             logE = self.model.logE.detach().requires_grad_(True)
@@ -342,8 +354,9 @@ class SystemIdentifier:
                     detach_state(state2))
 
         loss, state2, t2, img, logE, y = self._drop_free(attempt, camera)
-        g_logE, g_y = torch.autograd.grad(loss, (logE, y))
-        with torch.no_grad():
+        with span("fit.backward", glue=True):
+            g_logE, g_y = torch.autograd.grad(loss, (logE, y))
+        with span("fit.update"), torch.no_grad():
             new_logE, new_y = sgd_learn(logE.detach(), y.detach(), g_logE,
                                         g_y, self.fit_cfg)
             self._set_params(new_logE, new_y)
@@ -476,17 +489,23 @@ class SystemIdentifier:
         scene takes the new parameters.  Returns the loss.  ``opt`` (from
         make_appearance_optimizer) holds what gsmpm_tpu passes as optax's
         ``tx`` and ``opt_state``."""
-        opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            sc = GaussianScene(rotation=self.scene.rotation,
-                               sh_degree=self.scene.sh_degree,
-                               **{k: params[k] for k in _APPEARANCE})
-            img = render(sc.xyz, sc.get_covariance(),
-                         sc.get_opacity().reshape(-1), sc.get_features(),
-                         camera, self.bg, sc.sh_degree, self.raster_cfg)
-            loss = photometric_loss(img, gt_image)
-            loss.backward()
-        opt.step()
-        self.scene = dataclasses.replace(
-            self.scene, **{k: params[k].detach() for k in _APPEARANCE})
-        return loss.detach()
+        with span("fit.appearance", request=True):
+            opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                with span("fit.geometry"):
+                    sc = GaussianScene(rotation=self.scene.rotation,
+                                       sh_degree=self.scene.sh_degree,
+                                       **{k: params[k] for k in _APPEARANCE})
+                    geom = (sc.get_covariance(), sc.get_opacity().reshape(-1),
+                            sc.get_features())
+                img = render(sc.xyz, *geom, camera, self.bg, sc.sh_degree,
+                             self.raster_cfg)
+                with span("fit.loss"):
+                    loss = photometric_loss(img, gt_image)
+                with span("fit.backward", glue=True):
+                    loss.backward()
+            with span("fit.update"):
+                opt.step()
+                self.scene = dataclasses.replace(
+                    self.scene, **{k: params[k].detach() for k in _APPEARANCE})
+            return loss.detach()

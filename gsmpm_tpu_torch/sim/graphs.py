@@ -21,6 +21,8 @@ import dataclasses
 import torch
 import torch.distributed
 
+from gsmpm_tpu_torch.utils.spans import span
+
 
 class _Captured:
     """A body that works in place on static buffers, run as a CUDA graph.
@@ -42,8 +44,6 @@ class _Captured:
         self.launches = {}  # wrapper -> launches one replay holds
 
     def __call__(self, body) -> None:
-        from gsmpm_tpu_torch.sim import cuda_mpm
-
         if self.graph is not None:
             self.graph.replay()
             self.counters.replays += 1
@@ -53,6 +53,14 @@ class _Captured:
         if self.device.type != "cuda":
             body()
             return
+        with span("graph.capture"):
+            self._capture(body)
+
+    def _capture(self, body) -> None:
+        """The first call on CUDA: warm-up on the current stream, then one
+        capture on a side stream."""
+        from gsmpm_tpu_torch.sim import cuda_mpm
+
         wrappers = (cuda_mpm.p2g_tiled, cuda_mpm.g2p_tiled,
                     cuda_mpm.sored_tiled)
         # the warm-up stays on the current stream: run on the capture

@@ -83,6 +83,7 @@ from gsmpm_tpu_torch.sim.tiles import (
     frame_tiled,
 )
 from gsmpm_tpu_torch.utils import resolve_device
+from gsmpm_tpu_torch.utils.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -667,10 +668,11 @@ def postprocess(state: MPMState, rotate_sh: bool = False):
     Returns (cov6 (N,6), R (N,3,3) or None); R follows the reference's
     stored-transpose convention.
     """
-    cov6_p, R_p = postprocess_soa(soa_from_state(state), rotate_sh)
-    cov6 = torch.stack(cov6_p, dim=-1)
-    R = m33.to_aos(R_p) if R_p is not None else None
-    return cov6, R
+    with span("sim.postprocess"):
+        cov6_p, R_p = postprocess_soa(soa_from_state(state), rotate_sh)
+        cov6 = torch.stack(cov6_p, dim=-1)
+        R = m33.to_aos(R_p) if R_p is not None else None
+        return cov6, R
 
 
 # ---------------------------------------------------------------------------
@@ -743,13 +745,14 @@ class MPMSolver:
     def step_frame(self, n_substeps: Optional[int] = None):
         """Advance one frame of n_substeps (default cfg.steps_per_frame)."""
         n = int(n_substeps or self.cfg.steps_per_frame)
-        if self.use_tiled and self._step_frame_tiled(n):
-            return
-        self.state, self.time = run_substeps(
-            self.state, self.model, self.bcs, self.time, n, self.grid,
-            self.cfg.substep_dt, checkpoint_policy=None,
-            incremental_cov=self.cfg.incremental_cov,
-        )
+        with span("sim.frame", request=True):
+            if self.use_tiled and self._step_frame_tiled(n):
+                return
+            self.state, self.time = run_substeps(
+                self.state, self.model, self.bcs, self.time, n, self.grid,
+                self.cfg.substep_dt, checkpoint_policy=None,
+                incremental_cov=self.cfg.incremental_cov,
+            )
 
     def invalidate_tiled(self):
         """Drop the tiled mirror (call after mutating self.state in place)."""
@@ -761,8 +764,9 @@ class MPMSolver:
         if self._ts is None:
             self._tc = default_tile_config(self.cfg.n_grid,
                                            self.state.n_particles)
-            self._ts = bootstrap(soa_from_state(self.state), self.model,
-                                 self.grid, self._tc)
+            with span("sim.load"):
+                self._ts = bootstrap(soa_from_state(self.state), self.model,
+                                     self.grid, self._tc)
         ts = self._ts
         if bool(ts.ok):
             ts, soa, time = frame_tiled(
@@ -772,7 +776,9 @@ class MPMSolver:
             self.use_tiled = False
             self._ts = None
             return False
-        self._ts, self.state, self.time = ts, state_from_soa(soa), time
+        with span("sim.unpack"):
+            state = state_from_soa(soa)
+        self._ts, self.state, self.time = ts, state, time
         return True
 
     def postprocess(self):

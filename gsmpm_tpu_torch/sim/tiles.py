@@ -64,6 +64,7 @@ from gsmpm_tpu_torch.sim.graphs import (  # noqa: F401 (tiles' names)
 )
 from gsmpm_tpu_torch.sim.kernels import SoAState, grid_update_soa
 from gsmpm_tpu_torch.sim.state import GridConfig, MPMModel
+from gsmpm_tpu_torch.utils.spans import span
 
 # packed q row indices
 RX = 0       # 0..2   position (grid coords)
@@ -801,9 +802,11 @@ class _SubstepGraph(_StaticState):
         if self.group is None:
             frame_tiled.host_reads += 1
             if bool(self.ts.need_rebucket):
-                self._assign(rebucket(self.ts, self.grid, self.tc))
+                with span("sim.rebucket"):
+                    self._assign(rebucket(self.ts, self.grid, self.tc))
                 frame_tiled.rebuckets += 1
-        self.substep(self._body)
+        with span("sim.substep"):
+            self.substep(self._body)
 
 
 # captured substeps, least recently used first
@@ -844,18 +847,22 @@ def frame_tiled(
     ``substep_tiled``.
     """
     if ts.q.device.type == "cuda":
-        graph = _substep_graph(ts, model, bcs, grid, tc, dt)
-        graph.load(ts, time)
+        with span("sim.load"):
+            graph = _substep_graph(ts, model, bcs, grid, tc, dt)
+            graph.load(ts, time)
         for _ in range(n_substeps):
             graph.step()
             time = _advance(time, dt)
-        ts = graph.state()
     else:
         for _ in range(n_substeps):
-            ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
+            with span("sim.substep"):
+                ts = substep_tiled(ts, model, bcs, time, grid, tc, dt)
             time = _advance(time, dt)
-    q = to_original_order(ts, tc.n_particles)
-    return ts, unpack_q(q, soa_template), time
+    with span("sim.unpack"):
+        if ts.q.device.type == "cuda":
+            ts = graph.state()
+        q = to_original_order(ts, tc.n_particles)
+        return ts, unpack_q(q, soa_template), time
 
 
 frame_tiled.captures = frame_tiled.replays = 0
@@ -885,15 +892,21 @@ def _fitting_transfer(q, aux, ct, cf, cl, model: MPMModel, bcs, time: float,
     return torch.cat([new_q[:RF], new_q[RFT:RFT + 9], new_q[RF + 9:]])
 
 
-def _drift_rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig):
+def _drift_rebucket(ts: TiledState, grid: GridConfig, tc: TileConfig,
+                    into: Optional["_StaticState"] = None):
     """The host part of a fitting substep: the drift flag read on the host
     (one device->host read), and on drift the rebucket, whose ``ok`` is
-    sticky (a later successful rebucket must not mask an overflow).
-    Returns (ts, the permutation (src_c, has_src) or None)."""
+    sticky (a later successful rebucket must not mask an overflow), copied
+    into ``into``'s buffers if given.  Returns (ts, the permutation
+    (src_c, has_src) or None)."""
     if not bool(ts.need_rebucket):
         return ts, None
-    s2, src_c, has_src = _rebucket(ts, grid, tc)
-    return dataclasses.replace(s2, ok=s2.ok & ts.ok), (src_c, has_src)
+    with span("fit.prepare"):   # after the read: its wait lies outside
+        s2, src_c, has_src = _rebucket(ts, grid, tc)
+        s2 = dataclasses.replace(s2, ok=s2.ok & ts.ok)
+        if into is not None:
+            into._assign(s2)
+    return s2, (src_c, has_src)
 
 
 def substep_tiled_fitting(
@@ -972,10 +985,9 @@ class _FittingGraphs(_StaticState):
         new rows and tables copied in).  Returns the rebucketed state,
         whose tensors are its own, and its permutation, or (None, None)."""
         run_substeps_tiled_fitting.host_reads += 1
-        ts, perm = _drift_rebucket(self.ts, self.grid, self.tc)
+        ts, perm = _drift_rebucket(self.ts, self.grid, self.tc, into=self)
         if perm is None:
             return None, None
-        self._assign(ts)
         run_substeps_tiled_fitting.rebuckets += 1
         return ts, perm
 
@@ -1051,9 +1063,16 @@ class _FittingWindow(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, aux, ts, graphs, time, n_substeps):
+        with span("fit.forward"):
+            return _FittingWindow._forward(ctx, q, aux, ts, graphs, time,
+                                           n_substeps)
+
+    @staticmethod
+    def _forward(ctx, q, aux, ts, graphs, time, n_substeps):
         g = graphs
-        g.load(ts, time)
-        stack = q.new_empty((n_substeps,) + tuple(q.shape))
+        with span("fit.load"):
+            g.load(ts, time)
+            stack = q.new_empty((n_substeps,) + tuple(q.shape))
         segments = [_Segment(0, (ts.chunk_tile, ts.chunk_first,
                                  ts.chunk_live), aux.detach(), None)]
         times = []
@@ -1062,19 +1081,26 @@ class _FittingWindow(torch.autograd.Function):
             if perm is not None:
                 segments.append(_Segment(k, (s2.chunk_tile, s2.chunk_first,
                                              s2.chunk_live), s2.aux, perm))
-            stack[k].copy_(g.ts.q)
+            with span("fit.substep"):
+                stack[k].copy_(g.ts.q)
+                g.step()
             times.append(time)
-            g.step()
             time = _advance(time, g.dt)
         ctx.graphs, ctx.stack, ctx.segments, ctx.times = (
             g, stack, segments, times)
-        out = _tensors(g.state())
+        with span("fit.unpack"):
+            out = _tensors(g.state())
         ctx.mark_non_differentiable(*out[2:])
         return tuple(out)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dq, daux, *_):
+        with span("fit.adjoint"):
+            return _FittingWindow._backward(ctx, dq, daux)
+
+    @staticmethod
+    def _backward(ctx, dq, daux):
         g, segments = ctx.graphs, ctx.segments
         g.dq.copy_(dq)
         g.daux.copy_(daux)
@@ -1165,19 +1191,23 @@ def run_substeps_tiled_fitting(
     n = soa.mass.shape[0]
     if tc is None:
         tc = default_tile_config(grid.n_grid, n)
-    ts = bootstrap(soa, model, grid, tc)
+    with span("fit.load"):
+        ts = bootstrap(soa, model, grid, tc)
     if ts.q.device.type == "cuda" and torch.is_grad_enabled():
         ts = _fitting_window(ts, model, bcs, time, n_substeps, grid, tc, dt,
                              group)
         for _ in range(n_substeps):
             time = _advance(time, dt)
     else:
-        for _ in range(n_substeps):
-            ts = substep_tiled_fitting(ts, model, bcs, time, grid, tc, dt,
-                                       group=group)
-            time = _advance(time, dt)
-    q = to_original_order(ts, n)
-    return unpack_q(q, soa), time, ts.ok
+        with span("fit.forward"):
+            for _ in range(n_substeps):
+                with span("fit.substep"):
+                    ts = substep_tiled_fitting(ts, model, bcs, time, grid,
+                                               tc, dt, group=group)
+                time = _advance(time, dt)
+    with span("fit.unpack"):
+        q = to_original_order(ts, n)
+        return unpack_q(q, soa), time, ts.ok
 
 
 run_substeps_tiled_fitting.captures = run_substeps_tiled_fitting.replays = 0
